@@ -1,0 +1,1158 @@
+"""Streaming consensus callers on the card: BAM records in, consensus
+records out.
+
+The port of the JAX package's pipeline/calling.py, single-device
+plain-tensor route only (its transport='unpacked', mesh=None,
+layout='packed' or 'padded', emit='python'). Replaces the reference's two
+JVM consensus engines:
+
+* call_molecular_batches — `fgbio CallMolecularConsensusReads`
+  (main.snake.py:46-55)
+* call_duplex_batches    — the whole convert -> extend -> sort -> duplex
+  chain (main.snake.py:121-164) as one fused device stage
+
+Both stream MI families in bounded batches. Per batch the host encodes
+numpy tensors, copies them to the device, launches the vote (ops.cuda_vote)
+and the elementwise ops around it, records a CUDA event, and moves on:
+the batch retires (event sync timed as 'device_wait', one D2H copy timed as
+'fetch', then the record emit) only after the NEXT batch has been
+dispatched, so the device works while the host encodes and emits. Output
+order is the batch order, exactly as in the JAX package.
+
+Alignment modes for the emitted consensus:
+* 'unaligned' — parity with fgbio: unmapped records in sequencing
+  orientation, to be realigned externally.
+* 'self' — window-space consensus keeps genomic coordinates, so records
+  are emitted already aligned.
+
+Left for later slices of the port (each raises or is absent here): the
+wire transport, mesh sharding and the deep-family route (families above
+MAX_TEMPLATES templates are skipped and counted in
+StageStats.skipped_families and the 'deep_skipped_families' counter), the
+overlap and host pools, retry/degrade and failpoints, native ingest and
+emit, methylation, and duplex passthrough of leftover records.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Iterable, Iterator, Sequence
+
+import numpy as np
+import torch
+
+from bsseqconsensusreads_tpu_torch.alphabet import NBASE
+from bsseqconsensusreads_tpu_torch.faults.guard import MissingTagError
+from bsseqconsensusreads_tpu_torch.io.bam import (
+    CDEL,
+    CHARD_CLIP,
+    CINS,
+    CMATCH,
+    CSOFT_CLIP,
+    FMREVERSE,
+    FMUNMAP,
+    FPAIRED,
+    FPROPER_PAIR,
+    FREAD1,
+    FREAD2,
+    FREVERSE,
+    FUNMAP,
+    BamRecord,
+)
+from bsseqconsensusreads_tpu_torch.models.duplex import (
+    ROLE_STRAND_ROWS,
+    duplex_call_pipeline_packed,
+    unpack_duplex_outputs,
+)
+from bsseqconsensusreads_tpu_torch.models.molecular import (
+    molecular_base_counts,
+    molecular_consensus,
+    molecular_consensus_packed,
+    pack_molecular_outputs,
+    singleton_consensus_host,
+    sparsify_base_counts,
+    unpack_molecular_outputs,
+)
+from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+from bsseqconsensusreads_tpu_torch.ops import hosttwin
+from bsseqconsensusreads_tpu_torch.ops.encode import (
+    CONVERT_ROWS,
+    DUPLEX_ROW_OF_FLAG,
+    MAX_TEMPLATES,
+    bucket_templates,
+    codes_to_seq,
+    encode_duplex_families,
+    encode_molecular_families,
+    pack_molecular_rows,
+)
+from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
+from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
+
+_COMPLEMENT = str.maketrans("ACGTNacgtn", "TGCANtgcan")
+
+
+def _revcomp(seq: str) -> str:
+    return seq.translate(_COMPLEMENT)[::-1]
+
+
+@dataclass
+class StageStats:
+    """Observability for one streaming stage: record/family counts and the
+    per-phase wall-clock splits (metrics) that attribute a slow stage to
+    host tensorization, device work, or record building."""
+
+    stage: str = ""
+    records_in: int = 0
+    families: int = 0
+    consensus_out: int = 0
+    skipped_families: int = 0
+    leftover_records: int = 0
+    refragmented_families: int = 0
+    batches: int = 0
+    pad_cells: int = 0
+    used_cells: int = 0
+    wall_seconds: float = 0.0
+    metrics: Metrics = field(default_factory=Metrics)
+
+    # pad_cells/used_cells count DEVICE-ISSUED batches only (a batch the
+    # singleton host vote absorbed issues no device work); `used` counts
+    # real observation cells, the denominator is the rows actually issued
+
+    @property
+    def pad_waste(self) -> float:
+        total = self.pad_cells + self.used_cells
+        return self.pad_cells / total if total else 0.0
+
+    @property
+    def families_per_second(self) -> float:
+        return self.families / self.wall_seconds if self.wall_seconds else 0.0
+
+    def as_dict(self) -> dict:
+        device_s = sum(
+            v for k, v in self.metrics.seconds.items() if k in DEVICE_PHASES
+        )
+        return {
+            "records_in": self.records_in,
+            "families": self.families,
+            "consensus_out": self.consensus_out,
+            "skipped_families": self.skipped_families,
+            "leftover_records": self.leftover_records,
+            "refragmented_families": self.refragmented_families,
+            "batches": self.batches,
+            "pad_waste": round(self.pad_waste, 4),
+            "families_per_second": round(self.families_per_second, 1),
+            "wall_seconds": round(self.wall_seconds, 3),
+            "device_s": round(device_s, 3),
+            **self.metrics.as_dict(),
+        }
+
+
+def stream_mi_groups(
+    records: Iterable[BamRecord],
+    strip_suffix: bool = False,
+    grouping: str = "gather",
+    flush_margin: int = 10_000,
+    stats: StageStats | None = None,
+) -> Iterator[tuple[str, list[BamRecord]]]:
+    """Yield (mi, records) groups from a record stream.
+
+    grouping:
+    * 'gather'     — hold all groups until the stream ends; correct for any
+                     input order, memory O(file).
+    * 'adjacent'   — yield a group when the MI changes; O(1 family) memory;
+                     requires MI-grouped input.
+    * 'coordinate' — bounded memory for coordinate-sorted input: a group is
+                     flushed once the stream has moved flush_margin bases past
+                     its last read. A family that reappears after being
+                     flushed is processed as a second family and counted in
+                     stats.refragmented_families.
+
+    Records without an MI tag raise, matching the reference
+    (tools/2.extend_gap.py:180).
+    """
+
+    def mi_of(rec: BamRecord) -> str:
+        try:  # one tag parse per record, not a has_tag/get_tag pair
+            mi = rec.get_tag("MI")
+        except KeyError:
+            raise MissingTagError(rec.qname) from None
+        mi = str(mi)
+        return mi.split("/")[0] if strip_suffix else mi
+
+    if grouping == "gather":
+        groups: dict[str, list[BamRecord]] = {}
+        n = 0
+        for rec in records:
+            n += 1
+            groups.setdefault(mi_of(rec), []).append(rec)
+        if stats is not None:
+            stats.records_in += n
+        yield from groups.items()
+        return
+
+    if grouping == "adjacent":
+        current_mi: str | None = None
+        bucket: list[BamRecord] = []
+        seen: set[int] = set()  # hash(mi) — backs only the refragment counter
+        for rec in records:
+            if stats is not None:
+                stats.records_in += 1
+            mi = mi_of(rec)
+            if mi != current_mi:
+                if bucket:
+                    yield current_mi, bucket
+                if stats is not None:
+                    h = hash(mi)
+                    if h in seen:
+                        stats.refragmented_families += 1
+                    seen.add(h)
+                current_mi, bucket = mi, []
+            bucket.append(rec)
+        if bucket:
+            yield current_mi, bucket
+        return
+
+    if grouping != "coordinate":
+        raise ValueError(f"unknown grouping {grouping!r}")
+
+    open_groups: dict[str, list[BamRecord]] = {}
+    group_end: dict[str, tuple[int, int]] = {}  # mi -> (ref_id, max end)
+    flushed: set[int] = set()  # hash(mi)
+    # sweep open groups only after the stream advances a fraction of the
+    # margin (or changes contig): the JAX package's amortized flush rule,
+    # which fixes the group order both packages emit
+    sweep_stride = max(flush_margin // 4, 1)
+    last_sweep = (-1, -(1 << 62))
+    for rec in records:
+        if stats is not None:
+            stats.records_in += 1
+        mi = mi_of(rec)
+        pos = rec.pos
+        ref_id = rec.ref_id
+        if (
+            pos >= 0
+            and open_groups
+            and (ref_id != last_sweep[0] or pos - last_sweep[1] >= sweep_stride)
+        ):
+            done = [
+                g
+                for g, (rid, end) in group_end.items()
+                if rid != ref_id or end + flush_margin < pos
+            ]
+            for g in done:
+                yield g, open_groups.pop(g)
+                del group_end[g]
+                if stats is not None:
+                    flushed.add(hash(g))
+            last_sweep = (ref_id, pos)
+        if stats is not None and mi not in open_groups and hash(mi) in flushed:
+            stats.refragmented_families += 1
+        open_groups.setdefault(mi, []).append(rec)
+        if pos >= 0:
+            rid, end = group_end.get(mi, (ref_id, -1))
+            group_end[mi] = (ref_id, max(end, rec.reference_end))
+    yield from open_groups.items()
+
+
+def _timed_groups(groups, metrics: Metrics):
+    """Accumulate the time spent pulling groups (record decode + MI
+    grouping) under 'ingest'."""
+    while True:
+        with metrics.timed("ingest"):
+            try:
+                item = next(groups)
+            except StopIteration:
+                return
+        yield item
+
+
+def _group_batches(groups, size: int):
+    buf: list = []
+    for g in groups:
+        buf.append(g)
+        if len(buf) >= size:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _kept_template_count(records) -> int:
+    """Distinct qnames among records the encoder keeps (hardclipped and
+    indel reads never encode)."""
+    drop_ops = (CINS, CDEL, CHARD_CLIP)
+    return len({
+        r.qname for r in records
+        if not any(op in drop_ops for op, _ in r.cigar)
+    })
+
+
+def _group_batches_bucketed(groups, size: int):
+    """Depth-homogeneous chunking for the molecular stage: families
+    accumulate per template bucket (ops.encode.bucket_templates of the
+    kept-qname count) and a chunk is emitted when its bucket fills (at
+    `size` families or size*8 records), remaining buckets in bucket order
+    at the end — the JAX package's chunk composition, so both packages cut
+    identical batches."""
+    pending: dict[int, list] = {}
+    counts: dict[int, int] = {}
+    max_records = size * 8
+    for g in groups:
+        _, records = g
+        b = bucket_templates(_kept_template_count(records))
+        lst = pending.setdefault(b, [])
+        lst.append(g)
+        counts[b] = counts.get(b, 0) + len(records)
+        if len(lst) >= size or counts[b] >= max_records:
+            yield pending.pop(b)
+            counts.pop(b)
+    for b in sorted(pending):
+        yield pending[b]
+
+
+def _split_deep(chunk, threshold: int):
+    """(normal, deep) families: deep ones have more than `threshold` kept
+    templates. Families with <= threshold records skip the CIGAR scan."""
+    normal, deep = [], []
+    for g in chunk:
+        _, records = g
+        if len(records) > threshold and _kept_template_count(records) > threshold:
+            deep.append(g)
+        else:
+            normal.append(g)
+    return normal, deep
+
+
+def _pipelined(events):
+    """Dispatch/retire software pipeline shared by the batch callers.
+
+    `events` yields one ("now", records) or ("deferred", retire_fn) item per
+    input chunk. A "deferred" retire (event sync + D2H copy + record emit
+    of an already-dispatched batch) is held until the next batch has been
+    dispatched; "now" results first drain the held retire. Exactly one
+    yield per event, in event order."""
+    pending = None
+    for kind, payload in events:
+        if pending is not None:
+            held, pending = pending, None
+            yield held()
+        if kind == "deferred":
+            pending = payload
+        else:
+            yield payload
+    if pending is not None:
+        yield pending()
+
+
+class _Inflight:
+    """One dispatched batch: its device output wire and the CUDA event
+    recorded after its last launch (None on the CPU)."""
+
+    __slots__ = ("wire", "event")
+
+    def __init__(self, wire: torch.Tensor):
+        self.wire = wire
+        self.event = None
+        if wire.device.type == "cuda":
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(wire.device))
+
+    def fetch(self, metrics: Metrics) -> np.ndarray:
+        """Wait for the device ('device_wait': the device still owned the
+        batch), then copy the wire to the host ('fetch')."""
+        if self.event is not None:
+            with metrics.timed("device_wait"):
+                self.event.synchronize()
+        with metrics.timed("fetch"):
+            return self.wire.cpu().numpy()
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _batch_spans(depth):
+    """Per-(family, role) covered-span digest of one retired batch: (has,
+    first, last, span_mask) — the contiguous [first, last] covered window
+    every emitter slices (interior no-call columns included)."""
+    pres = np.asarray(depth) > 0
+    w = pres.shape[-1]
+    has = pres.any(axis=-1)
+    first = pres.argmax(axis=-1)
+    last = w - 1 - pres[..., ::-1].argmax(axis=-1)
+    idx = np.arange(w)
+    span = (idx >= first[..., None]) & (idx <= last[..., None])
+    return has, first, last, span
+
+
+def _span_stats(arr, span):
+    """(max, min, sum int64) over the covered span per (family, role).
+    Rows without coverage return sentinel garbage; callers skip them."""
+    a = np.asarray(arr)
+    s = np.where(span, a, 0).sum(axis=-1, dtype=np.int64)
+    mx = np.where(span, a, np.int32(-(1 << 30))).max(axis=-1)
+    mn = np.where(span, a, np.int32(1 << 30)).min(axis=-1)
+    return mx, mn, s
+
+
+def _consensus_tags(depth_arr, err_arr, mi, rx, bcount=None,
+                    flip: bool = False, pre=None):
+    """The consensus tag block fgbio emits: cD/cM/cE + per-base cd/ce.
+
+    pre: optional (dmax, dmin, dtot, etot) ints precomputed by the
+    batch-level _span_stats pass. bcount (uint16 [4, n] or None) adds the
+    cB raw base histogram — 4 plane-major runs of per-base counts (A,C,G,T
+    order), the duplex stage's input for exact raw-unit errors. flip: the
+    record is emitted reverse-complemented — per-base arrays reverse with
+    the SEQ and the histogram's base planes complement."""
+    depth_arr = np.asarray(depth_arr)
+    err_arr = np.asarray(err_arr)
+    if flip:
+        depth_arr = depth_arr[::-1]
+        err_arr = err_arr[::-1]
+        if bcount is not None:
+            bcount = bcount[::-1, ::-1]  # complement planes + reverse cols
+    if pre is not None:
+        dmax, dmin, total, errs = pre
+    else:
+        total = int(depth_arr.sum(dtype=np.int64))
+        errs = int(err_arr.sum(dtype=np.int64))
+        dmax = int(depth_arr.max()) if depth_arr.size else 0
+        dmin = int(depth_arr.min()) if depth_arr.size else 0
+    tags = {
+        "MI": ("Z", mi),
+        "cD": ("i", dmax),
+        "cM": ("i", dmin),
+        "cE": ("f", errs / total if total else 0.0),
+        "cd": ("B", ("S", np.ascontiguousarray(depth_arr))),
+        "ce": ("B", ("S", np.ascontiguousarray(err_arr))),
+    }
+    if bcount is not None:
+        flat = np.ascontiguousarray(bcount).reshape(-1)
+        # uint8 subtype when every count fits, u16 otherwise
+        sub = "C" if (flat.size == 0 or int(flat.max()) < 256) else "S"
+        tags["cB"] = ("B", (sub, flat))
+    if rx:
+        tags["RX"] = ("Z", rx)
+    return tags
+
+
+def _emit_read(
+    *,
+    qname: str,
+    role: int,
+    seq_fwd: str,
+    quals_fwd: bytes,
+    tags: dict,
+    mode: str,
+    reverse: bool,
+    ref_id: int,
+    pos: int,
+    mate_pos: int,
+    mate_reverse: bool,
+    tlen: int,
+) -> BamRecord:
+    """Build one consensus record in either alignment mode."""
+    role_flag = FREAD2 if role else FREAD1
+    if mode == "self":
+        mate_exists = mate_pos >= 0
+        flag = FPAIRED | role_flag
+        if mate_exists:
+            flag |= FPROPER_PAIR
+            if mate_reverse:
+                flag |= FMREVERSE
+        else:
+            flag |= FMUNMAP
+        if reverse:
+            flag |= FREVERSE
+        return BamRecord(
+            qname=qname,
+            flag=flag,
+            ref_id=ref_id,
+            pos=pos,
+            mapq=60,
+            cigar=[(CMATCH, len(seq_fwd))],
+            next_ref_id=ref_id if mate_exists else -1,
+            next_pos=mate_pos if mate_exists else -1,
+            tlen=tlen,
+            seq=seq_fwd,
+            qual=quals_fwd,
+            tags=tags,
+        )
+    seq = _revcomp(seq_fwd) if reverse else seq_fwd
+    qual = quals_fwd[::-1] if reverse else quals_fwd
+    return BamRecord(
+        qname=qname,
+        flag=FPAIRED | FUNMAP | FMUNMAP | role_flag,
+        ref_id=-1,
+        pos=-1,
+        mapq=0,
+        cigar=[],
+        next_ref_id=-1,
+        next_pos=-1,
+        tlen=0,
+        seq=seq,
+        qual=qual,
+        tags=tags,
+    )
+
+
+def _emit_molecular_batch(batch, out, params, mode, stats) -> list[BamRecord]:
+    """Build consensus records (with the sparse cB histogram) from one
+    molecular output batch."""
+    base = np.asarray(out["base"])
+    qual = np.asarray(out["qual"])
+    depth = np.asarray(out["depth"])
+    errors = np.asarray(out["errors"])
+    bcounts = out.get("bcount")  # the singleton pass tallied it already
+    if bcounts is None:
+        bcounts = molecular_base_counts(batch.bases, batch.quals, params)
+    bcounts = sparsify_base_counts(bcounts, out["base"])
+    has, first, last, span = _batch_spans(depth)
+    dmax, dmin, dtot = _span_stats(depth, span)
+    _emx, _emn, etot = _span_stats(errors, span)
+    n_reads_fam = (batch.bases != NBASE).any(axis=-1).sum(axis=(-2, -1))
+    emitted: list[BamRecord] = []
+    for fi, meta in enumerate(batch.meta):
+        stats.families += 1
+        if int(n_reads_fam[fi]) < params.min_reads:
+            stats.skipped_families += 1
+            continue
+        starts = [
+            meta.window_start + int(first[fi, r]) if has[fi, r] else -1
+            for r in range(2)
+        ]
+        for role in range(2):
+            if not has[fi, role]:
+                continue
+            # CONTIGUOUS span [first, last] covered column: interior
+            # no-call columns emit as N/qual-2 like fgbio's consensus reads
+            sl = slice(int(first[fi, role]), int(last[fi, role]) + 1)
+            seq_fwd = codes_to_seq(base[fi, role, sl])
+            quals_fwd = qual[fi, role, sl].astype(np.uint8, copy=False).tobytes()
+            tags = _consensus_tags(
+                depth[fi, role, sl], errors[fi, role, sl], meta.mi, meta.rx,
+                bcount=bcounts[fi, role, :, sl],
+                flip=mode != "self" and bool(meta.role_reverse[role]),
+                pre=(
+                    int(dmax[fi, role]), int(dmin[fi, role]),
+                    int(dtot[fi, role]), int(etot[fi, role]),
+                ),
+            )
+            other = 1 - role
+            tlen = 0
+            if starts[0] >= 0 and starts[1] >= 0:
+                lo = min(starts)
+                hi = max(
+                    meta.window_start + int(last[fi, r]) + 1 for r in range(2)
+                )
+                tlen = (hi - lo) if starts[role] == lo else -(hi - lo)
+            emitted.append(_emit_read(
+                qname=meta.mi,
+                role=role,
+                seq_fwd=seq_fwd,
+                quals_fwd=quals_fwd,
+                tags=tags,
+                mode=mode,
+                reverse=meta.role_reverse[role],
+                ref_id=meta.ref_id,
+                pos=starts[role],
+                mate_pos=starts[other],
+                mate_reverse=meta.role_reverse[other],
+                tlen=tlen,
+            ))
+            stats.consensus_out += 1
+    return emitted
+
+
+def call_molecular_batches(
+    records: Iterable[BamRecord],
+    params: ConsensusParams = ConsensusParams(min_reads=1),
+    mode: str = "unaligned",
+    batch_families: int = 512,
+    max_window: int = 4096,
+    grouping: str = "gather",
+    stats: StageStats | None = None,
+    batching: str = "bucketed",
+    layout: str = "packed",
+    device=None,
+) -> Iterator[list]:
+    """Molecular (single-strand) consensus over MI families, one list of
+    consensus records per batch.
+
+    batching: 'bucketed' (default) groups families into depth-homogeneous
+    chunks per template bucket; 'sequential' chunks in input order.
+    layout: 'packed' votes segment-packed rows (ops.encode
+    .pack_molecular_rows — one seg_vote launch with ragged offsets),
+    'padded' the [F, T, 2, W] envelope (offsets k * T); identical output.
+    T == 1 batches (the cfDNA majority) take the singleton host path
+    (models.molecular.singleton_consensus_host), timed as 'host_vote'.
+
+    Every record carries the cB raw base histogram tag — the duplex
+    stage's input for exact raw-unit errors. min_reads filters whole
+    families by raw read count. device: 'cuda' (default) or 'cpu'; no
+    silent fallback.
+    """
+    device = resolve_device(device)
+    if layout not in ("packed", "padded"):
+        raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
+    stats = stats if stats is not None else StageStats(stage="molecular")
+    t0 = time.monotonic()
+    groups = _timed_groups(
+        stream_mi_groups(records, grouping=grouping, stats=stats), stats.metrics
+    )
+    if batching == "bucketed":
+        chunks = _group_batches_bucketed(groups, batch_families)
+    elif batching == "sequential":
+        chunks = _group_batches(groups, batch_families)
+    else:
+        raise ValueError(
+            f"unknown batching {batching!r} (want 'bucketed'|'sequential')"
+        )
+
+    def dispatch(batch):
+        """H2D copies + the vote launch; returns (in-flight wire, padded f)."""
+        pk = batch.packed
+        if pk is not None:
+            out = molecular_consensus_packed(
+                _to_device(pk.bases, device), _to_device(pk.quals, device),
+                _to_device(pk.seg, device), pk.num_families, params,
+            )
+            pf = pk.num_families
+        else:
+            out = molecular_consensus(
+                _to_device(batch.bases, device), _to_device(batch.quals, device),
+                params,
+            )
+            pf = batch.bases.shape[0]
+        return _Inflight(pack_molecular_outputs(out)), pf
+
+    def emit_out(out, batch):
+        with stats.metrics.timed("emit"):
+            return _emit_molecular_batch(batch, out, params, mode, stats)
+
+    def retire(inflight, pf, batch):
+        f, w = batch.bases.shape[0], batch.bases.shape[-1]
+        host = inflight.fetch(stats.metrics)
+        out = unpack_molecular_outputs(host, f=pf, w=w)
+        return emit_out({k: v[:f] for k, v in out.items()}, batch)
+
+    def events():
+        for chunk in chunks:
+            normal, deep = _split_deep(chunk, MAX_TEMPLATES)
+            if deep:
+                stats.skipped_families += len(deep)
+                stats.metrics.count("deep_skipped_families", len(deep))
+            with stats.metrics.timed("encode"):
+                batch, skipped = encode_molecular_families(
+                    normal, max_window=max_window
+                )
+                singleton = batch.bases.shape[1] == 1
+                if layout == "packed" and batch.meta and not singleton:
+                    batch.packed = pack_molecular_rows(batch)
+            stats.skipped_families += len(skipped)
+            if not batch.meta:
+                yield "now", []
+                continue
+            stats.batches += 1
+            if singleton:
+                with stats.metrics.timed("host_vote"):
+                    out = singleton_consensus_host(
+                        batch.bases, batch.quals, params, device,
+                        with_histogram=True,
+                    )
+                yield "deferred", partial(emit_out, out, batch)
+                continue
+            issued = batch.packed.bases if batch.packed is not None else batch.bases
+            used = int((issued != NBASE).sum())
+            stats.pad_cells += issued.size - used
+            stats.used_cells += used
+            with stats.metrics.timed("kernel"):
+                inflight, pf = dispatch(batch)
+            yield "deferred", partial(retire, inflight, pf, batch)
+
+    yield from _pipelined(events())
+    stats.wall_seconds += time.monotonic() - t0
+
+
+def _duplex_sidecar(chunk, pos0: str = "skip") -> dict:
+    """Raw per-strand depth/error arrays for the duplex emitters.
+
+    The duplex stage's input records are molecular consensus reads whose
+    cd/ce tags carry RAW per-read depths/errors — what fgbio's duplex
+    caller reports in ad/bd/cd. Capture them per family BEFORE encode
+    consumes the records: {mi: [{row: (pos, cd, ce, cb)}, ...]} — one dict
+    per chunk occurrence of the MI — with row = DUPLEX_ROW_OF_FLAG and
+    arrays softclip-trimmed into the register the encoder places (incl.
+    the pos0='shift' one-column displacement). Records without cd/ce are
+    absent; the emitters fall back to presence units there.
+    """
+    side: dict = {}
+    for mi, records in chunk:
+        rows: dict = {}
+        for rec in records:
+            row = DUPLEX_ROW_OF_FLAG.get(rec.flag)
+            if row is None or row in rows:
+                continue
+            try:
+                _sub, cd = rec.get_tag("cd")
+                _sub, ce = rec.get_tag("ce")
+            except (KeyError, TypeError, ValueError):
+                continue
+            cd = np.asarray(cd, dtype=np.uint16)
+            ce = np.asarray(ce, dtype=np.uint16)
+            cbflat = None
+            try:
+                _sub, cbv = rec.get_tag("cB")
+                cbflat = np.asarray(cbv, dtype=np.uint16)
+            except (KeyError, TypeError, ValueError):
+                pass
+            cigar = rec.cigar
+            if any(op == CHARD_CLIP for op, _ in cigar):
+                continue
+            lead = cigar[0][1] if cigar and cigar[0][0] == CSOFT_CLIP else 0
+            trail = (
+                cigar[-1][1]
+                if len(cigar) > 1 and cigar[-1][0] == CSOFT_CLIP
+                else 0
+            )
+            n = len(cd)
+            if len(ce) != n or n <= lead + trail:
+                continue
+            pos = rec.pos
+            if pos0 == "shift" and pos == 0 and row in CONVERT_ROWS:
+                pos = 1  # mirror the encoder's register-shift placement
+            end = n - trail
+            # cB raw base DISSENT histogram (4 plane-major runs, call plane
+            # zero): the exact-ce input; absent/malformed -> None
+            cb = None
+            if cbflat is not None and cbflat.size == 4 * n:
+                cb = cbflat.reshape(4, n)[:, lead:end]
+            rows[row] = (pos, cd[lead:end], ce[lead:end], cb)
+        if rows:
+            side.setdefault(mi, []).append(rows)
+    return side
+
+
+def _place_raw(entry, presence, window_start, w):
+    """One strand's raw per-base array into window space [w], masked and
+    edge-filled against the kernel's presence plane: columns the kernel
+    says the strand covered but the raw array does not (the conversion
+    prepend / extend-gap boundary columns) take the nearest raw value."""
+    pos, arr = entry
+    out = np.zeros(w, dtype=np.int32)
+    off = pos - window_start
+    lo, hi = max(off, 0), min(off + len(arr), w)
+    if hi > lo:
+        out[lo:hi] = arr[lo - off : hi - off]
+    halo = presence & (out == 0)
+    if halo.any() and hi > lo:
+        idx = np.nonzero(halo)[0]
+        out[idx] = out[np.clip(idx, lo, hi - 1)]
+    return np.where(presence, out, 0)
+
+
+def _sidecar_rows_for(meta, sidecar: dict, w: int):
+    """The sidecar occurrence whose reads intersect this meta's window."""
+    for cand in sidecar.get(meta.mi, ()):
+        if any(
+            pos < meta.window_start + w and pos + len(cd) > meta.window_start
+            for pos, cd, *_rest in cand.values()
+        ):
+            return cand
+    return None
+
+
+def _duplex_rawize(out: dict, batch, sidecar: dict, ref) -> dict:
+    """Raw-unit + strand-call enrichment of one retired duplex batch, on
+    the host (the numpy route of the JAX package's _duplex_rawize, with
+    its default strand_tags=True; ref is the batch's [F, W+1] reference
+    windows):
+
+    1. STRAND CALLS: per-strand consensus call planes
+       a_call/b_call [F, 2, W] from the host twin of the convert/extend
+       transforms (ops.hosttwin.strand_call_planes), masked by the
+       kernel's per-strand presence bits — the ac/bc tags.
+    2. RAW DEPTHS: ad/bd become raw per-read strand depths wherever the
+       sidecar carries the molecular cd arrays, cd their sum; a_err/b_err
+       hold raw-unit per-strand error counts (err-bit split rule).
+    3. EXACT ERRORS: wherever the sidecar also carries the molecular cB
+       histogram, per-strand errors are recomputed exactly against the
+       DUPLEX call (_exact_strand_errors).
+
+    Families absent from the sidecar keep presence units; rows without
+    cB keep the err-bit rule."""
+    f, _, w = np.asarray(out["a_depth"]).shape
+    a_pres = np.asarray(out["a_depth"]) > 0
+    b_pres = np.asarray(out["b_depth"]) > 0
+    a_errbit = np.asarray(out["a_err"]) > 0
+    b_errbit = np.asarray(out["b_err"]) > 0
+    calls, _ccov = hosttwin.strand_call_planes(
+        batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
+    )
+    out = dict(out)
+    rows_a = [p[0] for p in ROLE_STRAND_ROWS]
+    rows_b = [p[1] for p in ROLE_STRAND_ROWS]
+    out["a_call"] = np.where(a_pres, calls[:, rows_a, :], np.int8(NBASE)).astype(np.int8)
+    out["b_call"] = np.where(b_pres, calls[:, rows_b, :], np.int8(NBASE)).astype(np.int8)
+    if not sidecar:
+        return out
+
+    ex_has = np.zeros((f, 4), bool)
+    raw_rows = np.zeros((f, 4), bool)  # rows with sidecar cd (raw units)
+    ex_fi: list[int] = []
+    ex_row: list[int] = []
+    ex_off: list[int] = []
+    ex_cbs: list[np.ndarray] = []
+
+    def collect_exact(fi, row, pos, wstart, cb) -> None:
+        raw_rows[fi, row] = True
+        if cb is None:
+            return
+        ex_has[fi, row] = True
+        ex_fi.append(fi)
+        ex_row.append(row)
+        ex_off.append(pos - wstart)
+        ex_cbs.append(cb)
+
+    a_e = np.asarray(out["a_err"])
+    b_e = np.asarray(out["b_err"])
+    ad = a_pres.astype(np.int32)
+    bd = b_pres.astype(np.int32)
+    ae = a_e.astype(np.int32).copy()
+    be = b_e.astype(np.int32).copy()
+    for fi, meta in enumerate(batch.meta):
+        rows = _sidecar_rows_for(meta, sidecar, w)
+        if not rows:
+            continue
+        for role in range(2):
+            a_row, b_row = ROLE_STRAND_ROWS[role]
+            for row, dplane, eplane, errbit in (
+                (a_row, ad, ae, a_e), (b_row, bd, be, b_e),
+            ):
+                entry = rows.get(row)
+                if entry is None:
+                    continue
+                collect_exact(fi, row, entry[0], meta.window_start, entry[3])
+                pres = dplane[fi, role] > 0
+                raw_d = _place_raw(entry[:2], pres, meta.window_start, w)
+                raw_e = _place_raw((entry[0], entry[2]), pres, meta.window_start, w)
+                # strand disagrees with the duplex call -> its agreeing raw
+                # reads are the errors (rows with cB are recomputed below)
+                disagree = errbit[fi, role] > 0
+                dplane[fi, role] = raw_d
+                eplane[fi, role] = np.clip(
+                    np.where(disagree, raw_d - raw_e, raw_e), 0, None
+                )
+    raw = dict(out)
+    raw["a_depth"], raw["b_depth"] = ad.astype(np.int16), bd.astype(np.int16)
+    raw["a_err"], raw["b_err"] = ae.astype(np.int16), be.astype(np.int16)
+    raw["depth"] = (ad + bd).astype(np.int16)
+    raw["errors"] = (ae + be).astype(np.int16)
+    # fgbio's ae/be tag surface: per-base STRAND-consensus error counts
+    # (raw reads disagreeing with the strand's OWN call), computed BEFORE
+    # the exact pass overwrites a_err/b_err. ss_valid gates emission per
+    # (family, role): a COVERED strand without sidecar cd has no raw error
+    # information, and the tags are omitted there.
+    for pk, ek, eb in (
+        ("a_depth", "a_err", a_errbit), ("b_depth", "b_err", b_errbit)
+    ):
+        ad_p = np.asarray(raw[pk]).astype(np.int32)
+        ae_p = np.asarray(raw[ek]).astype(np.int32)
+        raw["a_ss_err" if pk[0] == "a" else "b_ss_err"] = np.clip(
+            np.where(eb, ad_p - ae_p, ae_p), 0, None
+        ).astype(np.int16)
+    ss_valid = np.zeros((f, 2), bool)
+    for role, (a_row, b_row) in enumerate(ROLE_STRAND_ROWS):
+        a_any = a_pres[:, role, :].any(axis=1)
+        b_any = b_pres[:, role, :].any(axis=1)
+        ss_valid[:, role] = (raw_rows[:, a_row] | ~a_any) & (
+            raw_rows[:, b_row] | ~b_any
+        )
+    raw["ss_valid"] = ss_valid
+    if ex_has.any():
+        raw = _exact_strand_errors(
+            raw, batch, (a_pres, b_pres), calls, ref,
+            w, ex_has, ex_fi, ex_row, ex_off, ex_cbs,
+        )
+    return raw
+
+
+def _exact_strand_errors(out: dict, batch, presence, calls, ref,
+                         w: int, has, e_fi, e_row, e_off, cbs) -> dict:
+    """Pass 3 of _duplex_rawize: exact per-strand raw error counts.
+
+    For every sidecar row carrying the molecular cB DISSENT histogram, per
+    column: ae = ad - cnt_match, where cnt_match = [strand's converted call
+    == duplex call] * (ad - placed_ce) + the dissent cells whose
+    conversion-mapped base (ops.hosttwin.convert_cell) equals the duplex
+    call."""
+    base = np.asarray(out["base"])
+    f = base.shape[0]
+    bases_raw = np.asarray(batch.bases)
+    cover_raw = np.asarray(batch.cover)
+    cmask = np.asarray(batch.convert_mask, bool)
+    ref = np.asarray(ref)
+    dissent = np.zeros((f, 4, w), np.int32)
+    cb_all = (
+        np.concatenate(cbs, axis=1) if cbs else np.zeros((4, 0), np.uint16)
+    )
+    pl_nz, el_nz = np.nonzero(cb_all)  # dissent cells are sparse
+    if len(pl_nz):
+        lens = np.fromiter((cb.shape[1] for cb in cbs), np.int64, len(cbs))
+        cum = np.cumsum(lens)
+        ent = np.searchsorted(cum, el_nz, side="right")
+        fi_e = np.asarray(e_fi, dtype=np.int64)[ent]
+        row_e = np.asarray(e_row, dtype=np.int64)[ent]
+        col_e = np.asarray(e_off, dtype=np.int64)[ent] + (
+            el_nz - (cum - lens)[ent]
+        )
+        x_e = pl_nz.astype(np.int8)
+        v_e = cb_all[pl_nz, el_nz].astype(np.int32)
+        inw = (col_e >= 0) & (col_e < w)
+        fi_e, row_e, col_e = fi_e[inw], row_e[inw], col_e[inw]
+        x_e, v_e = x_e[inw], v_e[inw]
+        act = cmask[fi_e, row_e]
+        refc = ref[fi_e, col_e]
+        refn = ref[fi_e, col_e + 1]  # ref is [F, W+1]
+        nxt_ok = col_e + 1 < w
+        safe_n = np.minimum(col_e + 1, w - 1)
+        nxt = np.where(nxt_ok, bases_raw[fi_e, row_e, safe_n], NBASE)
+        nxtcov = np.where(nxt_ok, cover_raw[fi_e, row_e, safe_n], False)
+        m = hosttwin.convert_cell(x_e, act, refc, refn, nxt, nxtcov)
+        role_of_row = np.empty(4, np.int64)
+        for role, (ar, br) in enumerate(ROLE_STRAND_ROWS):
+            role_of_row[ar] = role
+            role_of_row[br] = role
+        role_e = role_of_row[row_e]
+        callv = base[fi_e, role_e, col_e]
+        match = (m == callv) & (callv != NBASE)
+        np.add.at(
+            dissent,
+            (fi_e[match], row_e[match], col_e[match]),
+            v_e[match],
+        )
+    a_pres, b_pres = presence
+    for role, (a_row, b_row) in enumerate(ROLE_STRAND_ROWS):
+        for srow, dkey, ekey, sskey, pres in (
+            (a_row, "a_depth", "a_err", "a_ss_err", a_pres),
+            (b_row, "b_depth", "b_err", "b_ss_err", b_pres),
+        ):
+            hb = has[:, srow]
+            if not hb.any():
+                continue
+            ad = np.asarray(out[dkey])[:, role, :].astype(np.int32)
+            placed_ce = np.asarray(out[sskey])[:, role, :].astype(np.int32)
+            agree = calls[:, srow, :] == base[:, role, :]
+            cnt = np.where(agree, ad - placed_ce, 0) + dissent[:, srow, :]
+            prole = pres[:, role, :]
+            upd = hb[:, None] & prole & (base[:, role, :] != NBASE)
+            ae_new = np.clip(ad - cnt, 0, None)
+            cur = np.asarray(out[ekey])
+            cur[:, role, :] = np.where(upd, ae_new, cur[:, role, :]).astype(
+                cur.dtype
+            )
+    out["errors"] = (
+        np.asarray(out["a_err"]).astype(np.int32)
+        + np.asarray(out["b_err"]).astype(np.int32)
+    ).astype(np.int16)
+    return out
+
+
+def _emit_duplex_batch(batch, out, params, mode, stats) -> list[BamRecord]:
+    """Decode one retired duplex batch into consensus BamRecords."""
+    base = out["base"]
+    qual = out["qual"]
+    depth = out["depth"]
+    errors = out["errors"]
+    a_depth = out["a_depth"]
+    b_depth = out["b_depth"]
+    has, first, last, span = _batch_spans(depth)
+    dmax, dmin, dtot = _span_stats(depth, span)
+    _emx, _emn, etot = _span_stats(errors, span)
+    amax, amin, atot = _span_stats(a_depth, span)
+    bmax, bmin, btot = _span_stats(b_depth, span)
+    have_ss = "a_ss_err" in out
+    if have_ss:
+        _x, _n, asetot = _span_stats(out["a_ss_err"], span)
+        _x, _n, bsetot = _span_stats(out["b_ss_err"], span)
+    emitted: list[BamRecord] = []
+    for fi, meta in enumerate(batch.meta):
+        stats.families += 1
+        if meta.n_templates < params.min_reads:
+            # family-level --min-reads filter (0 in the reference's
+            # configuration = emit everything, README.md:9)
+            stats.skipped_families += 1
+            continue
+        starts = [
+            meta.window_start + int(first[fi, r]) if has[fi, r] else -1
+            for r in range(2)
+        ]
+        for role in range(2):
+            if not has[fi, role]:
+                continue
+            sl = slice(int(first[fi, role]), int(last[fi, role]) + 1)
+            seq_fwd = codes_to_seq(base[fi, role, sl])
+            quals_fwd = qual[fi, role, sl].astype(np.uint8, copy=False).tobytes()
+            flip = mode != "self" and bool(role)
+            tags = _consensus_tags(
+                depth[fi, role, sl], errors[fi, role, sl], meta.mi, meta.rx,
+                flip=flip,
+                pre=(
+                    int(dmax[fi, role]), int(dmin[fi, role]),
+                    int(dtot[fi, role]), int(etot[fi, role]),
+                ),
+            )
+            # fgbio duplex per-strand tag surface: aD/bD max depth, aM/bM
+            # min depth, ad/bd per-base depth arrays — raw per-read strand
+            # units when the input carried the molecular cd/ce tags,
+            # presence units (0/1) otherwise; per-base arrays follow the
+            # emitted SEQ orientation
+            a_cov = a_depth[fi, role, sl]
+            b_cov = b_depth[fi, role, sl]
+            if flip:
+                a_cov, b_cov = a_cov[::-1], b_cov[::-1]
+            tags["aD"] = ("i", int(amax[fi, role]))
+            tags["bD"] = ("i", int(bmax[fi, role]))
+            tags["aM"] = ("i", int(amin[fi, role]))
+            tags["bM"] = ("i", int(bmin[fi, role]))
+            emit_ss = have_ss and bool(np.asarray(out["ss_valid"])[fi, role])
+            if emit_ss:
+                # aE/bE read-level rates + ae/be per-base counts, in
+                # STRAND-vs-own-call units
+                a_se = np.asarray(out["a_ss_err"])[fi, role, sl]
+                b_se = np.asarray(out["b_ss_err"])[fi, role, sl]
+                if flip:
+                    a_se, b_se = a_se[::-1], b_se[::-1]
+                a_tot = int(atot[fi, role])
+                b_tot = int(btot[fi, role])
+                tags["aE"] = (
+                    "f", int(asetot[fi, role]) / a_tot if a_tot else 0.0
+                )
+                tags["bE"] = (
+                    "f", int(bsetot[fi, role]) / b_tot if b_tot else 0.0
+                )
+            tags["ad"] = ("B", ("S", np.ascontiguousarray(a_cov)))
+            tags["bd"] = ("B", ("S", np.ascontiguousarray(b_cov)))
+            if emit_ss:
+                tags["ae"] = ("B", ("S", np.ascontiguousarray(a_se)))
+                tags["be"] = ("B", ("S", np.ascontiguousarray(b_se)))
+            if "a_call" in out:
+                # per-strand consensus call strings (fgbio's ac/bc)
+                ac = codes_to_seq(out["a_call"][fi, role, sl])
+                bc = codes_to_seq(out["b_call"][fi, role, sl])
+                if flip:
+                    ac, bc = _revcomp(ac), _revcomp(bc)
+                tags["ac"] = ("Z", ac)
+                tags["bc"] = ("Z", bc)
+            other = 1 - role
+            tlen = 0
+            if starts[0] >= 0 and starts[1] >= 0:
+                lo = min(starts)
+                hi = max(
+                    meta.window_start + int(last[fi, r]) + 1 for r in range(2)
+                )
+                tlen = (hi - lo) if starts[role] == lo else -(hi - lo)
+            # duplex R1 merges the forward-mapped pair (99,163): emit
+            # forward; duplex R2 merges the reverse pair (83,147)
+            emitted.append(_emit_read(
+                qname=meta.mi,
+                role=role,
+                seq_fwd=seq_fwd,
+                quals_fwd=quals_fwd,
+                tags=tags,
+                mode=mode,
+                reverse=bool(role),
+                ref_id=meta.ref_id,
+                pos=starts[role],
+                mate_pos=starts[other],
+                mate_reverse=not bool(role),
+                tlen=tlen,
+            ))
+            stats.consensus_out += 1
+    return emitted
+
+
+def call_duplex_batches(
+    records: Iterable[BamRecord],
+    ref_fetch,
+    ref_names: Sequence[str],
+    params: ConsensusParams = ConsensusParams(min_reads=0),
+    mode: str = "unaligned",
+    batch_families: int = 512,
+    max_window: int = 4096,
+    grouping: str = "gather",
+    stats: StageStats | None = None,
+    pos0: str = "skip",
+    device=None,
+) -> Iterator[list]:
+    """The fused duplex stage: convert + extend + duplex merge per MI
+    group on the device, one list of consensus records per batch.
+
+    Input: the aligned molecular consensus BAM, or call_molecular_batches
+    (mode='self') output directly. min_reads=0 emits every group. Records
+    that cannot be tensorized (flags outside {99,163,83,147}, duplicate
+    flags, indel reads) are counted as leftovers and dropped (the JAX
+    package's default; its passthrough option is a later slice).
+
+    pos0: conversion-prepend behavior for reads mapped at reference
+    position 0 — 'skip' (default, documented deviation) or 'shift'
+    (exact reference parity incl. the register shift). device: 'cuda'
+    (default) or 'cpu'; no silent fallback.
+    """
+    device = resolve_device(device)
+    stats = stats if stats is not None else StageStats(stage="duplex")
+    t0 = time.monotonic()
+    groups = _timed_groups(
+        stream_mi_groups(records, strip_suffix=True, grouping=grouping, stats=stats),
+        stats.metrics,
+    )
+
+    def dispatch(batch):
+        """H2D copies + the fused convert/extend/merge; returns the
+        in-flight output wire."""
+        wire, _la, _rd = duplex_call_pipeline_packed(
+            _to_device(batch.bases, device),
+            _to_device(batch.quals.astype(np.int16), device),
+            _to_device(batch.cover, device),
+            _to_device(batch.ref, device),
+            _to_device(batch.convert_mask, device),
+            _to_device(batch.extend_eligible, device),
+            params=params,
+        )
+        return _Inflight(wire)
+
+    def retire(inflight, batch, sidecar):
+        f, w = batch.bases.shape[0], batch.bases.shape[-1]
+        host = inflight.fetch(stats.metrics)
+        out = unpack_duplex_outputs(host, f=f, w=w)
+        with stats.metrics.timed("rawize"):
+            out = _duplex_rawize(out, batch, sidecar, batch.ref)
+        with stats.metrics.timed("emit"):
+            return _emit_duplex_batch(batch, out, params, mode, stats)
+
+    def events():
+        for chunk in _group_batches(groups, batch_families):
+            with stats.metrics.timed("encode"):
+                batch, leftovers, skipped = encode_duplex_families(
+                    chunk, ref_fetch, ref_names, max_window=max_window,
+                    pos0=pos0,
+                )
+                sidecar = _duplex_sidecar(chunk, pos0=pos0) if batch.meta else None
+            stats.skipped_families += len(skipped)
+            stats.leftover_records += len(leftovers)
+            if not batch.meta:
+                yield "now", []
+                continue
+            stats.batches += 1
+            used = int(batch.cover.sum())
+            stats.pad_cells += batch.cover.size - used
+            stats.used_cells += used
+            with stats.metrics.timed("kernel"):
+                inflight = dispatch(batch)
+            yield "deferred", partial(retire, inflight, batch, sidecar)
+
+    yield from _pipelined(events())
+    stats.wall_seconds += time.monotonic() - t0

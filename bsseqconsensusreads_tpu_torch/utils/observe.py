@@ -1,0 +1,42 @@
+"""Per-stage metrics: named counters and phase timers.
+
+The port's counterpart of Metrics from the JAX package's utils/observe.py
+(the run ledger, traces and sinks are a later slice of the port). Phases the
+stages time: ingest, encode, kernel (host-side dispatch: H2D copies and
+launches), device_wait (CUDA event sync — the device still owned the
+batch), fetch (D2H copy + unpack), host_vote (singleton host path), emit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+
+#: phases whose seconds are device occupancy or the transfer around it
+DEVICE_PHASES = frozenset({"kernel", "device_wait", "fetch"})
+
+
+@dataclass
+class Metrics:
+    """Named counters + phase timers for one stage (the port's stages run
+    on one thread). Nested `timed` phases each record their own seconds."""
+
+    counters: dict = field(default_factory=dict)
+    seconds: dict = field(default_factory=dict)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def timed(self, name: str):
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.monotonic() - t0
+
+    def as_dict(self) -> dict:
+        out = dict(self.counters)
+        out.update({f"{k}_seconds": round(v, 3) for k, v in self.seconds.items()})
+        return out

@@ -1,0 +1,196 @@
+"""The port's molecular -> duplex chain on the CPU against the JAX package's
+(call_molecular_batches / call_duplex_batches + write_batch_stream on its
+single-device plain-tensor route, XLA vote): the BAMs must be SHA-equal.
+
+Fixtures: the tests/test_pipeline.py pipeline_env recipe, and a
+~200-family bisulfite stream_duplex_families mixture of 1 and 2 templates
+per strand with RTA3-binned quals and substitutions."""
+
+import hashlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bsseqconsensusreads_tpu.io.bam import BamHeader, BamReader, BamWriter
+from bsseqconsensusreads_tpu.io.fasta import FastaFile
+from bsseqconsensusreads_tpu.models.params import ConsensusParams as JaxParams
+from bsseqconsensusreads_tpu.ops.encode import codes_to_seq
+from bsseqconsensusreads_tpu.pipeline import calling as jc
+from bsseqconsensusreads_tpu.pipeline import extsort as je
+from bsseqconsensusreads_tpu.utils.testing import (
+    make_grouped_bam_records,
+    random_genome,
+    stream_duplex_families,
+    write_fasta,
+)
+from bsseqconsensusreads_tpu_torch.io.bam import BamReader as PortReader
+from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile as PortFasta
+from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+from bsseqconsensusreads_tpu_torch.pipeline import calling as tc
+from bsseqconsensusreads_tpu_torch.pipeline import extsort as te
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROUTE = dict(mesh=None, transport="unpacked", layout="packed", emit="python",
+             vote_kernel="xla")
+
+
+def _sha(path: str) -> str:
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+@pytest.fixture(scope="module")
+def grouped_env(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_pipe")
+    rng = np.random.default_rng(31)
+    name, genome = random_genome(rng, 6000)
+    fasta = str(tmp / "genome.fa")
+    write_fasta(fasta, name, genome)
+    header, records = make_grouped_bam_records(
+        rng, name, genome, n_families=12, error_rate=0.01
+    )
+    bam = str(tmp / "grouped.bam")
+    with BamWriter(bam, header) as w:
+        w.write_all(records)
+    return {"tmp": tmp, "fasta": fasta, "bam": bam}
+
+
+@pytest.fixture(scope="module")
+def mixture_env(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_mix")
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, size=30_000).astype(np.int8)
+    genome = codes_to_seq(codes)
+    fasta = str(tmp / "genome.fa")
+    write_fasta(fasta, "chr1", genome)
+    read_len = 100
+    pool = [bytes(np.random.default_rng(100 + i).choice(
+        np.array([2, 12, 23, 37], np.uint8), size=read_len)) for i in range(16)]
+    err_pos = rng.integers(2, read_len - 2, size=4096)
+    err_base = rng.integers(0, 4, size=4096)
+
+    def mutate(seq, fam, ti, flag):
+        h = (fam * 31 + ti * 7 + flag) & 4095
+        for k in (h, (h * 2654435761) & 4095):
+            i = int(err_pos[k])
+            seq = seq[:i] + "ACGT"[err_base[k]] + seq[i + 1:]
+        return seq
+
+    recs = stream_duplex_families(
+        codes, 200, read_len=read_len,
+        templates_for=lambda fam: 1 if fam % 10 < 7 else 2,
+        qual_for=lambda fam, ti, flag: pool[(fam + ti * 13 + flag) & 15],
+        mutate=mutate, bisulfite=True,
+    )
+    bam = str(tmp / "grouped.bam")
+    header = BamHeader("@HD\tVN:1.6\tSO:coordinate\n", [("chr1", len(genome))])
+    with BamWriter(bam, header) as w:
+        w.write_all(recs)
+    return {"tmp": tmp, "fasta": fasta, "bam": bam}
+
+
+def _jax_chain(env, mode, tag):
+    mol = str(env["tmp"] / f"jax_mol_{tag}.bam")
+    with BamReader(env["bam"]) as r:
+        batches = jc.call_molecular_batches(
+            r, JaxParams(min_reads=1), mode=mode, grouping="coordinate", **ROUTE
+        )
+        je.write_batch_stream(batches, mol, r.header, mode, sort_engine="python")
+    if mode != "self":
+        return mol, None
+    dup = str(env["tmp"] / f"jax_dup_{tag}.bam")
+    with BamReader(mol) as r, FastaFile(env["fasta"]) as fa:
+        names = [n for n, _ in r.header.references]
+        batches = jc.call_duplex_batches(
+            r, fa.fetch, names, JaxParams(min_reads=0), mode="self",
+            grouping="coordinate", **ROUTE
+        )
+        je.write_batch_stream(batches, dup, r.header, "self", sort_engine="python")
+    return mol, dup
+
+
+def _port_chain(env, mode, tag, layout="packed", stats=None):
+    mol = str(env["tmp"] / f"port_mol_{tag}.bam")
+    with PortReader(env["bam"]) as r:
+        batches = tc.call_molecular_batches(
+            r, ConsensusParams(min_reads=1), mode=mode, grouping="coordinate",
+            layout=layout, stats=stats, device="cpu",
+        )
+        te.write_batch_stream(batches, mol, r.header, mode)
+    if mode != "self":
+        return mol, None
+    dup = str(env["tmp"] / f"port_dup_{tag}.bam")
+    with PortReader(mol) as r, PortFasta(env["fasta"]) as fa:
+        names = [n for n, _ in r.header.references]
+        batches = tc.call_duplex_batches(
+            r, fa.fetch, names, ConsensusParams(min_reads=0), mode="self",
+            grouping="coordinate", device="cpu",
+        )
+        te.write_batch_stream(batches, dup, r.header, "self")
+    return mol, dup
+
+
+@pytest.mark.parametrize("fixture", ["grouped_env", "mixture_env"])
+def test_self_chain_is_sha_equal_to_the_jax_package(fixture, request):
+    env = request.getfixturevalue(fixture)
+    jmol, jdup = _jax_chain(env, "self", "self")
+    pmol, pdup = _port_chain(env, "self", "self")
+    assert _sha(pmol) == _sha(jmol)
+    assert _sha(pdup) == _sha(jdup)
+    with PortReader(pdup) as r:
+        recs = list(r)
+    assert recs and all(rec.has_tag("ac") and rec.has_tag("cd") for rec in recs)
+
+
+def test_unaligned_molecular_stage_is_sha_equal_to_the_jax_package(grouped_env):
+    jmol, _ = _jax_chain(grouped_env, "unaligned", "unal")
+    pmol, _ = _port_chain(grouped_env, "unaligned", "unal")
+    assert _sha(pmol) == _sha(jmol)
+
+
+def test_padded_molecular_layout_writes_the_same_bytes(mixture_env):
+    pmol, _ = _port_chain(mixture_env, "self", "packed")
+    qmol, _ = _port_chain(mixture_env, "self", "padded", layout="padded")
+    assert _sha(pmol) == _sha(qmol)
+
+
+def test_families_past_the_template_cap_are_skipped_and_counted(grouped_env, monkeypatch):
+    # the deep-family route is a later slice: over-cap families are
+    # skipped and counted, never dropped silently
+    monkeypatch.setattr(tc, "MAX_TEMPLATES", 2)
+    stats = tc.StageStats()
+    _port_chain(grouped_env, "unaligned", "deep", stats=stats)
+    deep = stats.metrics.counters.get("deep_skipped_families", 0)
+    assert deep > 0 and stats.skipped_families >= deep
+    assert stats.families > 0
+
+
+def test_entry_points_do_not_fall_back_to_the_cpu(grouped_env):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with PortReader(grouped_env["bam"]) as r, pytest.raises(RuntimeError, match="CUDA"):
+        next(tc.call_molecular_batches(r, ConsensusParams()))
+
+
+def test_cli_duplex_on_the_cpu_matches_the_library_chain(mixture_env):
+    tmp = mixture_env["tmp"]
+    _pmol, pdup = _port_chain(mixture_env, "self", "cli_ref")
+    mol = str(tmp / "cli_mol.bam")
+    dup = str(tmp / "cli_dup.bam")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for argv in (
+        ["molecular", "-i", mixture_env["bam"], "-o", mol, "--mode", "self"],
+        ["duplex", "-i", mol, "-o", dup, "--mode", "self",
+         "--reference", mixture_env["fasta"]],
+    ):
+        out = subprocess.run(
+            [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", *argv,
+             "--device", "cpu"],
+            cwd=REPO, env=env, capture_output=True, text=True,
+        )
+        assert out.returncode == 0, out.stderr
+    assert _sha(dup) == _sha(pdup)
