@@ -10,21 +10,27 @@ sources in this checkout alone, and bound with ctypes.
   (column_vote_groups; pallas_call at ops/pallas_vote.py:277) and of
   _finalize_kernel (vote_finalize_groups; pallas_call at
   ops/pallas_vote.py:217) together with the XLA segment sum in front of
-  it. One thread per (segment, plane, column) walks the segment's rows in
-  row order, adds the per-observation term from the pinned 512 x 2
-  log-likelihood table (shared memory), finalizes in registers and writes
-  base, qual, depth and errors once. Bound: device memory (3 B read per
-  observation cell, 6 B written per output column; the arithmetic is a
-  few adds per cell). Every layout of the slice is one launch: molecular
-  packed (ragged offsets, 2 planes), duplex packed (2-row segments, 1
-  plane) and padded (offsets k * T).
+  it. A persistent grid streams the rows through a ring of shared-memory
+  stages filled by 1-D TMA copies; each thread owns 8 contiguous cells of
+  one segment (2 cells of every segment in a unit whose rows run deep),
+  adds the segment's rows in row order with the terms built once per
+  resident block from the pinned 512 x 2 log-likelihood table, finalizes
+  in registers and writes base, qual, depth and errors once as
+  8/8/16/16-byte vectors. Bound: device memory (3 B read per observation
+  cell, 6 B written per output cell; the arithmetic is a few adds per
+  cell). Every layout of the slice is one launch: molecular packed (ragged
+  offsets, 2 planes), duplex packed (2-row segments, 1 plane) and padded
+  (offsets k * T). It takes W % 16 == 0 and 16-byte aligned tensors and
+  raises on anything else (the path's windows are multiples of 32).
 * vote_finalize — the finalize alone over summed log-likelihoods
-  (_finalize_kernel's counterpart). Bound: device memory (20 B read, 2 B
+  (_finalize_kernel's counterpart): one column per thread, one
+  128-thread block per 128 columns. Bound: device memory (20 B read, 2 B
   written per column). The singleton path's single-observation tables
   (ops.reconstruct.qual_tables) run through it.
 
 Beside each kernel: its plain PyTorch version (seg_vote_plain,
-vote_finalize_plain) and a launch counter (LAUNCHES). A wrapper takes the
+vote_finalize_plain) and a launch counter (LAUNCHES); SEG_VOTE_SHAPES
+counts seg_vote's launches by (N, P, W, S). A wrapper takes the
 plain version only for tensors on the CPU; for a CUDA tensor it launches
 the kernel or raises — there is no fallback.
 
@@ -38,6 +44,7 @@ a value across a .5 rounding edge.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -62,6 +69,8 @@ NVCC_FLAGS = (
 #: launches of each kernel — one added where the wrapper launches, nowhere
 #: else; callers reset entries to 0 around the run they measure
 LAUNCHES = {"seg_vote": 0, "vote_finalize": 0}
+#: seg_vote launches by (N, P, W, S) — counted with LAUNCHES, reset with it
+SEG_VOTE_SHAPES: collections.Counter = collections.Counter()
 
 _lib = None
 
@@ -106,12 +115,12 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsseq_seg_vote.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp,
         ]
         lib.bsseq_seg_vote.restype = ci
-        lib.bsseq_vote_finalize.argtypes = [vp, vp, cll, cf, cf, vp, vp, vp]
+        lib.bsseq_vote_finalize.argtypes = [vp, vp, ci, cf, cf, vp, vp, vp]
         lib.bsseq_vote_finalize.restype = ci
         _lib = lib
     return _lib
@@ -126,6 +135,13 @@ def _check_cuda(*tensors) -> None:
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("vote kernels take contiguous tensors")
+
+
+def _check_aligned(**tensors) -> None:
+    """The kernels copy and load these in 16-byte units: refuse, never copy."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (data_ptr {t.data_ptr():#x})")
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -153,6 +169,11 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
         raise ValueError("seg_vote takes [N, P, W] planes and int32 offsets")
     n, p, w = bases.shape
     s = offsets.numel() - 1
+    if w % 16:
+        raise ValueError(f"seg_vote takes W % 16 == 0, got W = {w}")
+    if n * p * w >= 2**31 or s * p * w >= 2**31:
+        raise ValueError(f"seg_vote takes < 2**31 cells, got [{n}, {p}, {w}] x {s}")
+    _check_aligned(bases=bases, quals=quals)
     dev = bases.device
     table = phred.log_table(params.error_rate_post_umi, dev)
     out = {
@@ -177,6 +198,7 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
     )
     _raise_on(rc, "bsseq_seg_vote")
     LAUNCHES["seg_vote"] += 1
+    SEG_VOTE_SHAPES[(n, p, w, s)] += 1
     return out
 
 
@@ -215,8 +237,9 @@ def vote_finalize(ll, depth, params: ConsensusParams):
     if ll.shape[-1] != 4 or ll.shape[:-1] != depth.shape:
         raise ValueError(f"ll {tuple(ll.shape)} does not match depth {tuple(depth.shape)}")
     _check_cuda(ll, depth)
-    if ll.data_ptr() % 16:
-        ll = ll.clone()  # the kernel loads one float4 per column
+    _check_aligned(ll=ll)
+    if depth.numel() >= 2**31:
+        raise ValueError(f"vote_finalize takes < 2**31 columns, got {depth.numel()}")
     dev = ll.device
     base = torch.empty(depth.shape, dtype=torch.int8, device=dev)
     qual = torch.empty(depth.shape, dtype=torch.uint8, device=dev)

@@ -1,5 +1,5 @@
 """Phred-scale probability arithmetic for the consensus error model, in
-torch, plus the pinned log-likelihood table the vote reads.
+torch, plus the pinned log-likelihood tables the vote reads.
 
 The reference's consensus engines (fgbio CallMolecularConsensusReads /
 CallDuplexConsensusReads, invoked at main.snake.py:54,163) parameterize their
@@ -7,25 +7,29 @@ error model with Phred-scaled rates: --error-rate-pre-umi=45 and
 --error-rate-post-umi=30. This module is the JAX package's ops/phred.py on
 torch tensors (float32 throughout).
 
-Why a pinned table. Every quality the vote sees is an integer (uint8
+Why pinned tables. Every quality the vote sees is an integer (uint8
 input, co-call sums <= 510, the conversion prepend's 40), so the
 per-observation log terms are a lookup in a [512, 2] table. The JAX
-package computes them per element inside its jitted programs, and torch's
-float32 pow/log1p/log land an ulp or more away from XLA's on a few
-quals — so a recomputation cannot match bit for bit.
-LOG_TABLE_POST_UMI_30 is therefore the bits of the JAX package's jitted
-`log_likelihoods(adjust_quals_post_umi(q, 30.0))` over q = 0..511, written
-out as float32 bit patterns. 30 is the default and the reference's
-hard-coded rate. Any other post-UMI rate computes its table in torch at
-first use (log_table). That table is a few ulps off the JAX package's on
-a few percent of its entries (3-7 ulps at rates 15-40; XLA's float32 pow
-is not correctly rounded, so no torch recomputation matches it), which
-tests/test_torch_phred.py bounds per rate. The finalize's one scalar
-constant, phred_to_prob(error_rate_pre_umi), is pinned the same way for
-the default 45.
+package computes them per element inside its jitted programs, with the
+post-UMI rate a static constant, and torch's float32 pow/log1p/log land
+an ulp or more away from XLA's on up to half of the quals (XLA's float32
+pow is not correctly rounded) — so a recomputation cannot match bit for
+bit. log_tables_post_umi.npy therefore holds the bits of the JAX
+package's jitted `log_likelihoods(adjust_quals_post_umi(q, rate))` over
+q = 0..511 for every integer post-UMI rate 0..93 (float32 [94, 512, 2]):
+fgbio takes --error-rate-post-umi as a Phred byte, so an integer rate is
+what users pass. `python tests/test_torch_phred.py --write-tables`
+regenerates it; the tests hold it bit-equal at all 94 rates. A
+non-integer rate computes its table in torch (a few ulps off the JAX
+package's; the tests bound one such rate). The finalize's one scalar
+constant, phred_to_prob(error_rate_pre_umi), is computed in torch — equal
+to the JAX package's constant-folded value at every integer rate — and
+pinned for the default 45.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,150 +46,14 @@ INV_LN10 = float(np.float32(0.4342944819032518))
 #: integer quals 0..TABLE_QUALS-1 index the log-likelihood table
 TABLE_QUALS = 512
 
-#: the post-UMI rate whose table is pinned (the default, and the
-#: reference's hard-coded --error-rate-post-umi)
-PINNED_POST_UMI = 30.0
+#: the JAX package's jitted log-likelihood tables, float32 [94, 512, 2]:
+#: row r is post-UMI rate r
+POST_UMI_TABLES_FILE = Path(__file__).with_name("log_tables_post_umi.npy")
+#: integer post-UMI rates 0..PINNED_POST_UMI_RATES-1 read their table from it
+PINNED_POST_UMI_RATES = 94
 #: the pre-UMI rate whose probability is pinned (the default, and the
 #: reference's hard-coded --error-rate-pre-umi)
 PINNED_PRE_UMI = 45.0
-
-#: float32 bits of (log_ok, log_err) for q = 0..511 at post-UMI 30,
-#: row-major [512, 2] — the JAX package's jitted table
-_LOG_TABLE_POST_UMI_30_BITS = (
-    0xC1001A61, 0xBF8CAA40, 0xBFCA644F, 0xBFAA1AE0, 0xBF7F4D4E, 0xBFC7894E, 0xBF32397E, 0xBFE4F4FA,
-    0xBF022A28, 0xC0012E96, 0xBEC30F5E, 0xC00FE080, 0xBE948F6E, 0xC01E8FAC, 0xBE64D506, 0xC02D3B64,
-    0xBE31A879, 0xC03BE2C7, 0xBE0AC1AA, 0xC04A84B9, 0xBDD9C05E, 0xC0591FD6, 0xBDAB7E50, 0xC067B263,
-    0xBD877ACE, 0xC0763A37, 0xBD56A299, 0xC0825A51, 0xBD2A70D5, 0xC0898F26, 0xBD07AC2B, 0xC090B98D,
-    0xBCD88725, 0xC097D6FB, 0xBCAD3EB7, 0xC09EE459, 0xBC8B06C1, 0xC0A5DDE2, 0xBC5FE4EA, 0xC0ACBF12,
-    0xBC35006E, 0xC0B3828B, 0xBC1302C1, 0xC0BA21FF, 0xBBF01F3F, 0xC0C09632, 0xBBC55F0D, 0xC0C6D6FC,
-    0xBBA373EA, 0xC0CCDB74, 0xBB888910, 0xC0D29A2A, 0xBB6656FB, 0xC0D80992, 0xBB446ACE, 0xC0DD208F,
-    0xBB297BEB, 0xC0E1D70C, 0xBB14191F, 0xC0E626AE, 0xBB031D9E, 0xC0EA0B5D, 0xBAEB4223, 0xC0ED83B5,
-    0xBAD5D63F, 0xC0F09122, 0xBAC4D2E1, 0xC0F337C2, 0xBAB74FAE, 0xC0F57DFA, 0xBAAC9434, 0xC0F76BDF,
-    0xBAA40DF5, 0xC0F90A94, 0xBA9D48A5, 0xC0FA63A3, 0xBA97E7E5, 0xC0FB8079, 0xBA93A255, 0xC0FC6A02,
-    0xBA903DB6, 0xC0FD2860, 0xBA8D8BC4, 0xC0FDC2CE, 0xBA8B67B9, 0xC0FE3F95, 0xBA89B468, 0xC0FEA412,
-    0xBA885AA0, 0xC0FEF4C7, 0xBA8747F8, 0xC0FF3575, 0xBA866DCD, 0xC0FF6933, 0xBA85C080, 0xC0FF9289,
-    0xBA8536DA, 0xC0FFB384, 0xBA84C983, 0xC0FFCDD0, 0xBA8472A7, 0xC0FFE2C2, 0xBA842DAA, 0xC0FFF36F,
-    0xBA83F6DE, 0xC100005A, 0xBA83CB57, 0xC10005A1, 0xBA83A8C3, 0xC10009D4, 0xBA838D4C, 0xC1000D2A,
-    0xBA837779, 0xC1000FD2, 0xBA836626, 0xC10011EE, 0xBA835862, 0xC100139A, 0xBA834D73, 0xC10014EF,
-    0xBA8344C3, 0xC10015FE, 0xBA833DDE, 0xC10016D5, 0xBA833862, 0xC1001780, 0xBA833409, 0xC1001808,
-    0xBA833092, 0xC1001874, 0xBA832DD5, 0xC10018CA, 0xBA832BA6, 0xC100190E, 0xBA8329EA, 0xC1001944,
-    0xBA832889, 0xC100196F, 0xBA832772, 0xC1001991, 0xBA832694, 0xC10019AC, 0xBA8325E3, 0xC10019C2,
-    0xBA832555, 0xC10019D3, 0xBA8324E6, 0xC10019E0, 0xBA83248E, 0xC10019EB, 0xBA832447, 0xC10019F4,
-    0xBA832411, 0xC10019FA, 0xBA8323E4, 0xC1001A00, 0xBA8323C1, 0xC1001A04, 0xBA8323A5, 0xC1001A08,
-    0xBA83238F, 0xC1001A0A, 0xBA83237D, 0xC1001A0C, 0xBA83236F, 0xC1001A0E, 0xBA832364, 0xC1001A10,
-    0xBA83235B, 0xC1001A11, 0xBA832354, 0xC1001A12, 0xBA83234F, 0xC1001A12, 0xBA83234A, 0xC1001A13,
-    0xBA832347, 0xC1001A13, 0xBA832344, 0xC1001A13, 0xBA832342, 0xC1001A14, 0xBA832340, 0xC1001A14,
-    0xBA83233E, 0xC1001A14, 0xBA83233D, 0xC1001A14, 0xBA83233C, 0xC1001A14, 0xBA83233C, 0xC1001A14,
-    0xBA83233B, 0xC1001A14, 0xBA83233B, 0xC1001A14, 0xBA83233A, 0xC1001A15, 0xBA83233A, 0xC1001A15,
-    0xBA83233A, 0xC1001A15, 0xBA83233A, 0xC1001A15, 0xBA83233A, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-    0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15, 0xBA832339, 0xC1001A15,
-)
-
-LOG_TABLE_POST_UMI_30 = (
-    np.array(_LOG_TABLE_POST_UMI_30_BITS, np.uint32).view(np.float32).reshape(TABLE_QUALS, 2)
-)
-LOG_TABLE_POST_UMI_30.setflags(write=False)
 
 #: float32 bits of phred_to_prob(45) = 10^-4.5 as the JAX package computes it
 _PRE_UMI_45_BITS = 0x3804A2B3
@@ -235,24 +103,37 @@ def log_likelihoods(p_err):
 
 
 _TABLES: dict = {}
+_PINNED: np.ndarray | None = None
+
+
+def pinned_post_umi_tables() -> np.ndarray:
+    """The read-only float32 [94, 512, 2] pinned tables (loaded once)."""
+    global _PINNED
+    if _PINNED is None:
+        tables = np.load(POST_UMI_TABLES_FILE)
+        if tables.shape != (PINNED_POST_UMI_RATES, TABLE_QUALS, 2) or tables.dtype != np.float32:
+            raise ValueError(f"{POST_UMI_TABLES_FILE.name}: {tables.dtype} {tables.shape}")
+        tables.setflags(write=False)
+        _PINNED = tables
+    return _PINNED
 
 
 def log_table(error_rate_post_umi: float, device) -> torch.Tensor:
     """float32 [512, 2] (log_ok, log_err) for integer quals 0..511 on
-    `device`: the pinned table at post-UMI 30, else computed in torch at
-    first use (a few ulps off the JAX package's on some quals). Cached per
-    (rate, device)."""
+    `device`: the pinned JAX bits at an integer rate 0..93, else computed
+    in torch at first use (a few ulps off the JAX package's on some
+    quals). Cached per (rate, device)."""
     device = torch.device(device)
-    key = (float(error_rate_post_umi), str(device))
+    rate = float(error_rate_post_umi)
+    key = (rate, str(device))
     table = _TABLES.get(key)
     if table is None:
-        if float(error_rate_post_umi) == PINNED_POST_UMI:
-            host = torch.from_numpy(LOG_TABLE_POST_UMI_30.copy())
+        if rate.is_integer() and 0 <= rate < PINNED_POST_UMI_RATES:
+            host = torch.from_numpy(pinned_post_umi_tables()[int(rate)].copy())
         else:
             q = torch.arange(TABLE_QUALS, dtype=torch.float32)
             host = torch.stack(
-                log_likelihoods(adjust_quals_post_umi(q, error_rate_post_umi)),
-                dim=-1,
+                log_likelihoods(adjust_quals_post_umi(q, rate)), dim=-1
             )
         table = _TABLES[key] = host.to(device).contiguous()
     return table

@@ -11,12 +11,21 @@ Phases:
   0. the card: `nvidia-smi --query-gpu=name,power.limit` and the device
      name; no CUDA device -> exit 2 with no result.
   1. build csrc/vote.cu with nvcc for sm_90a (ptxas report + seconds).
-  2. each kernel against its plain version on the card at main-path shapes:
-     CUDA-event times (L2 flushed before every launch), the byte bound at
-     3.35 TB/s, mismatch counts under the port's contract — log-likelihood
-     sums bit-identical, base/depth/errors equal outside the tie band, qual
-     within 1 — and one PyTorch library call over the same contributions
-     (torch.segment_reduce) as a yardstick the port never calls.
+  2. each kernel against its plain version on the card, at the main path's
+     shapes and at the shapes a tiled kernel gets wrong first (empty
+     segments, one 1,500-row segment, W 160 / 224, min input qual 20 on
+     one and two planes; vote_finalize at [4096, 192], n % 4 != 0 and the
+     main path's [256]): mismatch counts under the port's contract —
+     log-likelihood sums bit-identical, base/depth/errors equal outside the
+     tie band, qual within 1. Times: CUDA events around each launch, every
+     launch after an L2 flush, all enqueued behind a sleep kernel and read
+     after one synchronize, so the host runs ahead (mean of the event
+     pairs); each kernel timed twice in turns (spread printed) and once
+     under torch.profiler (key_averages: the kernel's own device time).
+     The byte bound at 3.35 TB/s and its share of each time; the event
+     timer's floor (a one-element add); one PyTorch library call over the
+     same contributions (torch.segment_reduce) as a yardstick the port
+     never calls.
   3. end to end: a grouped BAM of --families families (the JAX package's
      tools/scale_rehearsal.py mixture: read length 150, fragment 180, 2 Mb
      genome, 70% one template per strand and the rest two, RTA3-binned
@@ -25,7 +34,8 @@ Phases:
      the duplex stage, write_batch_stream — with the kernels' launch counts
      set to 0 before and read after each stage, and each stage under
      torch.profiler (the card's activity only) for its device busy
-     seconds and idle share. Then the first
+     seconds and idle share, and seg_vote's launches counted by
+     (N, P, W, S). Then the first
      --cpu-families families through both stages on the card and with
      device='cpu', stage by stage on identical input, and the qual tables
      built on the card against the CPU-built ones.
@@ -49,6 +59,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 TIE_TOL = 2.5e-6
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time: the host enqueues meanwhile
 
 
 class SmokeFailure(Exception):
@@ -81,20 +92,73 @@ def card_line() -> str:
 
 def time_ms(torch, fn, repeats: int, flush) -> float:
     """Mean device time of fn() over `repeats` launches, each after an L2
-    flush, with CUDA events around the launch alone."""
+    flush (a read of 256 MB: the cache holds clean lines of another
+    buffer). The card first spins in a sleep kernel while every (flush,
+    start event, launch, end event) is enqueued behind it, then one
+    synchronize: each event pair brackets the launch on the card, never
+    the wrapper's host time."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    torch.cuda._sleep(SLEEP_CYCLES)
+    pairs = []
     for _ in range(repeats):
-        flush.zero_()
+        flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / repeats
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / repeats
+
+
+def profiled_ms(torch, fn, repeats: int, flush, kernel: str):
+    """Mean device time of the kernel whose name contains `kernel` in a
+    torch.profiler trace of the same loop: key_averages(), else the trace's
+    device events; None when the trace holds no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(repeats):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if kernel in e.key and e.count:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = e.cuda_time_total
+            return total / e.count / 1e3
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else None
+
+
+def timed(torch, fn, repeats: int, flush, kernel: str) -> dict:
+    """The kernel's time twice in turns (events, then the profiler's view
+    of the same loop, then events again): mean, spread, and the profiler's
+    mean with its share of the bound computed by the caller."""
+    first = time_ms(torch, fn, repeats, flush)
+    prof = profiled_ms(torch, fn, repeats, flush, kernel)
+    second = time_ms(torch, fn, repeats, flush)
+    return {
+        "ms": (first + second) / 2, "ms_runs": [first, second],
+        "spread": max(first, second) / min(first, second) - 1.0,
+        "profiler_ms": prof if prof is not None else "not measured",
+    }
+
+
+def shares(bound: float, t: dict, floor_ms: float) -> dict:
+    """bound / time by the event timer and by the profiler, beside the
+    launch floor the event timer reads."""
+    prof = t["profiler_ms"]
+    return {
+        "bound_share": bound / t["ms"],
+        "profiler_bound_share": bound / prof if isinstance(prof, float) else "not measured",
+        "launch_floor_ms": floor_ms,
+    }
 
 
 def random_rows(np, rng, n: int, planes: int, w: int, read_len: int):
@@ -118,35 +182,53 @@ def random_rows(np, rng, n: int, planes: int, w: int, read_len: int):
 
 
 def kernel_cases(np, torch, dev):
-    """The seg_vote shapes of the main path, as (name, bases, quals,
-    offsets) on the card (quals already co-called where the path co-calls)."""
+    """The seg_vote cases as (name, bases, quals, offsets, params) on the
+    card, quals already co-called where the path co-calls: the main path's
+    shapes, then the shapes a tiled kernel gets wrong first (empty
+    segments, one deep segment, W not a power of two, the input-qual
+    filter on one and two planes)."""
     from bsseqconsensusreads_tpu_torch.models.molecular import overlap_cocall
+    from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 
     rng = np.random.default_rng(2024)
-    cases = []
-    for w in (192, 4096):
-        f, n = 2048, 8192  # families, pow2 row bucket
-        lens = 1 + rng.multinomial(n - f, np.full(f, 1.0 / f))
+    default, q20 = ConsensusParams(), ConsensusParams(min_input_base_quality=20)
+
+    def on_card(b, q):
+        return torch.from_numpy(b).to(dev), torch.from_numpy(q).to(dev).to(torch.int16)
+
+    def molecular(name, lens, w, params, pad_rows=0):
+        # ragged segments (0 = empty) then sentinel pad rows past the end
         offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
-        b, q = random_rows(np, rng, n, 2, w, 150)
-        bt, qt = overlap_cocall(
-            torch.from_numpy(b).to(dev), torch.from_numpy(q).to(dev).to(torch.int16)
-        )
-        cases.append((f"molecular_packed_w{w}", bt.contiguous(), qt.contiguous(),
-                      torch.from_numpy(offsets).to(dev)))
-    f = 2048  # duplex: 4 rows per family, 2-row segments, 1 plane
-    b, q = random_rows(np, rng, 4 * f, 1, 192, 150)
-    cases.append(("duplex_packed_w192", torch.from_numpy(b).to(dev),
-                  torch.from_numpy(q).to(dev).to(torch.int16),
-                  torch.arange(0, 4 * f + 1, 2, dtype=torch.int32, device=dev)))
-    b, q = random_rows(np, rng, 512 * 2, 1, 512, 512)  # the qual-table build
-    cases.append(("padded_g512_t2_w512", torch.from_numpy(b).to(dev),
-                  torch.from_numpy(q).to(dev).to(torch.int16),
-                  torch.arange(0, 1025, 2, dtype=torch.int32, device=dev)))
-    b, q = random_rows(np, rng, 2048 * 8, 2, 192, 150)  # G = 2048 x 2 planes
-    cases.append(("padded_g4096_t8_w192", torch.from_numpy(b).to(dev),
-                  torch.from_numpy(q).to(dev).to(torch.int16),
-                  torch.arange(0, 2048 * 8 + 1, 8, dtype=torch.int32, device=dev)))
+        b, q = random_rows(np, rng, int(offsets[-1]) + pad_rows, 2, w, 150)
+        bt, qt = overlap_cocall(*on_card(b, q))
+        return (name, bt.contiguous(), qt.contiguous(),
+                torch.from_numpy(offsets).to(dev), params)
+
+    def ragged(f, n):
+        return 1 + rng.multinomial(n - f, np.full(f, 1.0 / f))
+
+    def segments(name, n, planes, w, t, params, read_len=150):
+        b, q = random_rows(np, rng, n, planes, w, read_len)
+        bt, qt = on_card(b, q)
+        return (name, bt, qt, torch.arange(0, n + 1, t, dtype=torch.int32, device=dev), params)
+
+    cases = [molecular(f"molecular_packed_w{w}", ragged(2048, 8192), w, default)
+             for w in (192, 4096)]
+    cases.append(segments("duplex_packed_w192", 4 * 2048, 1, 192, 2, default))
+    cases.append(segments("padded_g512_t2_w512", 1024, 1, 512, 2, default, 512))
+    cases.append(segments("padded_g4096_t8_w192", 2048 * 8, 2, 192, 8, default))
+    # a pow2 family bucket: 1,400 real families and 648 empty pad families
+    # spread among them, plus pad rows past the last segment
+    lens = np.zeros(2048, np.int64)
+    real = np.sort(rng.choice(2048, 1400, replace=False))
+    lens[real] = ragged(1400, 5600)
+    cases.append(molecular("ragged_empty_w192", lens, 192, default, pad_rows=2592))
+    lens = ragged(511, 2000)
+    cases.append(molecular("deep_1500_w192", np.insert(lens, 200, 1500), 192, default))
+    for w in (160, 224):
+        cases.append(molecular(f"molecular_packed_w{w}", ragged(2048, 8192), w, default))
+    cases.append(molecular("min_input_q20_p2_w192", ragged(2048, 8192), 192, q20))
+    cases.append(segments("min_input_q20_p1_w192", 4 * 2048, 1, 192, 2, q20))
     return cases
 
 
@@ -180,49 +262,13 @@ def compare_vote(np, torch, got: dict, want: dict) -> dict:
     return res
 
 
-def phase2(np, torch, dev, repeats: int) -> list[dict]:
-    from bsseqconsensusreads_tpu_torch.models.molecular import vote_contrib
-    from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+def finalize_cases(np, torch, dev, params):
+    """vote_finalize inputs as (name, ll, depth): ll [4096, 192, 4] summed
+    by a molecular vote, its first 4,093 columns (n % 4 == 1), and the
+    main path's single-observation table ([256], as ops.reconstruct builds
+    it)."""
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote, phred
 
-    params = ConsensusParams()
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
-    table = phred.log_table(params.error_rate_post_umi, dev)
-    rows = []
-    for name, b, q, off in kernel_cases(np, torch, dev):
-        got = cuda_vote.seg_vote(b, q, off, params, with_ll=True)
-        want = cuda_vote.seg_vote_plain(b, q, off, params, with_ll=True)
-        torch.cuda.synchronize()
-        res = compare_vote(np, torch, got, want)
-        ms = time_ms(torch, lambda: cuda_vote.seg_vote(b, q, off, params), repeats, flush)
-        plain_ms = time_ms(torch, lambda: cuda_vote.seg_vote_plain(b, q, off, params),
-                           max(2, repeats // 10), flush)
-        lib_ms = None
-        if hasattr(torch, "segment_reduce"):
-            contrib = vote_contrib(b, q, table, params.min_input_base_quality)[0]
-            contrib = contrib.reshape(b.shape[0], -1)
-            lengths = (off[1:] - off[:-1]).to(torch.int64)
-            lib_ms = time_ms(
-                torch, lambda: torch.segment_reduce(contrib, "sum", lengths=lengths),
-                repeats, flush,
-            )
-            del contrib
-        bytes_ms, ops_ms = seg_vote_bound_ms(b, off)
-        row = {
-            "case": name, "shape": list(b.shape), "segments": off.numel() - 1,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            **res,
-        }
-        log(f"phase2 seg_vote {json.dumps(row)}")
-        check(res["ll_bits_differ"] == 0, f"{name}: log-likelihood sums differ from the plain version")
-        for k in ("base", "depth", "errors"):
-            check(res[f"{k}_differ_outside_tie"] == 0, f"{name}: {k} differs outside the tie band")
-        check(res["qual_max_abs"] <= 1, f"{name}: a qual differs by more than 1")
-        rows.append(row)
-
-    # vote_finalize on ll [4096, 192, 4] from a molecular vote
     b, q = random_rows(np, np.random.default_rng(7), 4096 * 4, 1, 192, 150)
     off = torch.arange(0, 4096 * 4 + 1, 4, dtype=torch.int32, device=dev)
     vote = cuda_vote.seg_vote_plain(
@@ -231,32 +277,101 @@ def phase2(np, torch, dev, repeats: int) -> list[dict]:
     )
     ll = vote["ll"].reshape(4096, 192, 4).contiguous()
     depth = vote["depth"].reshape(4096, 192).to(torch.int32)
-    kb, kq = cuda_vote.vote_finalize(ll, depth, params)
-    pb, pq = cuda_vote.vote_finalize_plain(ll, depth, params)
-    srt = np.sort(ll.cpu().numpy(), axis=-1)
-    tie = (srt[..., 3] - srt[..., 2]) <= TIE_TOL
-    dbase = kb.cpu().numpy() != pb.cpu().numpy()
-    dq = np.abs(kq.cpu().numpy().astype(int) - pq.cpu().numpy().astype(int))
-    ms = time_ms(torch, lambda: cuda_vote.vote_finalize(ll, depth, params), repeats, flush)
-    plain_ms = time_ms(torch, lambda: cuda_vote.vote_finalize_plain(ll, depth, params),
-                       max(2, repeats // 10), flush)
-    cols = 4096 * 192
-    bytes_ms = cols * (16 + 4 + 2) / HBM_BYTES_PER_S * 1e3
-    ops_ms = cols * 25 / FP32_OPS_PER_S * 1e3
-    row = {
-        "case": "vote_finalize_4096x192", "shape": [4096, 192, 4], "ms": ms,
-        "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "base_differ_outside_tie": int((dbase & ~tie).sum()),
-        "base_differ": int(dbase.sum()), "qual_differ": int((dq > 0).sum()),
-        "qual_max_abs": int(dq.max()), "tie_columns": int(tie.sum()),
-    }
-    log(f"phase2 vote_finalize {json.dumps(row)}")
-    check(row["base_differ_outside_tie"] == 0, "vote_finalize: base differs outside the tie band")
-    check(row["qual_max_abs"] <= 1, "vote_finalize: a qual differs by more than 1")
-    rows.append(row)
-    return rows
+    table = phred.log_table(params.error_rate_post_umi, dev)[:256]
+    single = torch.stack([table[:, 0], table[:, 1], table[:, 1], table[:, 1]], dim=-1)
+    return [
+        ("vote_finalize_4096x192", ll, depth),
+        ("vote_finalize_4093", ll.reshape(-1, 4)[:4093].contiguous(),
+         depth.reshape(-1)[:4093].contiguous()),
+        ("vote_finalize_256", single.contiguous(), torch.ones(256, dtype=torch.int32, device=dev)),
+    ]
+
+
+def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict]]:
+    from bsseqconsensusreads_tpu_torch.models.molecular import vote_contrib
+    from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, phred
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > L2
+    flush.fill_(1)
+    # what the event timer reads for a launch that does almost nothing
+    tiny = torch.zeros(1, device=dev)
+    time_ms(torch, lambda: tiny.add_(1), repeats, flush)  # first use of each op
+    floor_ms = time_ms(torch, lambda: tiny.add_(1), repeats, flush)
+    log(f"phase2 launch floor: {floor_ms:.6f} ms (events around a one-element add)")
+    seg_rows = []
+    for name, b, q, off, params in kernel_cases(np, torch, dev):
+        got = cuda_vote.seg_vote(b, q, off, params, with_ll=True)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        want = cuda_vote.seg_vote_plain(b, q, off, params, with_ll=True)
+        torch.cuda.synchronize()
+        res = compare_vote(np, torch, got, want)
+        del got, want
+        t = timed(torch, lambda: cuda_vote.seg_vote(b, q, off, params), repeats, flush,
+                  "seg_vote_kernel")
+        plain_ms = time_ms(torch, lambda: cuda_vote.seg_vote_plain(b, q, off, params),
+                           max(2, repeats // 10), flush)
+        lib_ms = None
+        if hasattr(torch, "segment_reduce"):
+            table = phred.log_table(params.error_rate_post_umi, dev)
+            contrib = vote_contrib(b, q, table, params.min_input_base_quality)[0]
+            contrib = contrib.reshape(b.shape[0], -1)[: int(off[-1])]
+            lengths = (off[1:] - off[:-1]).to(torch.int64)
+            try:
+                lib_ms = time_ms(
+                    torch, lambda: torch.segment_reduce(contrib, "sum", lengths=lengths),
+                    repeats, flush,
+                )
+            except RuntimeError as exc:  # the yardstick only; the port never calls it
+                log(f"phase2 {name}: torch.segment_reduce refused the input ({exc})")
+            del contrib
+        bytes_ms, ops_ms = seg_vote_bound_ms(b, off)
+        bound = max(bytes_ms, ops_ms)
+        row = {
+            "case": name, "shape": list(b.shape), "segments": off.numel() - 1,
+            "min_input_base_quality": params.min_input_base_quality,
+            **t, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **shares(bound, t, floor_ms), **res,
+        }
+        log(f"phase2 seg_vote {json.dumps(row)}")
+        check(res["ll_bits_differ"] == 0, f"{name}: log-likelihood sums differ from the plain version")
+        for k in ("base", "depth", "errors"):
+            check(res[f"{k}_differ_outside_tie"] == 0, f"{name}: {k} differs outside the tie band")
+        check(res["qual_max_abs"] <= 1, f"{name}: a qual differs by more than 1")
+        seg_rows.append(row)
+
+    params = ConsensusParams()
+    fin_rows = []
+    for name, ll, depth in finalize_cases(np, torch, dev, params):
+        kb, kq = cuda_vote.vote_finalize(ll, depth, params)
+        pb, pq = cuda_vote.vote_finalize_plain(ll, depth, params)
+        srt = np.sort(ll.cpu().numpy(), axis=-1)
+        tie = (srt[..., 3] - srt[..., 2]) <= TIE_TOL
+        dbase = kb.cpu().numpy() != pb.cpu().numpy()
+        dq = np.abs(kq.cpu().numpy().astype(int) - pq.cpu().numpy().astype(int))
+        t = timed(torch, lambda: cuda_vote.vote_finalize(ll, depth, params), repeats, flush,
+                  "vote_finalize_kernel")
+        plain_ms = time_ms(torch, lambda: cuda_vote.vote_finalize_plain(ll, depth, params),
+                           max(2, repeats // 10), flush)
+        cols = depth.numel()
+        bytes_ms = cols * (16 + 4 + 2) / HBM_BYTES_PER_S * 1e3
+        ops_ms = cols * 25 / FP32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        row = {
+            "case": name, "shape": list(ll.shape), **t, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **shares(bound, t, floor_ms),
+            "base_differ_outside_tie": int((dbase & ~tie).sum()),
+            "base_differ": int(dbase.sum()), "qual_differ": int((dq > 0).sum()),
+            "qual_max_abs": int(dq.max()), "tie_columns": int(tie.sum()),
+        }
+        log(f"phase2 vote_finalize {json.dumps(row)}")
+        check(row["base_differ_outside_tie"] == 0, f"{name}: base differs outside the tie band")
+        check(row["qual_max_abs"] <= 1, f"{name}: a qual differs by more than 1")
+        fin_rows.append(row)
+    return seg_rows, fin_rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -344,6 +459,7 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str):
 
     for k in cuda_vote.LAUNCHES:
         cuda_vote.LAUNCHES[k] = 0
+    cuda_vote.SEG_VOTE_SHAPES.clear()
     stats = calling.StageStats(stage=stage)
     t0 = time.monotonic()
     with BamReader(inp) as reader:
@@ -404,14 +520,16 @@ def diff_records(a_path: str, b_path: str) -> tuple[int, int, str]:
     return n, ndiff, first
 
 
-def phase3(np, torch, families: int, cpu_families: int) -> dict:
+def phase3(np, torch, families: int, cpu_families: int, case_shapes) -> dict:
     with tempfile.TemporaryDirectory(prefix="bsseq_smoke_") as work:
-        return _phase3(np, torch, work, families, cpu_families)
+        return _phase3(np, torch, work, families, cpu_families, case_shapes)
 
 
-def _phase3(np, torch, work: str, families: int, cpu_families: int) -> dict:
+def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes) -> dict:
+    import collections
+
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
-    from bsseqconsensusreads_tpu_torch.ops import reconstruct
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
 
     t0 = time.monotonic()
     fasta, big, small = write_inputs(np, work, families, cpu_families)
@@ -421,12 +539,14 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int) -> dict:
     # the qual tables are built inside them (first use on this device)
     reconstruct._CACHE.clear()
     launches = {}
+    shapes = collections.Counter()
     for stage, inp, out in (
         ("molecular", big, os.path.join(work, "molecular.bam")),
         ("duplex", os.path.join(work, "molecular.bam"), os.path.join(work, "duplex.bam")),
     ):
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         stats, counts, wall = run_stage(stage, inp, out, fasta, "cuda", prof)
+        shapes.update(cuda_vote.SEG_VOTE_SHAPES)
         busy = device_busy_s(torch, prof)
         m = stats.metrics.seconds
         summary = {
@@ -449,6 +569,13 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int) -> dict:
             check(counts["vote_finalize"] > 0, "molecular: vote_finalize never launched")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+
+    # the main path's seg_vote launches by (N, P, W, S), most frequent first
+    top = [[list(k), v] for k, v in shapes.most_common()]
+    log(f"phase3 seg_vote shapes: {json.dumps(top)}")
+    if top:
+        log(f"phase3 most frequent shape {top[0][0]} is a phase-2 case: "
+            f"{tuple(top[0][0]) in case_shapes}")
 
     # card vs CPU, stage by stage on identical input
     for stage, inp in (("molecular", small), ("duplex", os.path.join(work, "mol_head_cuda.bam"))):
@@ -520,36 +647,36 @@ def main() -> int:
         cuda_vote.build(verbose=True)
         log(f"phase1 build: {time.monotonic() - t0:.1f} s -> {cuda_vote.LIBRARY}")
 
-        rows = phase2(np, torch, dev, args.repeats)
-        launches = phase3(np, torch, args.families, args.cpu_families)
+        seg_rows, fin_rows = phase2(np, torch, dev, args.repeats)
+        case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
+        launches = phase3(np, torch, args.families, args.cpu_families, case_shapes)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    seg = next(r for r in rows if r["case"] == "molecular_packed_w192")
-    fin = next(r for r in rows if r["case"].startswith("vote_finalize"))
-    kernels = [
-        {
-            "name": "seg_vote", "route": "cuda",
+    def summary(rows):
+        return [{k: r[k] for k in ("case", "ms", "spread", "profiler_ms", "bound_ms",
+                                   "bound_share", "profiler_bound_share", "plain_ms",
+                                   "library_ms")} for r in rows]
+
+    kernels = []
+    for name, line, rows, head in (
+        ("seg_vote", 277, seg_rows, "molecular_packed_w192"),
+        ("vote_finalize", 217, fin_rows, "vote_finalize_4096x192"),
+    ):
+        top = next(r for r in rows if r["case"] == head)
+        kernels.append({
+            "name": name, "route": "cuda",
             "source": "bsseqconsensusreads_tpu_torch/csrc/vote.cu",
-            "replaces": "bsseqconsensusreads_tpu/ops/pallas_vote.py:277",
-            "launches": launches.get("seg_vote", 0),
-            "max_abs_err": max(r["qual_max_abs"] for r in rows[:-1]), "ms": seg["ms"],
-            "plain_ms": seg["plain_ms"], "bound_ms": seg["bound_ms"],
-            "bound_by": seg["bound_by"], "library_ms": seg["library_ms"],
-            "shape": seg["case"], "cases": rows[:-1],
-        },
-        {
-            "name": "vote_finalize", "route": "cuda",
-            "source": "bsseqconsensusreads_tpu_torch/csrc/vote.cu",
-            "replaces": "bsseqconsensusreads_tpu/ops/pallas_vote.py:217",
-            "launches": launches.get("vote_finalize", 0),
-            "max_abs_err": fin["qual_max_abs"], "ms": fin["ms"],
-            "plain_ms": fin["plain_ms"], "bound_ms": fin["bound_ms"],
-            "bound_by": fin["bound_by"], "library_ms": fin["library_ms"],
-            "shape": fin["case"],
-        },
-    ]
+            "replaces": f"bsseqconsensusreads_tpu/ops/pallas_vote.py:{line}",
+            "launches": launches.get(name, 0),
+            "max_abs_err": max(r["qual_max_abs"] for r in rows), "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "bound_share": top["bound_share"],
+            "profiler_bound_share": top["profiler_bound_share"],
+            "launch_floor_ms": top["launch_floor_ms"], "shape": head, "cases": summary(rows),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

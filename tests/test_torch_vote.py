@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from bsseqconsensusreads_tpu.models import duplex as jdx
 from bsseqconsensusreads_tpu.models import molecular as jm
 from bsseqconsensusreads_tpu.models.params import ConsensusParams as JaxParams
 from bsseqconsensusreads_tpu.ops.encode import (
@@ -22,6 +23,7 @@ from bsseqconsensusreads_tpu.ops.pallas_vote import (
     column_vote_groups,
     vote_finalize_groups,
 )
+from bsseqconsensusreads_tpu_torch.models import duplex as tdx
 from bsseqconsensusreads_tpu_torch.models import molecular as tm
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.ops import cuda_vote
@@ -91,6 +93,91 @@ def test_packed_vote_is_bit_equal_to_the_jax_xla_leg(name):
         torch.from_numpy(pk.seg), pk.num_families, tp,
     )
     _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("rate", [20, 0])
+def test_packed_vote_is_bit_equal_to_the_jax_xla_leg_at_post_umi_rate(rate):
+    # a non-default integer rate reads its own pinned table: the vote, not
+    # only the table, must match the JAX leg there (random quals 0..93 touch
+    # every table entry the path can index below the co-call sums)
+    jp, tp = _both(error_rate_post_umi=float(rate))
+    batch = _families(8 + rate, f=40, t=4, w=96)
+    pk = pack_molecular_rows(batch)
+    want = jm.molecular_consensus_packed(
+        pk.bases, pk.quals, pk.seg, pk.num_families, jp, "xla"
+    )
+    got = tm.molecular_consensus_packed(
+        torch.from_numpy(pk.bases), torch.from_numpy(pk.quals),
+        torch.from_numpy(pk.seg), pk.num_families, tp,
+    )
+    _assert_equal(got, want)
+
+
+def _segment_rows(seed, lens, w, planes=2, pad_rows=3):
+    """Segment-packed rows [N, planes, W] for segments of the given lengths
+    (0 = an empty segment), ascending ids, `pad_rows` sentinel rows at the
+    end; reads start and end anywhere in the window, RTA3 quals, 5% N."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens)
+    n = int(lens.sum()) + pad_rows
+    bases = np.full((n, planes, w), 4, np.int8)
+    quals = np.zeros((n, planes, w), np.uint8)
+    truth = rng.integers(0, 4, size=(len(lens), w)).astype(np.int8)
+    seg = np.concatenate([np.repeat(np.arange(len(lens), dtype=np.int32), lens),
+                          np.full(pad_rows, len(lens), np.int32)])
+    for r in range(n - pad_rows):
+        for p in range(planes):
+            s = int(rng.integers(0, w - 8))
+            e = int(rng.integers(s + 8, w + 1))
+            obs = truth[seg[r], s:e].copy()
+            flip = rng.random(e - s) < 0.1
+            obs[flip] = rng.integers(0, 4, int(flip.sum()))
+            obs[rng.random(e - s) < 0.05] = 4
+            bases[r, p, s:e] = obs
+            quals[r, p, s:e] = rng.choice(RTA3, e - s)
+    return bases, quals, seg
+
+
+#: the shapes a tiled kernel gets wrong first: empty segments (pad families
+#: of a pow2 bucket), one deep segment among short ones, widths that are
+#: multiples of 32 but not powers of two, and the input-qual filter
+EDGE_SHAPES = {
+    "empty_segments": dict(lens=[0, 2, 0, 0, 3, 1, 0, 4, 0], w=96, kw={}),
+    "deep_segment": dict(lens=[1, 2, 300, 1, 3, 2], w=64, kw={}),
+    "w160": dict(lens=[1, 3, 2, 5, 1, 2, 1, 4], w=160, kw={}),
+    "w224": dict(lens=[2, 1, 1, 3, 6, 2], w=224, kw={}),
+    "min_input_q20": dict(lens=[3, 1, 0, 2, 5, 2], w=96, kw={"min_input_base_quality": 20}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_packed_vote_edge_shapes_are_bit_equal_to_the_jax_xla_leg(name):
+    case = EDGE_SHAPES[name]
+    jp, tp = _both(**case["kw"])
+    bases, quals, seg = _segment_rows(len(name), case["lens"], case["w"])
+    nf = len(case["lens"])
+    want = jm.molecular_consensus_packed(bases, quals, seg, nf, jp, "xla")
+    got = tm.molecular_consensus_packed(
+        torch.from_numpy(bases), torch.from_numpy(quals), torch.from_numpy(seg), nf, tp,
+    )
+    _assert_equal(got, want)
+    assert (got["depth"].numpy()[np.asarray(case["lens"]) == 0] == 0).all()
+
+
+@pytest.mark.parametrize("w", [96, 160])
+def test_duplex_vote_with_input_qual_filter_is_bit_equal_to_the_jax_xla_leg(w):
+    # one plane of 2-row segments (the duplex merge's seg_vote) under
+    # min_input_base_quality 20
+    kw = {"min_reads": 0, "min_input_base_quality": 20}
+    jp, tp = JaxParams(**kw), ConsensusParams(**kw)
+    bases, quals, _ = _segment_rows(w, [4] * 12, w, planes=1, pad_rows=0)
+    bases, quals = bases.reshape(12, 4, w), quals.reshape(12, 4, w)
+    want = jdx.duplex_consensus_packed(bases, quals.astype(np.float32), jp, "xla")
+    got = tdx.duplex_consensus_packed(
+        torch.from_numpy(bases), torch.from_numpy(quals.astype(np.int16)), tp
+    )
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
 
 
 @pytest.mark.parametrize("t", [1, 3, 8])
