@@ -9,8 +9,11 @@ same flag names, on the card:
               sort -> callduplex chain, main.snake.py:121-164)
 
 --device cuda|cpu picks where the vote runs (default cuda; with no card
-the command fails rather than falling back). Each command writes its
-StageStats as one JSON line on stderr.
+the command fails rather than falling back). --ingest and --emit pick
+the host engines: the port's C++ libraries (built from csrc/host at
+first use; a failed build fails the command) or the Python twins, with
+byte-identical output. Each command writes its StageStats as one JSON
+line on stderr.
 """
 
 from __future__ import annotations
@@ -36,10 +39,23 @@ def _add_params(p: argparse.ArgumentParser, min_reads_default: int) -> None:
     p.add_argument("--batch-families", type=int, default=512)
     p.add_argument("--max-window", type=int, default=4096)
     p.add_argument(
+        "--ingest", choices=("auto", "native", "python"), default="auto",
+        help="record ingest engine: the C++ columnar decoder (with C-side "
+        "grouping + encode digest on coordinate input) or pure-Python "
+        "BamReader — byte-identical output either way",
+    )
+    p.add_argument(
         "--grouping",
         choices=("gather", "adjacent", "coordinate"),
         default="coordinate",
         help="MI-group streaming strategy (coordinate = bounded memory on sorted input)",
+    )
+    p.add_argument(
+        "--emit",
+        choices=("auto", "native", "python"),
+        default="auto",
+        help="record emission: native C++ batch serializer vs per-record "
+        "Python objects (auto = native)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -66,11 +82,15 @@ def cmd_molecular(args) -> int:
         call_molecular_batches,
     )
     from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import molecular_ingest_stream
 
     stats = StageStats(stage="molecular")
     with BamReader(args.input) as reader:
         batches = call_molecular_batches(
-            reader,
+            molecular_ingest_stream(
+                args.input, reader, stats,
+                ingest_choice=args.ingest, grouping=args.grouping,
+            ),
             params=_params(args),
             mode=args.mode,
             batch_families=args.batch_families,
@@ -79,8 +99,10 @@ def cmd_molecular(args) -> int:
             stats=stats,
             batching=args.batching,
             device=args.device,
+            emit=args.emit,
         )
-        write_batch_stream(batches, args.output, reader.header, args.mode)
+        write_batch_stream(batches, args.output, reader.header, args.mode,
+                           metrics=stats.metrics)
     print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 
@@ -93,12 +115,16 @@ def cmd_duplex(args) -> int:
         call_duplex_batches,
     )
     from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import duplex_ingest_stream
 
     stats = StageStats(stage="duplex")
     with FastaFile(args.reference) as fasta, BamReader(args.input) as reader:
         names = [n for n, _ in reader.header.references]
         batches = call_duplex_batches(
-            reader,
+            duplex_ingest_stream(
+                args.input, reader, stats,
+                ingest_choice=args.ingest, grouping=args.grouping,
+            ),
             fasta.fetch,
             names,
             params=_params(args),
@@ -109,8 +135,10 @@ def cmd_duplex(args) -> int:
             stats=stats,
             pos0=args.pos0,
             device=args.device,
+            emit=args.emit,
         )
-        write_batch_stream(batches, args.output, reader.header, args.mode)
+        write_batch_stream(batches, args.output, reader.header, args.mode,
+                           metrics=stats.metrics)
     print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 

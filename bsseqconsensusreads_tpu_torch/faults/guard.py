@@ -1,9 +1,10 @@
 """The typed input errors the port's BAM codec raises.
 
 A copy of the error taxonomy of the JAX package's faults/guard.py — only
-the classes and the record-body check that io.bgzf / io.bam take. The
-guard's policies (quarantine, lenient repair, family admission) are a
-later slice of the port.
+the classes, the record-body check and the stream-error classification
+that io.bgzf / io.bam / io.native take. The guard's policies (quarantine,
+lenient repair, family admission) and the vectorized ColumnarBatch
+validation are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ _CANONICAL = (
     ("corrupt record tags", "record-corrupt"),
     ("corrupt record qname", "record-corrupt"),
     ("truncated record", "record-truncated"),
+    ("truncated BAM record", "record-truncated"),
     ("does not have MI tag", "missing-mi"),
     ("CRC mismatch", "bgzf-corrupt"),
     ("ISIZE mismatch", "bgzf-corrupt"),
@@ -100,6 +102,18 @@ def canonical_reason(message: str) -> str:
         if needle in message:
             return reason
     return "stream-error"
+
+
+def classify_stream_error(
+    message: str, record_index: int | None = None,
+    voffset: int | None = None,
+) -> StreamGuardError:
+    """Wrap a decode-path error message (the Python codec's wording or the
+    native codec's) into the typed stream error both engines share."""
+    return StreamGuardError(
+        message, reason=canonical_reason(message),
+        record_index=record_index, voffset=voffset,
+    )
 
 
 _N_CIGAR = struct.Struct("<H")

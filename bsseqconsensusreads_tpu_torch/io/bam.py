@@ -1,8 +1,10 @@
-"""BAM record model and codec (pure Python).
+"""BAM record model and codec.
 
-The port's own copy of the JAX package's io/bam.py, python engine only:
-streaming reader, writer, record field/tag access and mutation. The native
-codec and the guarded (quarantining) reader are later slices of the port.
+The port's own copy of the JAX package's io/bam.py: streaming reader,
+writer, record field/tag access and mutation. The BGZF container under a
+reader or writer is the native C++ codec (io.native) or the pure-Python
+one (io.bgzf), chosen by `engine`. The guarded (quarantining) reader is
+a later slice of the port.
 
 BAM layout (SAM spec §4): BGZF-compressed stream of
   magic "BAM\\1" | l_text | text | n_ref | (l_name name l_ref)*
@@ -280,6 +282,33 @@ def _encode_tags(tags: dict[str, tuple[str, Any]]) -> bytes:
     return bytes(out)
 
 
+def _select_bgzf(engine: str, native_factory, python_factory):
+    """The codec for one reader or writer: 'auto' and 'native' take the
+    native C++ codec (a failed build raises; there is no fallback),
+    'python' the pure codec. Both write the same bytes."""
+    if engine not in ("auto", "native", "python"):
+        raise ValueError(f"unknown engine {engine!r}; use auto|native|python")
+    return python_factory() if engine == "python" else native_factory()
+
+
+def _open_bgzf(path: str, engine: str, threads: int | None = None):
+    def native_factory():
+        from bsseqconsensusreads_tpu_torch.io.native import NativeBgzfReader
+
+        return NativeBgzfReader(path, threads=threads)
+
+    return _select_bgzf(engine, native_factory, lambda: BgzfReader.open(path))
+
+
+def _create_bgzf(path: str, engine: str, level: int, threads: int | None = None):
+    def native_factory():
+        from bsseqconsensusreads_tpu_torch.io.native import NativeBgzfWriter
+
+        return NativeBgzfWriter(path, level, threads=threads)
+
+    return _select_bgzf(engine, native_factory, lambda: BgzfWriter.open(path, level=level))
+
+
 _REC_FIXED = struct.Struct("<iiBBHHHIiii")  # refID..tlen after block_size (32 bytes)
 
 
@@ -392,10 +421,15 @@ def encode_record(rec: BamRecord) -> bytes:
 
 
 class BamReader:
-    """Streaming BAM reader (iterate to get BamRecords)."""
+    """Streaming BAM reader (iterate to get BamRecords).
 
-    def __init__(self, path: str):
-        self._bgzf = BgzfReader.open(path)
+    engine: 'auto' or 'native' read through the native C++ codec,
+    'python' through the pure one. threads: the native codec's inflate
+    workers (None = io.native.default_threads()); pass 1 for readers
+    opened in bulk, such as a merge's fan-in."""
+
+    def __init__(self, path: str, engine: str = "auto", threads: int | None = None):
+        self._bgzf = _open_bgzf(path, engine, threads=threads)
         #: records handed out so far — the `record #N` of every typed
         #: stream error (0-based index of the record that failed)
         self.records_read = 0
@@ -507,11 +541,15 @@ def write_items(writer: "BamWriter", items) -> int:
 
 
 class BamWriter:
-    """Streaming BAM writer; pass the header (e.g. reader.header) up front."""
+    """Streaming BAM writer; pass the header (e.g. reader.header) up front.
 
-    def __init__(self, path: str, header: BamHeader, level: int = 6):
+    engine as in BamReader; threads: the native codec's deflate workers
+    (None = io.native.default_threads())."""
+
+    def __init__(self, path: str, header: BamHeader, level: int = 6,
+                 engine: str = "auto", threads: int | None = None):
         self.header = header
-        self._bgzf = BgzfWriter.open(path, level=level)
+        self._bgzf = _create_bgzf(path, engine, level, threads=threads)
         try:
             text = header.text.encode("utf-8")
             out = bytearray(BAM_MAGIC)

@@ -1,8 +1,11 @@
 """Tensorization: UMI-family records -> padded family tensors.
 
-The port's own copy of the JAX package's ops/encode.py, Python path only
-(the native encoders and indel_policy='align' are later slices of the
-port). Each MI family packs into fixed-shape numpy arrays laid out in
+The port's own copy of the JAX package's ops/encode.py (indel_policy
+'align' is a later slice of the port). Two engines fill the same arrays:
+the Python pass over (mi, records) groups, and the native fill over
+pipeline.ingest.FamilyRun groups, whose per-record pass already ran in C
+at ingest (io.native.encode_scan / duplex_scan). Each MI family packs
+into fixed-shape numpy arrays laid out in
 *genome window space* (offset = pos - window_start), so every downstream
 transform (overlap co-call, consensus vote, AG->CT conversion, gap extension,
 duplex merge) is a dense per-column tensor op on the device.
@@ -54,6 +57,15 @@ def trim_softclips(rec: BamRecord) -> tuple[np.ndarray, np.ndarray, int] | None:
     read must be dropped (indel or hardclip CIGAR ops — the reference drops
     these too: tools/1.convert_AG_to_CT.py:79-80, tools/2.extend_gap.py:160).
     """
+    # columnar views (pipeline.ingest.ColumnarRecordView): the C parser
+    # digested the CIGAR, and the codes/quals are buffer views
+    info = getattr(rec, "clip_info", None)
+    if info is not None:
+        start, rclip, has_indel, has_hard = info
+        if has_indel or has_hard:
+            return None
+        codes, quals = rec.codes_quals
+        return codes[start : len(codes) - rclip], quals[start : len(codes) - rclip], rec.pos
     cigar = rec.cigar
     if any(op in (CINS, CDEL, CHARD_CLIP) for op, _ in cigar):
         return None
@@ -193,6 +205,55 @@ def bucket_window(w: int) -> int:
 #: later slice of the port.
 MAX_TEMPLATES = 4096
 
+#: band half-width of the JAX package's indel_policy='align'; the C encode
+#: scan takes it as an argument (unused under 'drop', the port's policy)
+INDEL_BAND = 8
+
+
+def scan_matches(group, policy: str) -> bool:
+    """True when `group` is a pipeline.ingest.FamilyRun carrying a C encode
+    digest computed under `policy` ('drop' or 'duplex') — the one gate of
+    every native fast path (the bucketed batcher, the deep-family splitter
+    and the encoders must classify a group alike)."""
+    return (
+        getattr(group, "scan", None) is not None
+        and getattr(group, "scan_policy", None) == policy
+    )
+
+
+def _iter_batch_segments(fams: list):
+    """(i, j) index ranges of maximal same-ColumnarBatch runs — one native
+    fill call each (fill pointers are per batch)."""
+    i, n = 0, len(fams)
+    while i < n:
+        j = i
+        b = fams[i].batch
+        while j < n and fams[j].batch is b:
+            j += 1
+        yield i, j
+        i = j
+
+
+def _segment_runs(fams: list, i: int, j: int) -> tuple[np.ndarray, np.ndarray]:
+    """(fam_start, fam_nrec) arrays for one same-batch segment."""
+    return (
+        np.fromiter((g.start for g in fams[i:j]), np.int64, j - i),
+        np.fromiter((g.n for g in fams[i:j]), np.int32, j - i),
+    )
+
+
+def _run_multi_ref(fam) -> bool:
+    """True when a FamilyRun's mapped records span more than one contig
+    (ref_id -1 ignored, as the Python encoders' `rid >= 0` guard does)."""
+    run_refs = fam.batch.ref_id[fam.start : fam.start + fam.n]
+    mapped = run_refs[run_refs >= 0]
+    return bool(mapped.size and (mapped != mapped[0]).any())
+
+
+def _decode_fixed(raw: bytes) -> str:
+    """Decode a NUL-padded fixed-width field (ColumnarBatch qname/mi/rx)."""
+    return raw.rstrip(b"\x00").decode("ascii", "replace")
+
 
 def encode_molecular_families(
     families: Sequence[tuple[str, Sequence[BamRecord]]],
@@ -203,10 +264,15 @@ def encode_molecular_families(
     padded batch. Families whose window exceeds max_window or whose template
     count exceeds max_templates are skipped and reported (never silently
     dropped). Indel reads are dropped, as the reference drops them
-    (tools/1.convert_AG_to_CT.py:79-80).
+    (tools/1.convert_AG_to_CT.py:79-80). A chunk of FamilyRuns carrying
+    the C scan takes the native fill; the batch is the same.
 
     Returns (batch, skipped_mi_list).
     """
+    fams = families if isinstance(families, list) else list(families)
+    if fams and all(scan_matches(f, "drop") for f in fams):
+        return _encode_molecular_native(fams, max_window, max_templates)
+    families = fams
     placed = []
     skipped: list[str] = []
     max_t = 1
@@ -231,7 +297,9 @@ def encode_molecular_families(
             if len(codes) == 0:
                 continue
             role = 1 if rec.flag & FREAD2 else 0
-            templates[rec.qname][role] = (
+            # columnar views key templates by their raw qname bytes: only
+            # template identity matters here
+            templates[getattr(rec, "qname_key", None) or rec.qname][role] = (
                 codes, quals, pos, bool(rec.flag & FREVERSE)
             )
             try:  # one tag parse, not a has_tag/get_tag pair
@@ -276,6 +344,59 @@ def encode_molecular_families(
                 bases[fi, ti, role, off : off + len(codes)] = codes
                 quals[fi, ti, role, off : off + len(codes)] = q
         meta.append(FamilyMeta(mi, ref_id, lo, len(templates), rx, role_reverse=role_rev))
+    return MolecularBatch(bases, quals, meta), skipped
+
+
+def _encode_molecular_native(
+    fams: list, max_window: int, max_templates: int
+) -> tuple[MolecularBatch, list[str]]:
+    """encode_molecular_families over FamilyRuns: the per-record pass ran
+    in C at ingest (io.native.encode_scan; semantics in csrc/host/bamio.cpp
+    bamio_encode_scan), so this reads the per-family digests and fills the
+    tensors with one C call per contiguous batch segment
+    (io.native.encode_fill). The batch equals the Python path's."""
+    from bsseqconsensusreads_tpu_torch.io import native
+
+    skipped: list[str] = []
+    placed: list = []
+    rows = np.empty(len(fams), np.int64)
+    max_t, max_w = 1, LANE
+    for i, fam in enumerate(fams):
+        s, k = fam.scan, fam.fidx
+        ntpl = int(s["ntpl"][k])
+        window = int(s["window"][k])
+        if ntpl == 0 or window > max_window or ntpl > max_templates or _run_multi_ref(fam):
+            skipped.append(fam.mi)
+            rows[i] = -1
+            continue
+        rows[i] = len(placed)
+        placed.append(fam)
+        max_t = max(max_t, ntpl)
+        max_w = max(max_w, window)
+
+    f = len(placed)
+    t_pad = bucket_templates(max_t)
+    w_pad = bucket_window(max_w)
+    bases = np.full((f, t_pad, 2, w_pad), NBASE, dtype=np.int8)
+    quals = np.zeros((f, t_pad, 2, w_pad), dtype=np.uint8)
+    for i, j in _iter_batch_segments(fams):
+        scan = fams[i].scan
+        fam_start, fam_nrec = _segment_runs(fams, i, j)
+        native.encode_fill(
+            fams[i].batch, scan, fam_start, fam_nrec, rows[i:j],
+            np.ascontiguousarray(scan["lo"][[g.fidx for g in fams[i:j]]]),
+            bases, quals,
+        )
+    meta: list[FamilyMeta] = []
+    for fam in placed:
+        s, k = fam.scan, fam.fidx
+        rxr = int(s["rx_rec"][k])
+        rx = _decode_fixed(fam.batch.rx[rxr]) if rxr >= 0 else ""
+        rr = int(s["rolerev"][k])
+        meta.append(FamilyMeta(
+            fam.mi, int(s["refid"][k]), int(s["lo"][k]), int(s["ntpl"][k]),
+            rx, role_reverse=(bool(rr & 1), bool(rr & 2)),
+        ))
     return MolecularBatch(bases, quals, meta), skipped
 
 
@@ -345,10 +466,18 @@ def encode_duplex_families(
     shifting the whole read one base out of register): the read is placed
     one window column right, so the standard prepend path then writes the
     reference base at its original start column and every comparison runs
-    at the reference's shifted register.
+    at the reference's shifted register. 'shift' keeps the Python
+    placement (the C duplex scan places at the recorded position).
+
+    A chunk of FamilyRuns carrying the C duplex scan takes the native
+    fill; the batch, leftovers and skips are the same.
     """
     if pos0 not in ("skip", "shift"):
         raise ValueError(f"pos0 must be 'skip'|'shift', got {pos0!r}")
+    fams = families if isinstance(families, list) else list(families)
+    if pos0 == "skip" and fams and all(scan_matches(f, "duplex") for f in fams):
+        return _encode_duplex_native(fams, ref_fetch, ref_names, max_window, fetch_ref)
+    families = fams
     placed = []
     leftovers: list[BamRecord] = []
     skipped: list[str] = []
@@ -367,7 +496,9 @@ def encode_duplex_families(
                     ref_id = rid
                 elif rid != ref_id:
                     multi_ref = True
-            if any(op == CHARD_CLIP for op, _ in rec.cigar):
+            info = getattr(rec, "clip_info", None)  # columnar CIGAR digest
+            if (info[3] if info is not None
+                    else any(op == CHARD_CLIP for op, _ in rec.cigar)):
                 continue  # reference drops hardclipped reads (2.extend_gap.py:160)
             group_size += 1
             row = DUPLEX_ROW_OF_FLAG.get(rec.flag)
@@ -420,21 +551,96 @@ def encode_duplex_families(
             cover[fi, row, off : off + len(codes)] = True
             if row in CONVERT_ROWS:
                 convert_mask[fi, row] = True
-        name = (
-            ref_names[ref_id]
-            if fetch_ref and 0 <= ref_id < len(ref_names)
-            else None
-        )
-        if name is not None:
-            try:
-                # Only window+1 columns are ever read by the kernels (the
-                # rest stay N-padded); don't fetch the whole bucket width.
-                ref_str = ref_fetch(name, start, start + window + 1)
-            except Exception:
-                ref_str = ""
-            codes = seq_to_codes(ref_str)
+        if fetch_ref and 0 <= ref_id < len(ref_names):
+            # only window+1 columns are ever read by the kernels (the rest
+            # stay N-padded): don't fetch the whole bucket width
+            codes = _fetch_ref_codes(ref_fetch, ref_names[ref_id], start, start + window + 1)
             ref[fi, : len(codes)] = codes
         meta.append(FamilyMeta(mi, ref_id, start, len(rows), rx))
+    return (
+        DuplexBatch(bases, quals, cover, ref, convert_mask, eligible, meta),
+        leftovers,
+        skipped,
+    )
+
+
+def _fetch_ref_codes(ref_fetch, name: str, start: int, end: int) -> np.ndarray:
+    """Reference codes of [start, end); a failed fetch is all-N, as in the
+    reference (tools/1.convert_AG_to_CT.py:106-109)."""
+    try:
+        ref_str = ref_fetch(name, start, end)
+    except Exception:
+        ref_str = ""
+    return seq_to_codes(ref_str)
+
+
+def _encode_duplex_native(
+    fams: list, ref_fetch, ref_names: Sequence[str], max_window: int,
+    fetch_ref: bool = True,
+) -> tuple[DuplexBatch, list, list[str]]:
+    """encode_duplex_families over FamilyRuns carrying the C duplex scan
+    (io.native.duplex_scan): per-family start / window / row mask and
+    per-record row placement were computed at ingest, so only leftover
+    records (row -1) become per-record views, and the tensors fill with
+    one C call per contiguous batch segment. The reference windows are
+    fetched per family on the host, as in the Python path."""
+    from bsseqconsensusreads_tpu_torch.io import native
+    from bsseqconsensusreads_tpu_torch.pipeline.ingest import ColumnarRecordView
+
+    skipped: list[str] = []
+    leftovers: list = []
+    placed: list = []
+    rows = np.empty(len(fams), np.int64)
+    max_w = LANE
+    for i, fam in enumerate(fams):
+        s, k = fam.scan, fam.fidx
+        window = int(s["window"][k])
+        # leftovers count from every family, skipped or not (the Python
+        # pass collects them before the family-level gates)
+        if int(s["nleft"][k]):
+            row_of = s["row"][fam.start : fam.start + fam.n]
+            leftovers.extend(ColumnarRecordView(fam.batch, fam.start + int(dj))
+                             for dj in np.nonzero(row_of == -1)[0])
+        if window < 0 or window > max_window or _run_multi_ref(fam):
+            skipped.append(fam.mi)
+            rows[i] = -1
+            continue
+        rows[i] = len(placed)
+        placed.append(fam)
+        max_w = max(max_w, window)
+
+    f = len(placed)
+    w_pad = bucket_window(max_w)
+    bases = np.full((f, 4, w_pad), NBASE, dtype=np.int8)
+    quals = np.zeros((f, 4, w_pad), dtype=np.float32)
+    cover = np.zeros((f, 4, w_pad), dtype=bool)
+    ref = np.full((f, w_pad + 1), NBASE, dtype=np.int8)
+    convert_mask = np.zeros((f, 4), dtype=bool)
+    eligible = np.zeros(f, dtype=bool)
+    for i, j in _iter_batch_segments(fams):
+        scan = fams[i].scan
+        fam_start, fam_nrec = _segment_runs(fams, i, j)
+        native.duplex_fill(
+            fams[i].batch, scan, fam_start, fam_nrec, rows[i:j],
+            np.ascontiguousarray(scan["start"][[g.fidx for g in fams[i:j]]]),
+            bases, quals, cover.view(np.uint8),
+        )
+    meta: list[FamilyMeta] = []
+    for row, fam in enumerate(placed):
+        s, k = fam.scan, fam.fidx
+        mask = int(s["rowmask"][k])
+        eligible[row] = int(s["gsize"][k]) == 4
+        for r in CONVERT_ROWS:
+            convert_mask[row, r] = bool(mask & (1 << r))
+        rxr = int(s["rx_rec"][k])
+        rx = _decode_fixed(fam.batch.rx[rxr]) if rxr >= 0 else ""
+        ref_id = int(s["refid"][k])
+        start = int(s["start"][k])
+        window = int(s["window"][k])
+        if fetch_ref and 0 <= ref_id < len(ref_names):
+            codes = _fetch_ref_codes(ref_fetch, ref_names[ref_id], start, start + window + 1)
+            ref[row, : len(codes)] = codes
+        meta.append(FamilyMeta(fam.mi, ref_id, start, bin(mask).count("1"), rx))
     return (
         DuplexBatch(bases, quals, cover, ref, convert_mask, eligible, meta),
         leftovers,

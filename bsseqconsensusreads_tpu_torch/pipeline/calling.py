@@ -25,12 +25,19 @@ Alignment modes for the emitted consensus:
 * 'self' — window-space consensus keeps genomic coordinates, so records
   are emitted already aligned.
 
+Host engines: records come in as BamRecords from a BamReader or as
+pre-grouped columnar family runs from the C decoder
+(pipeline.ingest.GroupedColumnarStream, chosen by pipeline.stages); emit
+is 'native' (the C batch record emit, with the C cB histogram, duplex
+rawize and strand-call sweeps — io.wirepack) or 'python' (BamRecord
+objects and the numpy twins). Both engines write the same bytes.
+
 Left for later slices of the port (each raises or is absent here): the
 wire transport, mesh sharding and the deep-family route (families above
 MAX_TEMPLATES templates are skipped and counted in
 StageStats.skipped_families and the 'deep_skipped_families' counter), the
-overlap and host pools, retry/degrade and failpoints, native ingest and
-emit, methylation, and duplex passthrough of leftover records.
+overlap and host pools, retry/degrade and failpoints, methylation, and
+duplex passthrough of leftover records.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from bsseqconsensusreads_tpu_torch.io.bam import (
     FREVERSE,
     FUNMAP,
     BamRecord,
+    RawRecords,
 )
 from bsseqconsensusreads_tpu_torch.models.duplex import (
     ROLE_STRAND_ROWS,
@@ -86,6 +94,7 @@ from bsseqconsensusreads_tpu_torch.ops.encode import (
     encode_duplex_families,
     encode_molecular_families,
     pack_molecular_rows,
+    scan_matches,
 )
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
@@ -171,7 +180,30 @@ def stream_mi_groups(
 
     Records without an MI tag raise, matching the reference
     (tools/2.extend_gap.py:180).
+
+    A pipeline.ingest.GroupedColumnarStream (records grouped in C, the
+    same groups in the same order as this function's 'coordinate' or
+    'adjacent' mode) delegates straight through; its grouping,
+    strip_suffix and, in 'coordinate' mode, flush_margin must match this
+    call's.
     """
+    iter_groups = getattr(records, "iter_groups", None)
+    if iter_groups is not None:
+        if records.grouping != grouping:
+            raise ValueError(
+                f"pre-grouped stream was built for grouping={records.grouping!r}; "
+                f"caller wants {grouping!r}"
+            )
+        if records.strip_suffix != strip_suffix or (
+            grouping == "coordinate" and records.flush_margin != flush_margin
+        ):
+            raise ValueError(
+                "pre-grouped stream was built with "
+                f"(strip_suffix={records.strip_suffix}, flush_margin={records.flush_margin}); "
+                f"caller wants ({strip_suffix}, {flush_margin})"
+            )
+        yield from iter_groups(stats)
+        return
 
     def mi_of(rec: BamRecord) -> str:
         try:  # one tag parse per record, not a has_tag/get_tag pair
@@ -283,10 +315,14 @@ def _kept_template_count(records) -> int:
     """Distinct qnames among records the encoder keeps (hardclipped and
     indel reads never encode)."""
     drop_ops = (CINS, CDEL, CHARD_CLIP)
-    return len({
-        r.qname for r in records
-        if not any(op in drop_ops for op, _ in r.cigar)
-    })
+
+    def kept(r) -> bool:
+        info = getattr(r, "clip_info", None)
+        if info is not None:  # columnar view: the C CIGAR digest
+            return not (info[2] or info[3])
+        return not any(op in drop_ops for op, _ in r.cigar)
+
+    return len({r.qname for r in records if kept(r)})
 
 
 def _group_batches_bucketed(groups, size: int):
@@ -300,11 +336,15 @@ def _group_batches_bucketed(groups, size: int):
     counts: dict[int, int] = {}
     max_records = size * 8
     for g in groups:
-        _, records = g
-        b = bucket_templates(_kept_template_count(records))
+        if scan_matches(g, "drop"):  # the C scan counted the templates
+            n_tpl, n_rec = g.ntpl_est, g.n
+        else:
+            _, records = g
+            n_tpl, n_rec = _kept_template_count(records), len(records)
+        b = bucket_templates(n_tpl)
         lst = pending.setdefault(b, [])
         lst.append(g)
-        counts[b] = counts.get(b, 0) + len(records)
+        counts[b] = counts.get(b, 0) + n_rec
         if len(lst) >= size or counts[b] >= max_records:
             yield pending.pop(b)
             counts.pop(b)
@@ -317,6 +357,9 @@ def _split_deep(chunk, threshold: int):
     templates. Families with <= threshold records skip the CIGAR scan."""
     normal, deep = [], []
     for g in chunk:
+        if scan_matches(g, "drop"):  # the C scan counted the templates
+            (deep if g.ntpl_est > threshold else normal).append(g)
+            continue
         _, records = g
         if len(records) > threshold and _kept_template_count(records) > threshold:
             deep.append(g)
@@ -499,6 +542,87 @@ def _emit_read(
     )
 
 
+def _resolve_emit(emit: str) -> bool:
+    """True for the native batch emit. 'auto' and 'native' take it (every
+    mode can emit raw records, so nothing sends 'auto' to Python); the
+    library is loaded here, so a broken build fails before the stage
+    reads a record. 'python' is the BamRecord twin."""
+    if emit not in ("auto", "native", "python"):
+        raise ValueError(f"unknown emit {emit!r}; use auto|native|python")
+    if emit == "python":
+        return False
+    from bsseqconsensusreads_tpu_torch.io import wirepack
+
+    wirepack.lib()
+    return True
+
+
+def _emit_raw(batch, out, params, mode, stats, *, n_reads, role_reverse,
+              duplex, bcount=None, strand_calls=None, strand_err=None) -> RawRecords:
+    """The native batch emit (io.wirepack.emit_consensus_records), timed
+    as 'emit.pack' apart from the emit span's tag prologue: one C call
+    from output planes to record bytes, byte-identical to the Python
+    emitters."""
+    from bsseqconsensusreads_tpu_torch.io import wirepack
+
+    with stats.metrics.timed("emit.pack"):
+        blob, n, skipped = wirepack.emit_consensus_records(
+            out,
+            ref_id=[m.ref_id for m in batch.meta],
+            window_start=[m.window_start for m in batch.meta],
+            n_reads=n_reads,
+            role_reverse=role_reverse,
+            mi=[m.mi for m in batch.meta],
+            rx=[m.rx or "" for m in batch.meta],
+            min_reads=params.min_reads,
+            mode_self=(mode == "self"),
+            duplex=duplex,
+            bcount=bcount,
+            strand_calls=strand_calls,
+            strand_err=strand_err,
+        )
+    stats.families += len(batch.meta)
+    stats.skipped_families += skipped
+    stats.consensus_out += n
+    return RawRecords(blob, n)
+
+
+def _emit_molecular_batch_raw(batch, out, params, mode, stats) -> RawRecords:
+    """Native molecular emit: the sparse cB histogram in one C sweep
+    (co-call + filter + tally + sparsify — io.wirepack.bcount_sparse),
+    timed as 'emit.tags', then the batch emit."""
+    from bsseqconsensusreads_tpu_torch.io import wirepack
+
+    with stats.metrics.timed("emit.tags"):
+        bcount = out.get("bcount")  # the singleton pass tallied it already
+        if bcount is not None:
+            bcount = sparsify_base_counts(bcount, out["base"])
+        else:
+            bcount = wirepack.bcount_sparse(batch.bases, batch.quals, out["base"], params)
+        n_reads = (batch.bases != NBASE).any(axis=-1).sum(axis=(-2, -1)).astype(np.int32)
+        role_reverse = np.array(
+            [[int(m.role_reverse[0]), int(m.role_reverse[1])] for m in batch.meta],
+            np.uint8,
+        )
+    return _emit_raw(batch, out, params, mode, stats, n_reads=n_reads,
+                     role_reverse=role_reverse, duplex=False, bcount=bcount)
+
+
+def _emit_duplex_batch_raw(batch, out, params, mode, stats) -> RawRecords:
+    """Native duplex emit: the per-strand tag surface aD/bD/aM/bM/ad/bd,
+    ac/bc and aE/bE/ae/be where the rawize pass derived them; roles are
+    (forward, reverse) by construction."""
+    sc = (out["a_call"], out["b_call"]) if "a_call" in out else None
+    se = ((out["a_ss_err"], out["b_ss_err"], out["ss_valid"])
+          if "a_ss_err" in out else None)
+    return _emit_raw(
+        batch, out, params, mode, stats,
+        n_reads=np.array([m.n_templates for m in batch.meta], np.int32),
+        role_reverse=np.tile(np.array([0, 1], np.uint8), (len(batch.meta), 1)),
+        duplex=True, strand_calls=sc, strand_err=se,
+    )
+
+
 def _emit_molecular_batch(batch, out, params, mode, stats) -> list[BamRecord]:
     """Build consensus records (with the sparse cB histogram) from one
     molecular output batch."""
@@ -578,9 +702,16 @@ def call_molecular_batches(
     batching: str = "bucketed",
     layout: str = "packed",
     device=None,
+    emit: str = "python",
 ) -> Iterator[list]:
     """Molecular (single-strand) consensus over MI families, one list of
     consensus records per batch.
+
+    records: BamRecords, or a pipeline.ingest.GroupedColumnarStream
+    (pipeline.stages.molecular_ingest_stream) whose families carry the C
+    encode scan. emit: 'python' yields lists of BamRecord; 'native' and
+    'auto' yield one io.bam.RawRecords block per batch (the C batch emit,
+    byte-identical records). Writers take both (io.bam.write_items).
 
     batching: 'bucketed' (default) groups families into depth-homogeneous
     chunks per template bucket; 'sequential' chunks in input order.
@@ -598,6 +729,8 @@ def call_molecular_batches(
     device = resolve_device(device)
     if layout not in ("packed", "padded"):
         raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
+    native_emit = _resolve_emit(emit)
+    emit_fn = _emit_molecular_batch_raw if native_emit else _emit_molecular_batch
     stats = stats if stats is not None else StageStats(stage="molecular")
     t0 = time.monotonic()
     groups = _timed_groups(
@@ -631,7 +764,8 @@ def call_molecular_batches(
 
     def emit_out(out, batch):
         with stats.metrics.timed("emit"):
-            return _emit_molecular_batch(batch, out, params, mode, stats)
+            recs = emit_fn(batch, out, params, mode, stats)
+        return [recs] if isinstance(recs, RawRecords) else recs
 
     def retire(inflight, pf, batch):
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
@@ -659,9 +793,11 @@ def call_molecular_batches(
             stats.batches += 1
             if singleton:
                 with stats.metrics.timed("host_vote"):
+                    # the Python emit reuses this pass's cB tally; the native
+                    # emit builds the sparse histogram in one C sweep
                     out = singleton_consensus_host(
                         batch.bases, batch.quals, params, device,
-                        with_histogram=True,
+                        with_histogram=not native_emit,
                     )
                 yield "deferred", partial(emit_out, out, batch)
                 continue
@@ -696,28 +832,41 @@ def _duplex_sidecar(chunk, pos0: str = "skip") -> dict:
             row = DUPLEX_ROW_OF_FLAG.get(rec.flag)
             if row is None or row in rows:
                 continue
-            try:
-                _sub, cd = rec.get_tag("cd")
-                _sub, ce = rec.get_tag("ce")
-            except (KeyError, TypeError, ValueError):
-                continue
-            cd = np.asarray(cd, dtype=np.uint16)
-            ce = np.asarray(ce, dtype=np.uint16)
-            cbflat = None
-            try:
-                _sub, cbv = rec.get_tag("cB")
-                cbflat = np.asarray(cbv, dtype=np.uint16)
-            except (KeyError, TypeError, ValueError):
-                pass
-            cigar = rec.cigar
-            if any(op == CHARD_CLIP for op, _ in cigar):
-                continue
-            lead = cigar[0][1] if cigar and cigar[0][0] == CSOFT_CLIP else 0
-            trail = (
-                cigar[-1][1]
-                if len(cigar) > 1 and cigar[-1][0] == CSOFT_CLIP
-                else 0
-            )
+            # columnar views: one aux decode and the C CIGAR digest
+            aux_fn = getattr(rec, "consensus_aux", None)
+            if aux_fn is not None:
+                trip = aux_fn()
+                if trip is None:
+                    continue
+                cd, ce, cbflat = trip
+                lead, trail, _indel, hard = rec.clip_info
+                if hard:
+                    continue
+            else:
+                try:
+                    _sub, cd = rec.get_tag("cd")
+                    _sub, ce = rec.get_tag("ce")
+                except (KeyError, TypeError, ValueError):
+                    continue
+                # uint16, as the native decoder's aux planes: the native
+                # rawize assembles its flat buffer with one concatenate
+                cd = np.asarray(cd, dtype=np.uint16)
+                ce = np.asarray(ce, dtype=np.uint16)
+                cbflat = None
+                try:
+                    _sub, cbv = rec.get_tag("cB")
+                    cbflat = np.asarray(cbv, dtype=np.uint16)
+                except (KeyError, TypeError, ValueError):
+                    pass
+                cigar = rec.cigar
+                if any(op == CHARD_CLIP for op, _ in cigar):
+                    continue
+                lead = cigar[0][1] if cigar and cigar[0][0] == CSOFT_CLIP else 0
+                trail = (
+                    cigar[-1][1]
+                    if len(cigar) > 1 and cigar[-1][0] == CSOFT_CLIP
+                    else 0
+                )
             n = len(cd)
             if len(ce) != n or n <= lead + trail:
                 continue
@@ -765,11 +914,12 @@ def _sidecar_rows_for(meta, sidecar: dict, w: int):
     return None
 
 
-def _duplex_rawize(out: dict, batch, sidecar: dict, ref) -> dict:
+def _duplex_rawize(out: dict, batch, sidecar: dict, ref, native: bool = False) -> dict:
     """Raw-unit + strand-call enrichment of one retired duplex batch, on
-    the host (the numpy route of the JAX package's _duplex_rawize, with
-    its default strand_tags=True; ref is the batch's [F, W+1] reference
-    windows):
+    the host (the JAX package's _duplex_rawize with its default
+    strand_tags=True; ref is the batch's [F, W+1] reference windows).
+    native: passes 1 and 2 run as C sweeps (io.wirepack.strand_calls,
+    io.wirepack.duplex_rawize) instead of the numpy twins — same planes.
 
     1. STRAND CALLS: per-strand consensus call planes
        a_call/b_call [F, 2, W] from the host twin of the convert/extend
@@ -789,9 +939,16 @@ def _duplex_rawize(out: dict, batch, sidecar: dict, ref) -> dict:
     b_pres = np.asarray(out["b_depth"]) > 0
     a_errbit = np.asarray(out["a_err"]) > 0
     b_errbit = np.asarray(out["b_err"]) > 0
-    calls, _ccov = hosttwin.strand_call_planes(
-        batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
-    )
+    if native:
+        from bsseqconsensusreads_tpu_torch.io import wirepack
+
+        calls = wirepack.strand_calls(
+            batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
+        )
+    else:
+        calls, _ccov = hosttwin.strand_call_planes(
+            batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
+        )
     out = dict(out)
     rows_a = [p[0] for p in ROLE_STRAND_ROWS]
     rows_b = [p[1] for p in ROLE_STRAND_ROWS]
@@ -817,10 +974,46 @@ def _duplex_rawize(out: dict, batch, sidecar: dict, ref) -> dict:
         ex_off.append(pos - wstart)
         ex_cbs.append(cb)
 
+    if native:
+        raw = _rawize_native(out, batch, sidecar, w, collect_exact)
+    else:
+        raw = _rawize_numpy(out, batch, sidecar, w, collect_exact)
+    # fgbio's ae/be tag surface: per-base STRAND-consensus error counts
+    # (raw reads disagreeing with the strand's OWN call), computed BEFORE
+    # the exact pass overwrites a_err/b_err. ss_valid gates emission per
+    # (family, role): a COVERED strand without sidecar cd has no raw error
+    # information, and the tags are omitted there.
+    for pk, ek, eb in (
+        ("a_depth", "a_err", a_errbit), ("b_depth", "b_err", b_errbit)
+    ):
+        ad_p = np.asarray(raw[pk]).astype(np.int32)
+        ae_p = np.asarray(raw[ek]).astype(np.int32)
+        raw["a_ss_err" if pk[0] == "a" else "b_ss_err"] = np.clip(
+            np.where(eb, ad_p - ae_p, ae_p), 0, None
+        ).astype(np.int16)
+    ss_valid = np.zeros((f, 2), bool)
+    for role, (a_row, b_row) in enumerate(ROLE_STRAND_ROWS):
+        a_any = a_pres[:, role, :].any(axis=1)
+        b_any = b_pres[:, role, :].any(axis=1)
+        ss_valid[:, role] = (raw_rows[:, a_row] | ~a_any) & (
+            raw_rows[:, b_row] | ~b_any
+        )
+    raw["ss_valid"] = ss_valid
+    if ex_has.any():
+        raw = _exact_strand_errors(
+            raw, batch, (a_pres, b_pres), calls, ref,
+            w, ex_has, ex_fi, ex_row, ex_off, ex_cbs,
+        )
+    return raw
+
+
+def _rawize_numpy(out: dict, batch, sidecar: dict, w: int, collect_exact) -> dict:
+    """Pass 2 of _duplex_rawize in numpy: each sidecar row's raw cd/ce
+    placed into window space against the kernel's presence planes."""
     a_e = np.asarray(out["a_err"])
     b_e = np.asarray(out["b_err"])
-    ad = a_pres.astype(np.int32)
-    bd = b_pres.astype(np.int32)
+    ad = (np.asarray(out["a_depth"]) > 0).astype(np.int32)
+    bd = (np.asarray(out["b_depth"]) > 0).astype(np.int32)
     ae = a_e.astype(np.int32).copy()
     be = b_e.astype(np.int32).copy()
     for fi, meta in enumerate(batch.meta):
@@ -851,33 +1044,39 @@ def _duplex_rawize(out: dict, batch, sidecar: dict, ref) -> dict:
     raw["a_err"], raw["b_err"] = ae.astype(np.int16), be.astype(np.int16)
     raw["depth"] = (ad + bd).astype(np.int16)
     raw["errors"] = (ae + be).astype(np.int16)
-    # fgbio's ae/be tag surface: per-base STRAND-consensus error counts
-    # (raw reads disagreeing with the strand's OWN call), computed BEFORE
-    # the exact pass overwrites a_err/b_err. ss_valid gates emission per
-    # (family, role): a COVERED strand without sidecar cd has no raw error
-    # information, and the tags are omitted there.
-    for pk, ek, eb in (
-        ("a_depth", "a_err", a_errbit), ("b_depth", "b_err", b_errbit)
-    ):
-        ad_p = np.asarray(raw[pk]).astype(np.int32)
-        ae_p = np.asarray(raw[ek]).astype(np.int32)
-        raw["a_ss_err" if pk[0] == "a" else "b_ss_err"] = np.clip(
-            np.where(eb, ad_p - ae_p, ae_p), 0, None
-        ).astype(np.int16)
-    ss_valid = np.zeros((f, 2), bool)
-    for role, (a_row, b_row) in enumerate(ROLE_STRAND_ROWS):
-        a_any = a_pres[:, role, :].any(axis=1)
-        b_any = b_pres[:, role, :].any(axis=1)
-        ss_valid[:, role] = (raw_rows[:, a_row] | ~a_any) & (
-            raw_rows[:, b_row] | ~b_any
-        )
-    raw["ss_valid"] = ss_valid
-    if ex_has.any():
-        raw = _exact_strand_errors(
-            raw, batch, (a_pres, b_pres), calls, ref,
-            w, ex_has, ex_fi, ex_row, ex_off, ex_cbs,
-        )
     return raw
+
+
+def _rawize_native(out: dict, batch, sidecar: dict, w: int, collect_exact) -> dict:
+    """Pass 2 of _duplex_rawize as one C sweep (io.wirepack.duplex_rawize):
+    the sidecar rows flattened into one cd/ce buffer with per-(family,
+    row) position, offset and length."""
+    from bsseqconsensusreads_tpu_torch.io import wirepack
+
+    f = len(batch.meta)
+    row_pos = np.full(f * 4, -1, np.int64)
+    row_off = np.zeros(f * 4, np.int64)
+    row_len = np.zeros(f * 4, np.int32)
+    window_start = np.empty(f, np.int64)
+    chunks: list[np.ndarray] = []
+    cursor = 0
+    for fi, meta in enumerate(batch.meta):
+        window_start[fi] = meta.window_start
+        rows = _sidecar_rows_for(meta, sidecar, w)
+        if not rows:
+            continue
+        for row, (pos, cd, ce, cb) in rows.items():
+            k = fi * 4 + row
+            row_pos[k] = pos
+            row_off[k] = cursor
+            row_len[k] = len(cd)
+            chunks.append(cd)
+            chunks.append(ce)
+            cursor += 2 * len(cd)
+            collect_exact(fi, row, pos, meta.window_start, cb)
+    aux = np.concatenate(chunks) if chunks else np.zeros(0, np.uint16)
+    role_rows = np.asarray([r for pair in ROLE_STRAND_ROWS for r in pair], np.int32)
+    return wirepack.duplex_rawize(out, row_pos, row_off, row_len, aux, window_start, role_rows)
 
 
 def _exact_strand_errors(out: dict, batch, presence, calls, ref,
@@ -1087,9 +1286,16 @@ def call_duplex_batches(
     stats: StageStats | None = None,
     pos0: str = "skip",
     device=None,
+    emit: str = "python",
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
     group on the device, one list of consensus records per batch.
+
+    records: BamRecords, or a pipeline.ingest.GroupedColumnarStream
+    (pipeline.stages.duplex_ingest_stream) whose families carry the C
+    duplex scan. emit: 'python' yields BamRecords and rawizes in numpy;
+    'native' and 'auto' rawize in C (strand calls + raw units) and yield
+    one io.bam.RawRecords block per batch. Same bytes either way.
 
     Input: the aligned molecular consensus BAM, or call_molecular_batches
     (mode='self') output directly. min_reads=0 emits every group. Records
@@ -1103,6 +1309,8 @@ def call_duplex_batches(
     (default) or 'cpu'; no silent fallback.
     """
     device = resolve_device(device)
+    native_emit = _resolve_emit(emit)
+    emit_fn = _emit_duplex_batch_raw if native_emit else _emit_duplex_batch
     stats = stats if stats is not None else StageStats(stage="duplex")
     t0 = time.monotonic()
     groups = _timed_groups(
@@ -1129,9 +1337,10 @@ def call_duplex_batches(
         host = inflight.fetch(stats.metrics)
         out = unpack_duplex_outputs(host, f=f, w=w)
         with stats.metrics.timed("rawize"):
-            out = _duplex_rawize(out, batch, sidecar, batch.ref)
+            out = _duplex_rawize(out, batch, sidecar, batch.ref, native=native_emit)
         with stats.metrics.timed("emit"):
-            return _emit_duplex_batch(batch, out, params, mode, stats)
+            recs = emit_fn(batch, out, params, mode, stats)
+        return [recs] if isinstance(recs, RawRecords) else recs
 
     def events():
         for chunk in _group_batches(groups, batch_families):

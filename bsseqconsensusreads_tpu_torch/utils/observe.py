@@ -4,7 +4,10 @@ The port's counterpart of Metrics from the JAX package's utils/observe.py
 (the run ledger, traces and sinks are a later slice of the port). Phases the
 stages time: ingest, encode, kernel (host-side dispatch: H2D copies and
 launches), device_wait (CUDA event sync — the device still owned the
-batch), fetch (D2H copy + unpack), host_vote (singleton host path), emit.
+batch), fetch (D2H copy + unpack), host_vote (singleton host path),
+rawize (duplex raw units + strand calls), emit, and sort_write (the
+output writer's sort, spill, merge and deflate). A dotted name
+('emit.pack', 'sort_write.merge') is a part of the phase before the dot.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ class Metrics:
             yield
         finally:
             self.seconds[name] = self.seconds.get(name, 0.0) + time.monotonic() - t0
+
+    def add_seconds(self, name: str, dt: float) -> None:
+        """Seconds measured elsewhere (a C call's own clock): a dotted
+        name ('sort_write.merge') marks a part of a phase timed whole."""
+        self.seconds[name] = self.seconds.get(name, 0.0) + dt
 
     def as_dict(self) -> dict:
         out = dict(self.counters)

@@ -6,11 +6,16 @@ molecular -> duplex consensus path end to end and checks what comes out.
 
     python3 chip_smoke.py                 # the full run (one card)
     python3 chip_smoke.py --families 2000 # a shorter main-path run
+    python3 chip_smoke.py --kernels-only  # phases 0-2 (e.g. under compute-sanitizer)
+    python3 chip_smoke.py --engine-ab --families 20000
+                                          # phases 0-1, then the host engines A/B
 
 Phases:
   0. the card: `nvidia-smi --query-gpu=name,power.limit` and the device
      name; no CUDA device -> exit 2 with no result.
-  1. build csrc/vote.cu with nvcc for sm_90a (ptxas report + seconds).
+  1. build csrc/vote.cu with nvcc for sm_90a (ptxas report + seconds) and
+     the two host libraries from csrc/host/ with g++, all at once (seconds
+     and paths).
   2. each kernel against its plain version on the card, at the main path's
      shapes and at the shapes a tiled kernel gets wrong first (empty
      segments, one 1,500-row segment, W 160 / 224, min input qual 20 on
@@ -26,19 +31,26 @@ Phases:
      timer's floor (a one-element add); one PyTorch library call over the
      same contributions (torch.segment_reduce) as a yardstick the port
      never calls.
-  3. end to end: a grouped BAM of --families families (the JAX package's
-     tools/scale_rehearsal.py mixture: read length 150, fragment 180, 2 Mb
-     genome, 70% one template per strand and the rest two, RTA3-binned
-     quals, ~1.3% substitutions), the molecular stage (mode 'self',
-     grouping 'coordinate', 2048 families per batch), write_batch_stream,
-     the duplex stage, write_batch_stream — with the kernels' launch counts
-     set to 0 before and read after each stage, and each stage under
-     torch.profiler (the card's activity only) for its device busy
-     seconds and idle share, and seg_vote's launches counted by
-     (N, P, W, S). Then the first
-     --cpu-families families through both stages on the card and with
-     device='cpu', stage by stage on identical input, and the qual tables
-     built on the card against the CPU-built ones.
+  3. end to end: a grouped BAM of --families families (default 200,000:
+     the JAX package's tools/scale_rehearsal.py mixture: read length 150,
+     fragment 180, 2 Mb genome, 70% one template per strand and the rest
+     two, RTA3-binned quals, ~1.3% substitutions), written by the port's
+     native writer; the molecular stage (mode 'self', grouping
+     'coordinate', 2048 families per batch), write_batch_stream, the
+     duplex stage, write_batch_stream — with the native host engines
+     named explicitly (ingest, emit and sort 'native': a failed host build
+     fails the run), the kernels' launch counts set to 0 before and read
+     after each stage, each stage under torch.profiler (the card's
+     activity only) for its device busy seconds and idle share, and
+     seg_vote's launches counted by (N, P, W, S). Per stage: families/s,
+     the seconds of every host phase (ingest, encode, host_vote, rawize,
+     emit, sort_write) and device phase (kernel, device_wait, fetch), the
+     ingest_native / group_native counters and the launches. Then the
+     first --cpu-families families through both stages on the card with
+     the native engines, on the card with the Python engines (SHA-equal
+     required) and on the CPU with the native engines, stage by stage on
+     identical input, and the qual tables built on the card against the
+     CPU-built ones.
 
 Prints the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -410,7 +422,8 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int):
     header = BamHeader("@HD\tVN:1.6\tSO:coordinate\n", [("chr1", genome_len)])
     big = os.path.join(workdir, "grouped.bam")
     small = os.path.join(workdir, "grouped_head.bam")
-    with BamWriter(big, header) as wb, BamWriter(small, header) as ws:
+    with BamWriter(big, header, engine="native") as wb, \
+            BamWriter(small, header, engine="native") as ws:
         for rec in stream_duplex_families(
             codes, families, read_len=read_len, frag_extra=30,
             templates_for=lambda fam: 1 if fam % 10 < 7 else 2,
@@ -438,23 +451,24 @@ def device_busy_s(torch, prof) -> float:
     return busy_us / 1e6
 
 
-def run_stage(stage: str, inp: str, out: str, fasta: str, device: str, prof=None):
-    """One stage through the port's entry points; returns (StageStats,
-    per-kernel launches in this stage, wall seconds). With `prof`, a
-    torch.profiler that records the card's activity, the stage runs under
-    it."""
+def run_stage(stage: str, inp: str, out: str, fasta: str, device: str, prof=None,
+              engine: str = "native"):
+    """One stage through the port's entry points, every host engine
+    (ingest, emit, sort) named `engine`; returns (StageStats, per-kernel
+    launches in this stage, wall seconds). With `prof`, a torch.profiler
+    that records the card's activity, the stage runs under it."""
     import contextlib
 
     with prof if prof is not None else contextlib.nullcontext():
-        return _run_stage(stage, inp, out, fasta, device)
+        return _run_stage(stage, inp, out, fasta, device, engine)
 
 
-def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str):
+def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: str):
     from bsseqconsensusreads_tpu_torch.io.bam import BamReader
     from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote
-    from bsseqconsensusreads_tpu_torch.pipeline import calling
+    from bsseqconsensusreads_tpu_torch.pipeline import calling, stages
     from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
 
     for k in cuda_vote.LAUNCHES:
@@ -465,22 +479,45 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str):
     with BamReader(inp) as reader:
         if stage == "molecular":
             batches = calling.call_molecular_batches(
-                reader, ConsensusParams(min_reads=1), mode="self",
+                stages.molecular_ingest_stream(inp, reader, stats, ingest_choice=engine),
+                ConsensusParams(min_reads=1), mode="self",
                 batch_families=2048, grouping="coordinate", stats=stats,
-                device=device,
+                device=device, emit=engine,
             )
-            write_batch_stream(batches, out, reader.header, "self")
+            write_batch_stream(batches, out, reader.header, "self",
+                               sort_engine=engine, metrics=stats.metrics)
         else:
             with FastaFile(fasta) as fa:
                 names = [n for n, _ in reader.header.references]
                 batches = calling.call_duplex_batches(
-                    reader, fa.fetch, names, ConsensusParams(min_reads=0),
+                    stages.duplex_ingest_stream(inp, reader, stats, ingest_choice=engine),
+                    fa.fetch, names, ConsensusParams(min_reads=0),
                     mode="self", batch_families=2048, grouping="coordinate",
-                    stats=stats, device=device,
+                    stats=stats, device=device, emit=engine,
                 )
-                write_batch_stream(batches, out, reader.header, "self")
+                write_batch_stream(batches, out, reader.header, "self",
+                                   sort_engine=engine, metrics=stats.metrics)
     wall = time.monotonic() - t0
     return stats, dict(cuda_vote.LAUNCHES), wall
+
+
+HOST_PHASES = ("ingest", "encode", "host_vote", "rawize", "emit", "sort_write")
+DEVICE_PHASES = ("kernel", "device_wait", "fetch")
+
+
+def stage_summary(stage: str, stats, wall: float) -> dict:
+    """families/s and the seconds of every phase of one stage run."""
+    m = stats.metrics.seconds
+    return {
+        "stage": stage, "families": stats.families,
+        "families_per_s": stats.families / wall, "wall_s": wall,
+        "records_in": stats.records_in, "records_out": stats.consensus_out,
+        "batches": stats.batches, "skipped_families": stats.skipped_families,
+        **{f"{k}_s": m.get(k, 0.0) for k in HOST_PHASES + DEVICE_PHASES},
+        "sub_phases_s": {k: v for k, v in m.items() if "." in k},
+        "ingest_native": stats.metrics.counters.get("ingest_native", 0),
+        "group_native": stats.metrics.counters.get("group_native", 0),
+    }
 
 
 def sha256(path: str) -> str:
@@ -545,25 +582,19 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes)
         ("duplex", os.path.join(work, "molecular.bam"), os.path.join(work, "duplex.bam")),
     ):
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-        stats, counts, wall = run_stage(stage, inp, out, fasta, "cuda", prof)
+        stats, counts, wall = run_stage(stage, inp, out, fasta, "cuda", prof, engine="native")
         shapes.update(cuda_vote.SEG_VOTE_SHAPES)
         busy = device_busy_s(torch, prof)
-        m = stats.metrics.seconds
         summary = {
-            "stage": stage, "families": stats.families,
-            "families_per_s": stats.families / wall, "wall_s": wall,
-            "records_in": stats.records_in, "records_out": stats.consensus_out,
-            "batches": stats.batches, "skipped_families": stats.skipped_families,
-            "kernel_s": m.get("kernel", 0.0), "device_wait_s": m.get("device_wait", 0.0),
-            "fetch_s": m.get("fetch", 0.0), "host_vote_s": m.get("host_vote", 0.0),
-            "encode_s": m.get("encode", 0.0), "ingest_s": m.get("ingest", 0.0),
-            "emit_s": m.get("emit", 0.0), "rawize_s": m.get("rawize", 0.0),
+            **stage_summary(stage, stats, wall),
             "device_busy_s": busy if busy > 0 else "not measured",
             "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
             "launches": counts, "sha256": sha256(out),
         }
         log(f"phase3 stage {json.dumps(summary)}")
         check(stats.families > 0 and stats.consensus_out > 0, f"{stage}: no output")
+        check(summary["ingest_native"] == 1 and summary["group_native"] == 1,
+              f"{stage}: the main path did not ingest through the native engine")
         check(counts["seg_vote"] > 0, f"{stage}: seg_vote never launched")
         if stage == "molecular":
             check(counts["vote_finalize"] > 0, "molecular: vote_finalize never launched")
@@ -577,15 +608,22 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes)
         log(f"phase3 most frequent shape {top[0][0]} is a phase-2 case: "
             f"{tuple(top[0][0]) in case_shapes}")
 
-    # card vs CPU, stage by stage on identical input
-    for stage, inp in (("molecular", small), ("duplex", os.path.join(work, "mol_head_cuda.bam"))):
+    # on the head input, stage by stage on identical input: the card with
+    # the native engines against the card with the Python engines (the
+    # same bytes required), and against the CPU with the native engines
+    for stage, inp in (("molecular", small),
+                       ("duplex", os.path.join(work, "mol_head_cuda_native.bam"))):
         outs = {}
-        for dev in ("cuda", "cpu"):
-            out = os.path.join(work, f"{stage[:3]}_head_{dev}.bam")
-            run_stage(stage, inp, out, fasta, dev)
-            outs[dev] = out
-        n, ndiff, first = diff_records(outs["cuda"], outs["cpu"])
-        same = sha256(outs["cuda"]) == sha256(outs["cpu"])
+        for dev, engine in (("cuda", "native"), ("cuda", "python"), ("cpu", "native")):
+            out = os.path.join(work, f"{stage[:3]}_head_{dev}_{engine}.bam")
+            _stats, _counts, wall = run_stage(stage, inp, out, fasta, dev, engine=engine)
+            outs[dev, engine] = out
+            log(f"phase3 head {stage} {dev} {engine}: {wall:.2f} s, sha256 {sha256(out)}")
+        same_engines = sha256(outs["cuda", "native"]) == sha256(outs["cuda", "python"])
+        log(f"phase3 native-vs-python engines on the card {stage}: byte-identical={same_engines}")
+        check(same_engines, f"{stage}: native and Python host engines wrote different bytes")
+        n, ndiff, first = diff_records(outs["cuda", "native"], outs["cpu", "native"])
+        same = sha256(outs["cuda", "native"]) == sha256(outs["cpu", "native"])
         log(f"phase3 card-vs-cpu {stage}: {n} records, {ndiff} differ, "
             f"byte-identical={same}" + (f", first: {first}" if first else ""))
         check(n > 0, f"{stage}: the card-vs-CPU comparison saw no records")
@@ -611,14 +649,69 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes)
     return launches
 
 
+def engine_ab(np, torch, families: int) -> None:
+    """The host engines in turns on the card — Python, native, native,
+    Python — each through both stages on the same --families input, in
+    one process: families/s and the host phases of every turn."""
+    with tempfile.TemporaryDirectory(prefix="bsseq_ab_") as work:
+        t0 = time.monotonic()
+        fasta, big, _small = write_inputs(np, work, families, 0)
+        log(f"ab input: {families} families written in {time.monotonic() - t0:.1f} s")
+        rates = {"python": [], "native": []}
+        for turn, engine in enumerate(("python", "native", "native", "python")):
+            mol = os.path.join(work, f"mol_{turn}.bam")
+            for stage, inp, out in (("molecular", big, mol),
+                                    ("duplex", mol, os.path.join(work, f"dup_{turn}.bam"))):
+                stats, _counts, wall = run_stage(stage, inp, out, fasta, "cuda", engine=engine)
+                row = {"turn": turn, "engine": engine, **stage_summary(stage, stats, wall),
+                       "sha256": sha256(out)}
+                log(f"ab stage {json.dumps(row)}")
+                rates[engine].append((stage, row["families_per_s"], row["sha256"]))
+        for stage in ("molecular", "duplex"):
+            shas = {sha for eng in rates.values() for st, _r, sha in eng if st == stage}
+            check(len(shas) == 1, f"ab {stage}: the engines wrote different bytes")
+            mean = {eng: sum(r for st, r, _ in v if st == stage) / 2 for eng, v in rates.items()}
+            log(f"ab {stage}: families/s python {mean['python']:.1f} native {mean['native']:.1f} "
+                f"({mean['native'] / mean['python']:.2f}x)")
+
+
+def build_all(log_ptxas: bool = True) -> None:
+    """nvcc for csrc/vote.cu and g++ for each host library, all started
+    together; seconds and the library paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bsseqconsensusreads_tpu_torch.io import _nativelib
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+
+    def timed_build(name, fn):
+        t0 = time.monotonic()
+        path = fn()
+        return name, time.monotonic() - t0, path
+
+    jobs = [("vote.cu (nvcc)", lambda: cuda_vote.build(verbose=log_ptxas))]
+    jobs += [(f"{name} (g++)", lambda name=name: _nativelib.build(name))
+             for name in _nativelib.LIBRARIES]
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = [f.result() for f in [pool.submit(timed_build, n, fn) for n, fn in jobs]]
+    for name, dt, path in done:
+        log(f"phase1 build {name}: {dt:.1f} s -> {path}")
+    log(f"phase1 builds, all at once: {time.monotonic() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------- main
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--families", type=int, default=20_000)
+    ap.add_argument("--families", type=int, default=200_000)
     ap.add_argument("--cpu-families", type=int, default=2_000)
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 0-2 only: build and hold each kernel against its plain version")
+    ap.add_argument("--engine-ab", action="store_true",
+                    help="phases 0-1, then the Python and native host engines in turns "
+                    "at --families")
     args = ap.parse_args()
 
     try:
@@ -643,16 +736,23 @@ def main() -> int:
         log(f"phase0 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
         dev = torch.device("cuda")
 
-        t0 = time.monotonic()
-        cuda_vote.build(verbose=True)
-        log(f"phase1 build: {time.monotonic() - t0:.1f} s -> {cuda_vote.LIBRARY}")
-
-        seg_rows, fin_rows = phase2(np, torch, dev, args.repeats)
-        case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
-        launches = phase3(np, torch, args.families, args.cpu_families, case_shapes)
+        build_all()
+        if args.engine_ab:
+            engine_ab(np, torch, args.families)
+        else:
+            seg_rows, fin_rows = phase2(np, torch, dev, args.repeats)
+            if not args.kernels_only:
+                case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
+                launches = phase3(np, torch, args.families, args.cpu_families, case_shapes)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    if args.engine_ab or args.kernels_only:
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     def summary(rows):
         return [{k: r[k] for k in ("case", "ms", "spread", "profiler_ms", "bound_ms",

@@ -115,7 +115,9 @@ bad = sorted(m for m in sys.modules
              or m.startswith("jax."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 25, names
+host = {"io._nativelib", "io.native", "io.wirepack", "pipeline.ingest", "pipeline.stages"}
+assert host <= {n.split(".", 1)[1] for n in names}, names
 """
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -21,6 +21,7 @@ from bsseqconsensusreads_tpu.models.params import ConsensusParams as JaxParams
 from bsseqconsensusreads_tpu.ops.encode import codes_to_seq
 from bsseqconsensusreads_tpu.pipeline import calling as jc
 from bsseqconsensusreads_tpu.pipeline import extsort as je
+from bsseqconsensusreads_tpu.pipeline import stages as jstages
 from bsseqconsensusreads_tpu.utils.testing import (
     make_grouped_bam_records,
     random_genome,
@@ -32,6 +33,7 @@ from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile as PortFasta
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.pipeline import calling as tc
 from bsseqconsensusreads_tpu_torch.pipeline import extsort as te
+from bsseqconsensusreads_tpu_torch.pipeline import stages
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUTE = dict(mesh=None, transport="unpacked", layout="packed", emit="python",
@@ -113,25 +115,80 @@ def _jax_chain(env, mode, tag):
     return mol, dup
 
 
-def _port_chain(env, mode, tag, layout="packed", stats=None):
+def _port_chain(env, mode, tag, layout="packed", stats=None, engine=None):
+    """The port's chain on the CPU. engine None: records from the
+    BamReader, the Python emit and the default sort; 'native' or 'python':
+    every host engine (ingest, emit, sort) by that name."""
+    ingest = {} if engine is None else {"ingest_choice": engine}
+    host = {} if engine is None else {"emit": engine}
+    sort = {} if engine is None else {"sort_engine": engine}
+    stats = stats if stats is not None else tc.StageStats()
     mol = str(env["tmp"] / f"port_mol_{tag}.bam")
     with PortReader(env["bam"]) as r:
+        src = r if engine is None else stages.molecular_ingest_stream(
+            env["bam"], r, stats, **ingest)
         batches = tc.call_molecular_batches(
-            r, ConsensusParams(min_reads=1), mode=mode, grouping="coordinate",
-            layout=layout, stats=stats, device="cpu",
+            src, ConsensusParams(min_reads=1), mode=mode, grouping="coordinate",
+            layout=layout, stats=stats, device="cpu", **host,
         )
-        te.write_batch_stream(batches, mol, r.header, mode)
+        te.write_batch_stream(batches, mol, r.header, mode, metrics=stats.metrics, **sort)
     if mode != "self":
         return mol, None
     dup = str(env["tmp"] / f"port_dup_{tag}.bam")
+    dstats = tc.StageStats()
     with PortReader(mol) as r, PortFasta(env["fasta"]) as fa:
         names = [n for n, _ in r.header.references]
+        src = r if engine is None else stages.duplex_ingest_stream(mol, r, dstats, **ingest)
         batches = tc.call_duplex_batches(
-            r, fa.fetch, names, ConsensusParams(min_reads=0), mode="self",
-            grouping="coordinate", device="cpu",
+            src, fa.fetch, names, ConsensusParams(min_reads=0), mode="self",
+            grouping="coordinate", stats=dstats, device="cpu", **host,
         )
-        te.write_batch_stream(batches, dup, r.header, "self")
+        te.write_batch_stream(batches, dup, r.header, "self", metrics=dstats.metrics, **sort)
     return mol, dup
+
+
+def _jax_native_chain(env, mode, tag):
+    """The JAX package's chain with its native host engines: columnar
+    ingest with C grouping and encode scan, the C batch emit, the native
+    sort."""
+    route = {**ROUTE, "emit": "native"}
+    mol = str(env["tmp"] / f"jaxnat_mol_{tag}.bam")
+    with BamReader(env["bam"]) as r:
+        src = jstages.molecular_ingest_stream(env["bam"], r, jc.StageStats(),
+                                              ingest_choice="native")
+        batches = jc.call_molecular_batches(
+            src, JaxParams(min_reads=1), mode=mode, grouping="coordinate", **route)
+        je.write_batch_stream(batches, mol, r.header, mode, sort_engine="native")
+    if mode != "self":
+        return mol, None
+    dup = str(env["tmp"] / f"jaxnat_dup_{tag}.bam")
+    with BamReader(mol) as r, FastaFile(env["fasta"]) as fa:
+        names = [n for n, _ in r.header.references]
+        src = jstages.duplex_ingest_stream(mol, r, jc.StageStats(), ingest_choice="native")
+        batches = jc.call_duplex_batches(
+            src, fa.fetch, names, JaxParams(min_reads=0), mode="self",
+            grouping="coordinate", **route)
+        je.write_batch_stream(batches, dup, r.header, "self", sort_engine="native")
+    return mol, dup
+
+
+@pytest.mark.parametrize("fixture,mode", [
+    ("grouped_env", "self"), ("mixture_env", "self"),
+    ("grouped_env", "unaligned"), ("mixture_env", "unaligned"),
+])
+def test_native_and_python_engines_and_the_jax_native_chain_are_sha_equal(
+        fixture, mode, request):
+    env = request.getfixturevalue(fixture)
+    stats = tc.StageStats()
+    nat = _port_chain(env, mode, f"eng_nat_{mode}", stats=stats, engine="native")
+    py = _port_chain(env, mode, f"eng_py_{mode}", engine="python")
+    jax_nat = _jax_native_chain(env, mode, mode)
+    for a, b, c in zip(nat, py, jax_nat):
+        if a is not None:
+            assert _sha(a) == _sha(b) == _sha(c)
+    assert stats.metrics.counters["ingest_native"] == 1
+    assert stats.metrics.counters["group_native"] == 1
+    assert stats.metrics.seconds["emit.pack"] > 0 and stats.metrics.seconds["sort_write"] > 0
 
 
 @pytest.mark.parametrize("fixture", ["grouped_env", "mixture_env"])
