@@ -6,3 +6,5 @@ of the JAX package. Its two hand-written kernels live in csrc/vote.cu
 (built at first use, see ops/cuda_vote.py). Entry points run on the card
 unless the caller passes device='cpu'.
 """
+
+__version__ = "0.1.0"

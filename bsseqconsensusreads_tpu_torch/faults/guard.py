@@ -75,6 +75,23 @@ class MissingTagError(RecordGuardError):
         self.qname = qname
 
 
+class InputChangedError(GuardError, RuntimeError):
+    """Checkpoint resume refused: the input BAM changed (size/mtime)
+    since the manifest was written — resuming would splice consensus
+    from two different inputs (pipeline.checkpoint)."""
+
+    def __init__(self, target: str, manifest_fp: dict, run_fp: dict):
+        super().__init__(
+            f"checkpoint for {target} was computed from a different "
+            f"input (manifest {manifest_fp} != current {run_fp}); "
+            "refusing to splice consensus from two inputs — delete the "
+            f"manifest ({target}.ckpt.json) to recompute from scratch"
+        )
+        self.reason = "input-changed"
+        self.manifest_fingerprint = manifest_fp
+        self.run_fingerprint = run_fp
+
+
 #: ordered (substring, canonical reason) table — first match wins
 _CANONICAL = (
     ("corrupt record body", "record-corrupt"),

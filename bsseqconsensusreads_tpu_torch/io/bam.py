@@ -84,6 +84,67 @@ class BamHeader:
     def copy(self) -> "BamHeader":
         return BamHeader(self.text, list(self.references))
 
+    def with_sort_order(self, so: str, ss: str | None = None) -> "BamHeader":
+        """A copy whose @HD line declares SO:`so` (and optionally a
+        SS:`ss` sub-sort). Other @HD fields survive; a stale SS from a
+        previous sort is dropped unless replaced."""
+        lines = self.text.splitlines()
+        out = []
+        replaced = False
+        for line in lines:
+            if line.startswith("@HD"):
+                fields = [
+                    f for f in line.split("\t")[1:]
+                    if not f.startswith(("SO:", "SS:"))
+                ]
+                hd = "\t".join(["@HD", *fields, f"SO:{so}"])
+                if ss:
+                    hd += f"\tSS:{ss}"
+                out.append(hd)
+                replaced = True
+            else:
+                out.append(line)
+        if not replaced:
+            hd = f"@HD\tVN:1.6\tSO:{so}"
+            if ss:
+                hd += f"\tSS:{ss}"
+            out.insert(0, hd)
+        return BamHeader(
+            "\n".join(out) + ("\n" if out else ""), list(self.references)
+        )
+
+    def with_pg(
+        self,
+        program: str,
+        version: str = "",
+        command_line: str = "",
+    ) -> "BamHeader":
+        """A copy with an @PG provenance line appended, chained to the
+        previous program via PP (what samtools/fgbio do on every step);
+        a repeated program gets the ID suffix .1, .2, …"""
+        ids = []
+        for line in self.text.splitlines():
+            if line.startswith("@PG"):
+                for part in line.split("\t")[1:]:
+                    if part.startswith("ID:"):
+                        ids.append(part[3:])
+        pg_id = program
+        n = 1
+        while pg_id in ids:
+            pg_id = f"{program}.{n}"
+            n += 1
+        fields = [f"@PG\tID:{pg_id}", f"PN:{program}"]
+        if ids:
+            fields.append(f"PP:{ids[-1]}")
+        if version:
+            fields.append(f"VN:{version}")
+        if command_line:
+            fields.append(f"CL:{command_line}")
+        text = self.text
+        if text and not text.endswith("\n"):
+            text += "\n"
+        return BamHeader(text + "\t".join(fields) + "\n", list(self.references))
+
 
 @dataclass
 class BamRecord:

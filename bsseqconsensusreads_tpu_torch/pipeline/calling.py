@@ -557,6 +557,27 @@ def _resolve_emit(emit: str) -> bool:
     return True
 
 
+def check_route(transport: str, indel_policy: str = "drop") -> None:
+    """The transports and indel policies the port runs: transport 'auto'
+    and 'unpacked' (both the plain-tensor route here), indel policy
+    'drop'. The JAX package's others raise, naming the ROADMAP item that
+    brings them — never a silent substitute."""
+    if transport == "wire":
+        raise ValueError(
+            "transport 'wire' is not ported yet (ROADMAP queue 1, item 3: "
+            "the wire transport and ops/refstore); use 'auto' or 'unpacked'"
+        )
+    if transport not in ("auto", "unpacked"):
+        raise ValueError(f"unknown transport {transport!r} (auto | unpacked)")
+    if indel_policy == "align":
+        raise ValueError(
+            "indel_policy 'align' is not ported yet (ROADMAP queue 1, item "
+            "7: ops/banded.py); use 'drop'"
+        )
+    if indel_policy != "drop":
+        raise ValueError(f"unknown indel_policy {indel_policy!r} (drop)")
+
+
 def _emit_raw(batch, out, params, mode, stats, *, n_reads, role_reverse,
               duplex, bcount=None, strand_calls=None, strand_err=None) -> RawRecords:
     """The native batch emit (io.wirepack.emit_consensus_records), timed
@@ -587,18 +608,22 @@ def _emit_raw(batch, out, params, mode, stats, *, n_reads, role_reverse,
     return RawRecords(blob, n)
 
 
-def _emit_molecular_batch_raw(batch, out, params, mode, stats) -> RawRecords:
-    """Native molecular emit: the sparse cB histogram in one C sweep
-    (co-call + filter + tally + sparsify — io.wirepack.bcount_sparse),
-    timed as 'emit.tags', then the batch emit."""
+def _emit_molecular_batch_raw(batch, out, params, mode, stats,
+                              base_counts: bool = True) -> RawRecords:
+    """Native molecular emit: with base_counts, the sparse cB histogram in
+    one C sweep (co-call + filter + tally + sparsify —
+    io.wirepack.bcount_sparse), timed as 'emit.tags', then the batch
+    emit."""
     from bsseqconsensusreads_tpu_torch.io import wirepack
 
     with stats.metrics.timed("emit.tags"):
-        bcount = out.get("bcount")  # the singleton pass tallied it already
-        if bcount is not None:
-            bcount = sparsify_base_counts(bcount, out["base"])
-        else:
-            bcount = wirepack.bcount_sparse(batch.bases, batch.quals, out["base"], params)
+        bcount = None
+        if base_counts:
+            bcount = out.get("bcount")  # the singleton pass tallied it already
+            if bcount is not None:
+                bcount = sparsify_base_counts(bcount, out["base"])
+            else:
+                bcount = wirepack.bcount_sparse(batch.bases, batch.quals, out["base"], params)
         n_reads = (batch.bases != NBASE).any(axis=-1).sum(axis=(-2, -1)).astype(np.int32)
         role_reverse = np.array(
             [[int(m.role_reverse[0]), int(m.role_reverse[1])] for m in batch.meta],
@@ -623,17 +648,20 @@ def _emit_duplex_batch_raw(batch, out, params, mode, stats) -> RawRecords:
     )
 
 
-def _emit_molecular_batch(batch, out, params, mode, stats) -> list[BamRecord]:
-    """Build consensus records (with the sparse cB histogram) from one
-    molecular output batch."""
+def _emit_molecular_batch(batch, out, params, mode, stats,
+                          base_counts: bool = True) -> list[BamRecord]:
+    """Build consensus records (with the sparse cB histogram when
+    base_counts) from one molecular output batch."""
     base = np.asarray(out["base"])
     qual = np.asarray(out["qual"])
     depth = np.asarray(out["depth"])
     errors = np.asarray(out["errors"])
-    bcounts = out.get("bcount")  # the singleton pass tallied it already
-    if bcounts is None:
-        bcounts = molecular_base_counts(batch.bases, batch.quals, params)
-    bcounts = sparsify_base_counts(bcounts, out["base"])
+    bcounts = None
+    if base_counts:
+        bcounts = out.get("bcount")  # the singleton pass tallied it already
+        if bcounts is None:
+            bcounts = molecular_base_counts(batch.bases, batch.quals, params)
+        bcounts = sparsify_base_counts(bcounts, out["base"])
     has, first, last, span = _batch_spans(depth)
     dmax, dmin, dtot = _span_stats(depth, span)
     _emx, _emn, etot = _span_stats(errors, span)
@@ -658,7 +686,7 @@ def _emit_molecular_batch(batch, out, params, mode, stats) -> list[BamRecord]:
             quals_fwd = qual[fi, role, sl].astype(np.uint8, copy=False).tobytes()
             tags = _consensus_tags(
                 depth[fi, role, sl], errors[fi, role, sl], meta.mi, meta.rx,
-                bcount=bcounts[fi, role, :, sl],
+                bcount=None if bcounts is None else bcounts[fi, role, :, sl],
                 flip=mode != "self" and bool(meta.role_reverse[role]),
                 pre=(
                     int(dmax[fi, role]), int(dmin[fi, role]),
@@ -703,9 +731,17 @@ def call_molecular_batches(
     layout: str = "packed",
     device=None,
     emit: str = "python",
+    skip_batches: int = 0,
+    indel_policy: str = "drop",
+    transport: str = "auto",
+    base_counts: bool = True,
 ) -> Iterator[list]:
     """Molecular (single-strand) consensus over MI families, one list of
-    consensus records per batch.
+    consensus records per batch — the checkpoint/resume granularity
+    (pipeline.checkpoint): batching is deterministic given identical input
+    and parameters, so skip_batches replays the stream past the first
+    skip_batches chunks (counted after bucketing, empty ones included)
+    without encoding or launching anything for them.
 
     records: BamRecords, or a pipeline.ingest.GroupedColumnarStream
     (pipeline.stages.molecular_ingest_stream) whose families carry the C
@@ -721,17 +757,23 @@ def call_molecular_batches(
     T == 1 batches (the cfDNA majority) take the singleton host path
     (models.molecular.singleton_consensus_host), timed as 'host_vote'.
 
-    Every record carries the cB raw base histogram tag — the duplex
-    stage's input for exact raw-unit errors. min_reads filters whole
-    families by raw read count. device: 'cuda' (default) or 'cpu'; no
-    silent fallback.
+    base_counts: every record carries the cB raw base histogram tag — the
+    duplex stage's input for exact raw-unit errors (disable to shave tag
+    bytes when no duplex stage follows). min_reads filters whole families
+    by raw read count. transport and indel_policy: see check_route.
+    device: 'cuda' (default) or 'cpu'; no silent fallback.
     """
     device = resolve_device(device)
+    check_route(transport, indel_policy)
     if layout not in ("packed", "padded"):
         raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
     native_emit = _resolve_emit(emit)
-    emit_fn = _emit_molecular_batch_raw if native_emit else _emit_molecular_batch
+    emit_fn = partial(
+        _emit_molecular_batch_raw if native_emit else _emit_molecular_batch,
+        base_counts=base_counts,
+    )
     stats = stats if stats is not None else StageStats(stage="molecular")
+    stats.metrics.count("deep_skipped_families", 0)  # reported even when 0
     t0 = time.monotonic()
     groups = _timed_groups(
         stream_mi_groups(records, grouping=grouping, stats=stats), stats.metrics
@@ -774,7 +816,10 @@ def call_molecular_batches(
         return emit_out({k: v[:f] for k, v in out.items()}, batch)
 
     def events():
-        for chunk in chunks:
+        for batch_index, chunk in enumerate(chunks, start=1):
+            if batch_index <= skip_batches:
+                # resume replay: skipped batches never encode at all
+                continue
             normal, deep = _split_deep(chunk, MAX_TEMPLATES)
             if deep:
                 stats.skipped_families += len(deep)
@@ -797,7 +842,7 @@ def call_molecular_batches(
                     # emit builds the sparse histogram in one C sweep
                     out = singleton_consensus_host(
                         batch.bases, batch.quals, params, device,
-                        with_histogram=not native_emit,
+                        with_histogram=base_counts and not native_emit,
                     )
                 yield "deferred", partial(emit_out, out, batch)
                 continue
@@ -914,17 +959,19 @@ def _sidecar_rows_for(meta, sidecar: dict, w: int):
     return None
 
 
-def _duplex_rawize(out: dict, batch, sidecar: dict, ref, native: bool = False) -> dict:
+def _duplex_rawize(out: dict, batch, sidecar: dict, ref, native: bool = False,
+                   strand_tags: bool = True) -> dict:
     """Raw-unit + strand-call enrichment of one retired duplex batch, on
-    the host (the JAX package's _duplex_rawize with its default
-    strand_tags=True; ref is the batch's [F, W+1] reference windows).
-    native: passes 1 and 2 run as C sweeps (io.wirepack.strand_calls,
-    io.wirepack.duplex_rawize) instead of the numpy twins — same planes.
+    the host (the JAX package's _duplex_rawize; ref is the batch's
+    [F, W+1] reference windows). native: passes 1 and 2 run as C sweeps
+    (io.wirepack.strand_calls, io.wirepack.duplex_rawize) instead of the
+    numpy twins — same planes.
 
-    1. STRAND CALLS: per-strand consensus call planes
-       a_call/b_call [F, 2, W] from the host twin of the convert/extend
-       transforms (ops.hosttwin.strand_call_planes), masked by the
-       kernel's per-strand presence bits — the ac/bc tags.
+    1. STRAND CALLS: per-strand consensus call planes from the host twin
+       of the convert/extend transforms (ops.hosttwin.strand_call_planes).
+       With strand_tags they become a_call/b_call [F, 2, W], masked by the
+       kernel's per-strand presence bits — the ac/bc tags; without, they
+       are computed only when pass 3 needs them.
     2. RAW DEPTHS: ad/bd become raw per-read strand depths wherever the
        sidecar carries the molecular cd arrays, cd their sum; a_err/b_err
        hold raw-unit per-strand error counts (err-bit split rule).
@@ -939,21 +986,28 @@ def _duplex_rawize(out: dict, batch, sidecar: dict, ref, native: bool = False) -
     b_pres = np.asarray(out["b_depth"]) > 0
     a_errbit = np.asarray(out["a_err"]) > 0
     b_errbit = np.asarray(out["b_err"]) > 0
-    if native:
-        from bsseqconsensusreads_tpu_torch.io import wirepack
+    need_exact = bool(sidecar) and any(
+        entry[3] is not None
+        for occs in sidecar.values() for rows in occs for entry in rows.values()
+    )
+    calls = None
+    if strand_tags or need_exact:
+        if native:
+            from bsseqconsensusreads_tpu_torch.io import wirepack
 
-        calls = wirepack.strand_calls(
-            batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
-        )
-    else:
-        calls, _ccov = hosttwin.strand_call_planes(
-            batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
-        )
+            calls = wirepack.strand_calls(
+                batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
+            )
+        else:
+            calls, _ccov = hosttwin.strand_call_planes(
+                batch.bases, batch.cover, ref, batch.convert_mask, batch.extend_eligible,
+            )
     out = dict(out)
-    rows_a = [p[0] for p in ROLE_STRAND_ROWS]
-    rows_b = [p[1] for p in ROLE_STRAND_ROWS]
-    out["a_call"] = np.where(a_pres, calls[:, rows_a, :], np.int8(NBASE)).astype(np.int8)
-    out["b_call"] = np.where(b_pres, calls[:, rows_b, :], np.int8(NBASE)).astype(np.int8)
+    if strand_tags:
+        rows_a = [p[0] for p in ROLE_STRAND_ROWS]
+        rows_b = [p[1] for p in ROLE_STRAND_ROWS]
+        out["a_call"] = np.where(a_pres, calls[:, rows_a, :], np.int8(NBASE)).astype(np.int8)
+        out["b_call"] = np.where(b_pres, calls[:, rows_b, :], np.int8(NBASE)).astype(np.int8)
     if not sidecar:
         return out
 
@@ -1287,9 +1341,15 @@ def call_duplex_batches(
     pos0: str = "skip",
     device=None,
     emit: str = "python",
+    skip_batches: int = 0,
+    transport: str = "auto",
+    strand_tags: bool = True,
+    chemistry: str = "bisulfite",
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
-    group on the device, one list of consensus records per batch.
+    group on the device, one list of consensus records per batch (the
+    checkpoint/resume unit — see call_molecular_batches for
+    skip_batches).
 
     records: BamRecords, or a pipeline.ingest.GroupedColumnarStream
     (pipeline.stages.duplex_ingest_stream) whose families carry the C
@@ -1306,9 +1366,28 @@ def call_duplex_batches(
     pos0: conversion-prepend behavior for reads mapped at reference
     position 0 — 'skip' (default, documented deviation) or 'shift'
     (exact reference parity incl. the register shift). device: 'cuda'
-    (default) or 'cpu'; no silent fallback.
+    (default) or 'cpu'; no silent fallback. transport: see check_route.
+
+    strand_tags: emit the ac/bc per-strand consensus call string tags.
+    Exact raw-unit errors (from the input's cB histograms) engage
+    regardless.
+
+    chemistry: 'bisulfite' (default) and 'emseq' run the conversion-aware
+    engine (identical computation; 'emseq' is provenance). 'none'
+    declares an unconverted duplex library: the convert mask is cleared
+    after encode, and pos0='shift' (a conversion-prepend behavior) is
+    refused.
     """
     device = resolve_device(device)
+    check_route(transport)
+    if chemistry not in ("bisulfite", "emseq", "none"):
+        raise ValueError(f"unknown chemistry {chemistry!r} (bisulfite | emseq | none)")
+    unconverted = chemistry == "none"
+    if unconverted and pos0 == "shift":
+        raise ValueError(
+            "chemistry='none' is incompatible with pos0='shift' (the "
+            "shift is a conversion-prepend behavior)"
+        )
     native_emit = _resolve_emit(emit)
     emit_fn = _emit_duplex_batch_raw if native_emit else _emit_duplex_batch
     stats = stats if stats is not None else StageStats(stage="duplex")
@@ -1337,18 +1416,26 @@ def call_duplex_batches(
         host = inflight.fetch(stats.metrics)
         out = unpack_duplex_outputs(host, f=f, w=w)
         with stats.metrics.timed("rawize"):
-            out = _duplex_rawize(out, batch, sidecar, batch.ref, native=native_emit)
+            out = _duplex_rawize(out, batch, sidecar, batch.ref, native=native_emit,
+                                 strand_tags=strand_tags)
         with stats.metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, stats)
         return [recs] if isinstance(recs, RawRecords) else recs
 
     def events():
-        for chunk in _group_batches(groups, batch_families):
+        for batch_index, chunk in enumerate(_group_batches(groups, batch_families), start=1):
+            if batch_index <= skip_batches:
+                # resume replay: skipped batches never encode at all
+                continue
             with stats.metrics.timed("encode"):
                 batch, leftovers, skipped = encode_duplex_families(
                     chunk, ref_fetch, ref_names, max_window=max_window,
                     pos0=pos0,
                 )
+                if unconverted:
+                    # an unconverted library: clearing the flag-derived
+                    # mask disables the convert transform wholesale
+                    batch.convert_mask = np.zeros_like(batch.convert_mask)
                 sidecar = _duplex_sidecar(chunk, pos0=pos0) if batch.meta else None
             stats.skipped_families += len(skipped)
             stats.leftover_records += len(leftovers)

@@ -17,8 +17,10 @@ same bytes:
 
 Keys are read at fixed offsets of the encoded records. Both in-run sorts
 are stable and both merges break ties by run order, so the output equals
-the JAX package's. Spill CRCs, the background spill writer and the
-bucketed engine are later slices of the port.
+the JAX package's. external_sort runs the same spill/merge machinery over
+BamRecord objects under a pipeline.record_ops key (the zipper's and
+sam-to-fastq's name and coordinate sorts). Spill CRCs, the background
+spill writer and the bucketed engine are later slices of the port.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Iterable, Iterator
 from bsseqconsensusreads_tpu_torch.io.bam import (
     BamHeader,
     BamReader,
+    BamRecord,
     BamWriter,
     RawRecords,
     encode_record,
@@ -84,30 +87,37 @@ def _timer(metrics, name: str = "sort_write"):
     return metrics.timed(name) if metrics is not None else contextlib.nullcontext()
 
 
-def external_sort_raw(
-    blobs: Iterable[bytes],
+def _external_sort_core(
+    items: Iterable,
+    key,
     header: BamHeader,
-    workdir: str | None = None,
-    buffer_records: int = DEFAULT_BUFFER_RECORDS,
-    key=raw_coordinate_key,
+    workdir: str | None,
+    buffer_records: int,
+    write_items_fn,
+    read_run,
     metrics=None,
-) -> Iterator[bytes]:
-    """Yield encoded record blobs in `key` order with bounded host memory
-    (the Python engine). If the input fits one buffer no file is ever
-    written; spill shards are deleted as the merge finishes, even if the
-    consumer abandons the iterator. metrics: the spills, and everything
-    after the input ends (the final sort or merge and the consumer's
-    writes), accrue under 'sort_write'."""
+) -> Iterator:
+    """The spill/merge machinery behind external_sort (BamRecord objects)
+    and external_sort_raw (encoded blobs): runs of `buffer_records` are
+    sorted in RAM (stable) and spilled as level-1 BGZF BAM shards under
+    `workdir` (a private temp dir when None); merges hold one item per run
+    and break ties by run order, collapsing runs in MERGE_FANIN groups
+    first. If the input fits one buffer no file is ever written; shards
+    are deleted as the merge finishes, even if the consumer abandons the
+    iterator. write_items_fn(writer, items) appends a run's items;
+    read_run(reader) yields them back in order. metrics: the spills, and
+    everything after the input ends (the final sort or merge and the
+    consumer's work), accrue under 'sort_write'."""
     if buffer_records < 1:
         raise ValueError(f"buffer_records must be >= 1, got {buffer_records}")
     buf: list = []
     run_paths: list[str] = []
     tmpdir: tempfile.TemporaryDirectory | None = None
 
-    def write_run(path: str, items) -> None:
+    def write_run(path: str, run_items) -> None:
         # spill shards are deleted after the merge: fast compression
         with BamWriter(path, header, level=1) as w:
-            w.write_raw_many(items)
+            write_items_fn(w, run_items)
 
     def spill() -> None:
         nonlocal tmpdir, buf
@@ -123,10 +133,10 @@ def external_sort_raw(
     def merged(paths: list[str], readers: list):
         for p in paths:
             readers.append(BamReader(p, threads=1))
-        return heapq.merge(*(r.raw_records() for r in readers), key=key)
+        return heapq.merge(*(read_run(r) for r in readers), key=key)
 
     try:
-        for item in blobs:
+        for item in items:
             buf.append(item)
             if len(buf) >= buffer_records:
                 spill()
@@ -165,6 +175,41 @@ def external_sort_raw(
     finally:
         if tmpdir is not None:
             tmpdir.cleanup()
+
+
+def external_sort_raw(
+    blobs: Iterable[bytes],
+    header: BamHeader,
+    workdir: str | None = None,
+    buffer_records: int = DEFAULT_BUFFER_RECORDS,
+    key=raw_coordinate_key,
+    metrics=None,
+) -> Iterator[bytes]:
+    """Yield encoded record blobs in `key` order with bounded host memory
+    (the Python engine of the raw coordinate sort)."""
+    return _external_sort_core(
+        blobs, key, header, workdir, buffer_records,
+        write_items_fn=lambda w, run: w.write_raw_many(run),
+        read_run=lambda r: r.raw_records(),
+        metrics=metrics,
+    )
+
+
+def external_sort(
+    records: Iterable[BamRecord],
+    key,
+    header: BamHeader,
+    workdir: str | None = None,
+    buffer_records: int = DEFAULT_BUFFER_RECORDS,
+) -> Iterator[BamRecord]:
+    """Yield BamRecord objects in `key` order (a pipeline.record_ops sort
+    key) with bounded host memory — the sorts behind the zipper and
+    sam-to-fastq."""
+    return _external_sort_core(
+        records, key, header, workdir, buffer_records,
+        write_items_fn=lambda w, run: w.write_all(run),
+        read_run=iter,
+    )
 
 
 def resolve_sort_engine(engine: str = "auto") -> str:

@@ -13,6 +13,8 @@ output writer's sort, spill, merge and deflate). A dotted name
 from __future__ import annotations
 
 import contextlib
+import json
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -48,3 +50,15 @@ class Metrics:
         out = dict(self.counters)
         out.update({f"{k}_seconds": round(v, 3) for k, v in self.seconds.items()})
         return out
+
+
+def stderr_line(msg: str) -> None:
+    """One operator-facing line on stderr."""
+    print(msg, file=sys.stderr, flush=True)
+
+
+def event(name: str, fields: dict) -> None:
+    """An event the JAX package writes to its run ledger, as one stderr
+    line `<name> {json}` (the port's ledger and sinks are a later slice):
+    a checkpoint discard or a shard quarantine is never silent."""
+    stderr_line(f"{name} {json.dumps(fields, sort_keys=True, default=str)}")

@@ -16,8 +16,9 @@ Phases:
   1. build csrc/vote.cu with nvcc for sm_90a (ptxas report + seconds) and
      the two host libraries from csrc/host/ with g++, all at once (seconds
      and paths).
-  2. each kernel against its plain version on the card, at the main path's
-     shapes and at the shapes a tiled kernel gets wrong first (empty
+  2. each kernel against its plain version on the card, at the main paths'
+     shapes (Phase 3's 2048 and `run`'s 512 families per batch) and at the
+     shapes a tiled kernel gets wrong first (empty
      segments, one 1,500-row segment, W 160 / 224, min input qual 20 on
      one and two planes; vote_finalize at [4096, 192], n % 4 != 0 and the
      main path's [256]): mismatch counts under the port's contract —
@@ -51,9 +52,32 @@ Phases:
      required) and on the CPU with the native engines, stage by stage on
      identical input, and the qual tables built on the card against the
      CPU-built ones.
+  4. `run`, the system's entry point, in the same temporary directory:
+     a. cli.main(["run", "--bam", <Phase 3's input>, "--reference", ...,
+        "--outdir", ...]) with the default config (aligner 'self', 512
+        families per batch, intermediate at deflate level 1), the kernels'
+        counts set to 0 just before and read just after, each stage under
+        torch.profiler: the seconds of each rule, per stage families/s and
+        phases (beside Phase 3's families/s from the same call), launches
+        and seg_vote shapes, the idle share. The intermediate's and the
+        target's records must equal Phase 3's molecular.bam and duplex.bam
+        byte for byte, their headers equal apart from @PG lines, both
+        stages must launch seg_vote, the qual-table build vote_finalize,
+        and deep_skipped_families must be 0. A second identical run must
+        skip both rules "up to date" and leave the target's SHA and mtime.
+     b. crash and resume on the card at the --cpu-families head: a child
+        process runs the checkpointed pipeline (checkpoint_every 1, 16
+        families per batch) and is SIGKILLed once the molecular stage has
+        made >= 2 batches durable and before its target exists (the phase
+        fails if the kill did not land there); a second child resumes. The
+        target must be SHA-equal to an uninterrupted run of the same
+        config, the resumed molecular stage must run fewer batches.
+     c. aligner 'none' at the head on the card and on the CPU: the FASTQs
+        equal, or quals within 1 (counts logged).
 
-Prints the kernel table as one JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failed check exits non-zero.
+Prints the kernel table as one JSON line (launches: Phase 3's and Phase
+4a's main paths together), the nvidia-smi line, and last {"ok": true,
+"device": {...}}. Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -227,6 +251,9 @@ def kernel_cases(np, torch, dev):
     cases = [molecular(f"molecular_packed_w{w}", ragged(2048, 8192), w, default)
              for w in (192, 4096)]
     cases.append(segments("duplex_packed_w192", 4 * 2048, 1, 192, 2, default))
+    # `run`'s default 512 families per batch (Phase 4a's most frequent shapes)
+    cases.append(molecular("molecular_packed_w192_b512", ragged(512, 1024), 192, default))
+    cases.append(segments("duplex_packed_w192_b512", 4 * 512, 1, 192, 2, default))
     cases.append(segments("padded_g512_t2_w512", 1024, 1, 512, 2, default, 512))
     cases.append(segments("padded_g4096_t8_w192", 2048 * 8, 2, 192, 8, default))
     # a pow2 family bucket: 1,400 real families and 648 empty pad families
@@ -557,12 +584,9 @@ def diff_records(a_path: str, b_path: str) -> tuple[int, int, str]:
     return n, ndiff, first
 
 
-def phase3(np, torch, families: int, cpu_families: int, case_shapes) -> dict:
-    with tempfile.TemporaryDirectory(prefix="bsseq_smoke_") as work:
-        return _phase3(np, torch, work, families, cpu_families, case_shapes)
-
-
-def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes) -> dict:
+def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
+    """Returns (launches on the main path, its per-stage summaries, the
+    inputs (fasta, grouped BAM, head BAM))."""
     import collections
 
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
@@ -576,6 +600,7 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes)
     # the qual tables are built inside them (first use on this device)
     reconstruct._CACHE.clear()
     launches = {}
+    summaries = {}
     shapes = collections.Counter()
     for stage, inp, out in (
         ("molecular", big, os.path.join(work, "molecular.bam")),
@@ -592,6 +617,7 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes)
             "launches": counts, "sha256": sha256(out),
         }
         log(f"phase3 stage {json.dumps(summary)}")
+        summaries[stage] = summary
         check(stats.families > 0 and stats.consensus_out > 0, f"{stage}: no output")
         check(summary["ingest_native"] == 1 and summary["group_native"] == 1,
               f"{stage}: the main path did not ingest through the native engine")
@@ -646,7 +672,270 @@ def _phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes)
             idx = np.argwhere(a != b)[:10].tolist()
             log(f"phase3 qual table {name}: differing entries {idx}")
         check(over == 0, f"qual table {name}: {over} entries differ by more than 1")
+    return launches, summaries, (fasta, big, small)
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def same_records(a_path: str, b_path: str) -> tuple[bool, int, list, list]:
+    """(record streams identical, decompressed record bytes compared,
+    header lines of a, header lines of b): the bytes after each header,
+    read through the native codec in 1 MiB chunks."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    n = 0
+    with BamReader(a_path) as ra, BamReader(b_path) as rb:
+        heads = ra.header.text.splitlines(), rb.header.text.splitlines()
+        if ra.header.references != rb.header.references:
+            return False, 0, *heads
+        while True:
+            ca, cb = ra._bgzf.read(1 << 20), rb._bgzf.read(1 << 20)
+            if ca != cb:
+                return False, n, *heads
+            if not ca:
+                return True, n, *heads
+            n += len(ca)
+
+
+def header_difference(a: list, b: list) -> dict:
+    """Header lines of a and b apart from @PG: the ones only one side has."""
+    a = [ln for ln in a if not ln.startswith("@PG")]
+    b = [ln for ln in b if not ln.startswith("@PG")]
+    return {"only_run": [ln for ln in a if ln not in b], "only_phase3": [ln for ln in b if ln not in a]}
+
+
+def run_cli(argv: list[str]) -> tuple[dict, list[str]]:
+    """cli.main(argv) with its stdout JSON and stderr lines captured."""
+    import contextlib
+    import io
+
+    from bsseqconsensusreads_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    check(rc == 0, f"run exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), err.getvalue().splitlines()
+
+
+def phase4(np, torch, work: str, inputs, phase3_summaries: dict, case_shapes=frozenset()) -> dict:
+    """`run` — the system's entry point — on the card: 4a the main path
+    at Phase 3's input, 4b a SIGKILLed checkpointed run resumed in a new
+    process, 4c aligner 'none' on the card and on the CPU. Returns the
+    kernels' launches on 4a's main path."""
+    fasta, big, small = inputs
+    launches = phase4a(torch, work, fasta, big, phase3_summaries, case_shapes)
+    phase4b(work, fasta, small)
+    phase4c(work, fasta, small)
     return launches
+
+
+def phase4a(torch, work: str, fasta: str, big: str, phase3_summaries: dict,
+            case_shapes=frozenset()) -> dict:
+    import collections
+
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
+    from bsseqconsensusreads_tpu_torch.pipeline import stages
+
+    outdir = os.path.join(work, "run")
+    per_stage: dict = {}
+    shapes = collections.Counter()
+    originals = {name: getattr(stages.PipelineBuilder, name)
+                 for name in ("run_molecular", "run_duplex")}
+
+    def observed(name):
+        """The stage body under torch.profiler, with its launches and wall
+        (the trace is read after the run, outside the rule's seconds)."""
+        def body(self, rule, mode):
+            stage = name.split("_", 1)[1]
+            before = dict(cuda_vote.LAUNCHES)
+            shapes_before = collections.Counter(cuda_vote.SEG_VOTE_SHAPES)
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            t0 = time.monotonic()
+            with prof:
+                originals[name](self, rule, mode)
+            wall = time.monotonic() - t0
+            shapes.update(cuda_vote.SEG_VOTE_SHAPES - shapes_before)
+            per_stage[stage] = (self.stats[stage], wall, prof,
+                                {k: v - before[k] for k, v in cuda_vote.LAUNCHES.items()})
+        return body
+
+    # the main path: counts set to 0 just before, read just after; the
+    # qual tables are built again inside it (first use on this device)
+    reconstruct._CACHE.clear()
+    for k in cuda_vote.LAUNCHES:
+        cuda_vote.LAUNCHES[k] = 0
+    cuda_vote.SEG_VOTE_SHAPES.clear()
+    argv = ["run", "--bam", big, "--reference", fasta, "--outdir", outdir]
+    try:
+        for name in originals:
+            setattr(stages.PipelineBuilder, name, observed(name))
+        t0 = time.monotonic()
+        doc, err = run_cli(argv)
+        run_wall = time.monotonic() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(stages.PipelineBuilder, name, fn)
+    launches = dict(cuda_vote.LAUNCHES)
+    rules = [ln for ln in err if ln.startswith(("[ran]", "[skip]"))]
+    log(f"phase4a run: {run_wall:.3f} s; rules: {json.dumps(rules)}")
+    log(f"phase4a stdout stats: {json.dumps(doc['stats'])}")
+    for stage, (stats, wall, prof, counts) in per_stage.items():
+        busy = device_busy_s(torch, prof)
+        summary = {
+            **stage_summary(stage, stats, wall),
+            "device_busy_s": busy if busy > 0 else "not measured",
+            "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+            "launches": counts,
+            "phase3_families_per_s": phase3_summaries[stage]["families_per_s"],
+        }
+        log(f"phase4a stage {json.dumps(summary)}")
+        check(counts["seg_vote"] > 0, f"run {stage}: seg_vote never launched")
+    check(set(per_stage) == {"molecular", "duplex"}, f"run drove stages {sorted(per_stage)}")
+    check(launches["vote_finalize"] > 0, "run: vote_finalize never launched")
+    check(doc["stats"]["molecular"]["deep_skipped_families"] == 0,
+          "run: deep families were skipped")
+    top = [[list(k), v] for k, v in shapes.most_common()]
+    log(f"phase4a seg_vote shapes: {json.dumps(top)}")
+    for shape, _n in top[:2]:
+        log(f"phase4a shape {shape} is a phase-2 case: {tuple(shape) in case_shapes}")
+
+    target = doc["target"]
+    inter = os.path.join(outdir, "grouped_consensus_unfiltered_aunamerged_aligned.bam")
+    check(target == os.path.join(outdir, "grouped_consensus_duplex_unfiltered.bam"),
+          f"run target {target}")
+    for name, path, ref in (("intermediate", inter, "molecular.bam"),
+                            ("target", target, "duplex.bam")):
+        same, nbytes, h_run, h_ref = same_records(path, os.path.join(work, ref))
+        hdiff = header_difference(h_run, h_ref)
+        log(f"phase4a {name} vs phase 3's {ref}: records identical={same} "
+            f"({nbytes} decompressed bytes), header lines apart from @PG that differ: "
+            f"{json.dumps(hdiff)}, run's @PG: {json.dumps([ln for ln in h_run if ln.startswith('@PG')])}")
+        check(same, f"run {name}: records differ from phase 3's {ref}")
+        check(not hdiff["only_run"] and not hdiff["only_phase3"],
+              f"run {name}: header differs from phase 3's beyond @PG")
+
+    # a second identical run: both rules up to date, the target untouched
+    before = (sha256(target), os.path.getmtime(target))
+    doc2, err2 = run_cli(argv)
+    rules2 = [ln for ln in err2 if ln.startswith(("[ran]", "[skip]"))]
+    log(f"phase4a second run: {json.dumps(rules2)}")
+    check(len(rules2) == 2 and all(ln.startswith("[skip]") and ln.endswith("up to date")
+                                   for ln in rules2), "second run re-ran a rule")
+    check((sha256(target), os.path.getmtime(target)) == before and doc2["target"] == target,
+          "second run changed the target")
+    return launches
+
+
+RESUME_CHILD = r"""
+import json, os, sys
+from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+fasta, bam, outdir = sys.argv[1:4]
+cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta), genome_fasta_file_name=os.path.basename(fasta),
+                      checkpoint_every=1, batch_families=int(sys.argv[4]))
+target, results, stats = run_pipeline(cfg, bam, outdir=outdir)
+print(json.dumps({"target": target, "batches": {k: s.batches for k, s in stats.items()},
+                  "rules": [[r.name, r.ran, r.reason] for r in results]}))
+"""
+
+
+def phase4b(work: str, fasta: str, small: str, batch_families: int = 16) -> None:
+    """Crash and resume on the card: a child process runs the checkpointed
+    pipeline, is SIGKILLed once the molecular stage has made >= 2 batches
+    durable (and before its target exists), and a second child resumes.
+    The target must be SHA-equal to an uninterrupted run of the same
+    config, and the resumed molecular stage must run fewer batches."""
+    import signal
+
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+
+    cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta),
+                          genome_fasta_file_name=os.path.basename(fasta),
+                          checkpoint_every=1, batch_families=batch_families)
+    t0 = time.monotonic()
+    whole, _results, whole_stats = run_pipeline(cfg, small, outdir=os.path.join(work, "ck_whole"))
+    log(f"phase4b uninterrupted: {time.monotonic() - t0:.2f} s, batches "
+        f"{ {k: s.batches for k, s in whole_stats.items()} }, sha256 {sha256(whole)}")
+
+    outdir = os.path.join(work, "ck_crash")
+    stage_target = os.path.join(outdir, "grouped_head_consensus_unfiltered_aunamerged_aligned.bam")
+    manifest = stage_target + ".ckpt.json"
+    cmd = [sys.executable, "-c", RESUME_CHILD, fasta, small, outdir, str(batch_families)]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    child = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    seen = None
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and child.poll() is None:
+            try:
+                with open(manifest) as fh:
+                    done = json.load(fh)["batches_done"]
+            except (OSError, ValueError, KeyError):
+                done = 0
+            if done >= 2 and not os.path.exists(stage_target):
+                child.send_signal(signal.SIGKILL)
+                seen = done
+                break
+            time.sleep(0.002)
+    finally:
+        if child.poll() is None and seen is None:
+            child.kill()
+        _out, err = child.communicate(timeout=120)
+    log(f"phase4b kill: returncode {child.returncode}, batches durable when sent {seen}")
+    with open(manifest) as fh:
+        at_kill = json.load(fh)
+    check(seen is not None and child.returncode == -signal.SIGKILL,
+          f"the kill did not land mid-stage (child rc {child.returncode}): "
+          f"{err.decode()[-2000:]}")
+    check(at_kill["batches_done"] >= 2 and not os.path.exists(stage_target),
+          "the killed run left no durable batches or a finished target")
+
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"the resumed run failed: {res.stderr[-2000:]}")
+    doc = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"phase4b resume: {time.monotonic() - t0:.2f} s, manifest at kill "
+        f"{at_kill['batches_done']} batches, resumed batches {doc['batches']}, "
+        f"rules {json.dumps(doc['rules'])}, sha256 {sha256(doc['target'])}")
+    check(sha256(doc["target"]) == sha256(whole), "the resumed target differs from the uninterrupted run")
+    check(doc["batches"]["molecular"] < whole_stats["molecular"].batches,
+          "the resumed molecular stage did not skip its durable batches")
+
+
+def phase4c(work: str, fasta: str, small: str) -> None:
+    """aligner 'none' at the head on the card and on the CPU: the FASTQs
+    are equal, or quals differ by at most 1 (the card-vs-CPU contract)."""
+    import gzip
+
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+
+    fqs = {}
+    for backend in ("cuda", "cpu"):
+        cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta),
+                              genome_fasta_file_name=os.path.basename(fasta),
+                              aligner="none", backend=backend)
+        fq1, _results, _stats = run_pipeline(cfg, small, outdir=os.path.join(work, f"none_{backend}"))
+        fqs[backend] = [fq1, fq1.replace("_1.fq.gz", "_2.fq.gz")]
+    for mate in (0, 1):
+        with gzip.open(fqs["cuda"][mate], "rt") as fa, gzip.open(fqs["cpu"][mate], "rt") as fb:
+            la, lb = fa.read().splitlines(), fb.read().splitlines()
+        check(len(la) == len(lb) and la, f"fastq {mate + 1}: line counts differ")
+        diff_lines = diff_quals = max_abs = 0
+        for i, (x, y) in enumerate(zip(la, lb)):
+            if x == y:
+                continue
+            diff_lines += 1
+            check(i % 4 == 3 and len(x) == len(y), f"fastq {mate + 1} line {i + 1} differs beyond quals")
+            d = [abs(ord(p) - ord(q)) for p, q in zip(x, y) if p != q]
+            diff_quals += len(d)
+            max_abs = max(max_abs, *d)
+        log(f"phase4c fastq {mate + 1}: {len(la) // 4} entries, card vs cpu: "
+            f"{diff_lines} qual lines differ, {diff_quals} quals, max |diff| {max_abs}")
+        check(max_abs <= 1, f"fastq {mate + 1}: a qual differs by more than 1")
 
 
 def engine_ab(np, torch, families: int) -> None:
@@ -743,7 +1032,11 @@ def main() -> int:
             seg_rows, fin_rows = phase2(np, torch, dev, args.repeats)
             if not args.kernels_only:
                 case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
-                launches = phase3(np, torch, args.families, args.cpu_families, case_shapes)
+                with tempfile.TemporaryDirectory(prefix="bsseq_smoke_") as work:
+                    launches, summaries, inputs = phase3(
+                        np, torch, work, args.families, args.cpu_families, case_shapes)
+                    for k, v in phase4(np, torch, work, inputs, summaries, case_shapes).items():
+                        launches[k] = launches.get(k, 0) + v
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -100,10 +100,13 @@ def test_entry_points_run_on_the_card_unless_told_cpu():
 
 
 def test_port_and_smoke_import_neither_jax_nor_the_jax_package():
-    # tests/conftest.py imports jax, so the check runs in a fresh process
+    # tests/conftest.py imports jax, so the check runs in a fresh process;
+    # yaml is blocked too: the card's machine has no PyYAML, so only
+    # config.FrameworkConfig.from_yaml may import it, when called
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["yaml"] = None
 import bsseqconsensusreads_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith(".__main__")]  # __main__ runs the CLI
@@ -116,7 +119,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 25, names
-host = {"io._nativelib", "io.native", "io.wirepack", "pipeline.ingest", "pipeline.stages"}
+host = {"io._nativelib", "io.native", "io.wirepack", "pipeline.ingest", "pipeline.stages",
+        "config", "pipeline.workflow", "pipeline.checkpoint"}
 assert host <= {n.split(".", 1)[1] for n in names}, names
 """
     out = subprocess.run(
