@@ -16,7 +16,11 @@ card:
 
 --device cuda|cpu picks where the vote runs (default cuda, or the
 config's `backend` on `run`; with no card the command fails rather than
-falling back). --ingest and --emit pick the host engines: the port's C++
+falling back). --transport auto|wire|unpacked picks how molecular and
+duplex batches cross to the device: one packed wire each way (duplex:
+with the --reference genome uploaded to the device once) or the plain
+tensors; 'auto' is the wire on the card and unpacked on the CPU. Same
+bytes either way. --ingest and --emit pick the host engines: the port's C++
 libraries (built from csrc/host at first use; a failed build fails the
 command) or the Python twins, with byte-identical output. molecular and
 duplex write their StageStats as one JSON line on stderr; run prints
@@ -65,6 +69,12 @@ def _add_params(p: argparse.ArgumentParser, min_reads_default: int) -> None:
         "Python objects (auto = native)",
     )
     p.add_argument(
+        "--transport", choices=("auto", "wire", "unpacked"), default="auto",
+        help="device transport: ONE packed u32 array per direction (+ the "
+        "device-resident genome on duplex) or plain tensors — byte-identical "
+        "output either way; 'auto' = wire on the card, unpacked on the CPU",
+    )
+    p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the vote runs: the card (default) or the plain "
         "PyTorch versions on the host",
@@ -107,6 +117,7 @@ def cmd_molecular(args) -> int:
             batching=args.batching,
             device=args.device,
             emit=args.emit,
+            transport=args.transport,
         )
         write_batch_stream(batches, args.output, reader.header, args.mode,
                            metrics=stats.metrics)
@@ -144,6 +155,8 @@ def cmd_duplex(args) -> int:
             device=args.device,
             emit=args.emit,
             chemistry=args.chemistry,
+            transport=args.transport,
+            refstore=args.reference,  # the FASTA path; loaded only if the wire engages
         )
         write_batch_stream(batches, args.output, reader.header, args.mode,
                            metrics=stats.metrics)

@@ -81,7 +81,9 @@ class FrameworkConfig:
     #: BGZF deflate level of intermediate stage outputs (the final target
     #: always writes at level 6)
     intermediate_level: int = 1
-    #: consensus-stage device transport: auto | wire | unpacked
+    #: consensus-stage device transport: auto | wire | unpacked. One device:
+    #: 'auto' is the packed wire on the card (backend cuda) and the plain
+    #: unpacked tensors on the CPU, the JAX package's single-device rule
     transport: str = "auto"
     #: UMI grouping pre-stage: auto | always | never
     group_umis: str = "auto"

@@ -103,6 +103,16 @@ class FastaFile:
     def get_reference_length(self, name: str) -> int:
         return self._index[name][0]
 
+    def span(self, name: str) -> tuple[int, int, int]:
+        """(length, file offset of the first base, bytes from it through
+        the last base) of sequence `name`: its whole body, line ends
+        included, as fetch(name) reads it."""
+        length, offset, linebases, linewidth = self._index[name]
+        if length == 0:
+            return 0, offset, 0
+        last = ((length - 1) // linebases) * linewidth + (length - 1) % linebases
+        return length, offset, last + 1
+
     def fetch(self, name: str, start: int = 0, end: int | None = None) -> str:
         if name not in self._index:
             raise KeyError(name)

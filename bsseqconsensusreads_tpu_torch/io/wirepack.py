@@ -1,14 +1,17 @@
-"""ctypes bindings for the port's native record path (csrc/host/wirepack.cpp).
+"""ctypes bindings for the port's native host sweeps (csrc/host/wirepack.cpp).
 
-The host-path part of the JAX package's io/wirepack.py: the batch record
-emit, the in-RAM raw-record sort of one spill run, the molecular cB
-histogram, and the duplex rawize and strand-call sweeps. Each is
-byte-identical to the Python twin in pipeline.calling / ops.hosttwin /
-models.molecular that stays beside it. The library builds at first use
-(io._nativelib); a failed build or load raises NativeLibraryError.
+The port of the JAX package's io/wirepack.py: the batch record emit, the
+in-RAM raw-record sort of one spill run, the molecular cB histogram, the
+duplex rawize and strand-call sweeps, and the wire transport's duplex
+and packed-rows input packs. Each is byte-identical to the numpy twin
+that stays beside it (pipeline.calling, ops.hosttwin, models.molecular,
+ops.wire). The library builds at first use (io._nativelib); a failed
+build or load raises NativeLibraryError.
 
-The wire packers, the bucket split and the methylation tally merge of
-the same source are bound by later slices of the port.
+The b0 output unpack, the one-pass duplex retire, the bucket split and
+the methylation tally merge of the same source are not bound: the
+port's wire returns the full output planes, and the bucket engine and
+methylation come with later slices.
 """
 
 from __future__ import annotations
@@ -25,9 +28,13 @@ REQUIRED_SYMBOLS = (
     "wirepack_sort_raw_records",
     "wirepack_strand_calls",
     "wirepack_bcount_sparse",
+    "wirepack_pack_duplex",
+    "wirepack_pack_rows",
 )
 
-# Error code from csrc/host/wirepack.cpp.
+# Error codes from csrc/host/wirepack.cpp.
+_ERR_TOO_MANY_LEVELS = -2
+_ERR_QUAL_TOO_HIGH = -3
 _ERR_QNAME_TOO_LONG = -5
 
 _LIB = None
@@ -62,6 +69,12 @@ def lib() -> C.CDLL:
     lib.wirepack_bcount_sparse.argtypes = [
         vp, vp, C.c_int64, C.c_int64, C.c_int64, vp, C.c_int, C.c_int, vp,
     ]
+    lib.wirepack_pack_duplex.restype = C.c_int
+    lib.wirepack_pack_duplex.argtypes = (
+        [vp] * 5 + [C.c_int64, C.c_int64, C.c_int64, C.c_int] + [vp] * 5
+    )
+    lib.wirepack_pack_rows.restype = C.c_int
+    lib.wirepack_pack_rows.argtypes = [vp, vp, C.c_int64, C.c_int64, C.c_int] + [vp] * 4
     _LIB = lib
     return lib
 
@@ -265,3 +278,80 @@ def strand_calls(bases, cover, ref, convert_mask, eligible) -> np.ndarray:
     out = np.empty((f, 4, w), np.int8)
     L.wirepack_strand_calls(_p(bases), _p(cover), _p(ref), _p(cmask), _p(elig), f, w, _p(out))
     return out
+
+
+_MODE_BITS = {"q8": 8, "q4": 4, "q2": 2, "auto": 0}
+_BITS_MODE = {8: "q8", 4: "q4", 2: "q2"}
+
+
+def _pack_error(bits: int, nlevels: int, qual_mode: str) -> None:
+    """The numpy packers' ValueErrors for the C pack's error codes."""
+    if bits == _ERR_QUAL_TOO_HIGH:
+        raise ValueError(
+            "covered qual > 93 (BAM printable max) cannot ride a "
+            f"{qual_mode} codebook; use qual_mode='q8' or 'auto'"
+        )
+    if bits == _ERR_TOO_MANY_LEVELS:
+        raise ValueError(
+            f"{nlevels} distinct covered quals exceed {qual_mode}'s "
+            f"{1 << _MODE_BITS[qual_mode]}-entry codebook; use qual_mode='auto'"
+        )
+    if bits < 0:
+        raise ValueError(f"native wirepack error {bits}")
+
+
+def pack_duplex(bases, quals, cover, convert_mask, eligible, qual_mode):
+    """C pack of a duplex batch -> (nib, qual, meta u32 arrays, resolved
+    mode): the sections of ops.wire.pack_duplex_inputs, byte-identical,
+    with its ValueErrors for codebook overflow and out-of-range quals."""
+    L = lib()
+    f, r, w = bases.shape
+    cells = f * r * w
+    if cells % 2:
+        # the C nibble loop reads bases[i+1]: an odd count reads past the end
+        raise ValueError(f"duplex wire pack needs an even f*r*w, got {cells}")
+    bases = _c(bases, np.int8)
+    quals = _c(quals, np.uint8)
+    cover = _c(cover, np.uint8)
+    cmask = _c(convert_mask, np.uint8)
+    elig = _c(eligible, np.uint8)
+    nib = np.empty((cells // 2 + 3) // 4 * 4, dtype=np.uint8)
+    meta = np.empty((f + 3) // 4 * 4, dtype=np.uint8)
+    qual = np.empty(cells + 24, dtype=np.uint8)
+    qual_len = C.c_int64(0)
+    nlevels = C.c_int(0)
+    bits = L.wirepack_pack_duplex(
+        _p(bases), _p(quals), _p(cover), _p(cmask), _p(elig), f, r, w,
+        _MODE_BITS[qual_mode], _p(nib), _p(meta), _p(qual),
+        C.byref(qual_len), C.byref(nlevels),
+    )
+    _pack_error(bits, nlevels.value, qual_mode)
+    # zero the nib/meta word padding the C side never touches
+    nib[cells // 2:] = 0
+    meta[f:] = 0
+    return (nib.view(np.uint32), qual[: qual_len.value].view(np.uint32).copy(),
+            meta.view(np.uint32), _BITS_MODE[bits])
+
+
+def pack_rows(bases, quals, qual_mode):
+    """C pack of segment-packed rows -> (nib, qual u32 arrays, resolved
+    mode): bases int8 [n, 2, w], quals uint8 [n, 2, w]; cover derives
+    from the bases in the sweep — the packed wire v2 body, byte-identical
+    to ops.wire's numpy pack of the same rows."""
+    L = lib()
+    n, _, w = bases.shape
+    cells = n * 2 * w
+    bases = _c(bases, np.int8)
+    quals = _c(quals, np.uint8)
+    nib = np.empty((cells // 2 + 3) // 4 * 4, dtype=np.uint8)
+    qual = np.empty(cells + 24, dtype=np.uint8)
+    qual_len = C.c_int64(0)
+    nlevels = C.c_int(0)
+    bits = L.wirepack_pack_rows(
+        _p(bases), _p(quals), n, w, _MODE_BITS[qual_mode], _p(nib), _p(qual),
+        C.byref(qual_len), C.byref(nlevels),
+    )
+    _pack_error(bits, nlevels.value, qual_mode)
+    nib[cells // 2:] = 0
+    return nib.view(np.uint32), qual[: qual_len.value].view(np.uint32).copy(), _BITS_MODE[bits]
+

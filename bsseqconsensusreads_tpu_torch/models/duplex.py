@@ -14,6 +14,12 @@ Because the merge rows are consecutive in the row order, the whole merge
 of a batch is ONE seg_vote launch over the [F * 4, 1, W] row view with
 2-row segments — for the packed and the padded layout alike (the JAX
 package's two layouts add the same two rows in the same order).
+
+Two device routes share that merge and its output wire (b0 + qual
+planes, pack_duplex_outputs): the unpacked route
+(duplex_call_pipeline_packed: the batch's tensors in) and the wire route
+(duplex_call_wire_fused: one packed input wire whose reference windows
+are gathered from the device-resident genome).
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from bsseqconsensusreads_tpu_torch.ops.extend import (
     ROW_163,
     extend_gap,
 )
+from bsseqconsensusreads_tpu_torch.ops.refstore import gather_windows
+from bsseqconsensusreads_tpu_torch.ops.wire import split_duplex_wire, unpack_duplex_inputs
 
 # (rows merged, A-strand row, B-strand row) for duplex R1 and R2.
 R1_ROWS = (ROW_99, ROW_163)
@@ -96,8 +104,9 @@ def duplex_call_pipeline(
     extension -> duplex merge (the JAX package's layout='packed' and
     'padded' are the same launch here).
 
-    Inputs are DuplexBatch planes as tensors on one device (quals integer);
-    returns the duplex_consensus output dict plus 'la'/'rd' int8 [F, 4]."""
+    Inputs are DuplexBatch planes as tensors on one device (quals integer,
+    widened to int16 here on both routes); returns the duplex_consensus
+    output dict plus 'la'/'rd' int8 [F, 4]."""
     b, q, c, la, rd = convert_ag_to_ct(
         bases, quals.to(torch.int16), cover, ref, convert_mask
     )
@@ -166,3 +175,28 @@ def duplex_call_pipeline_packed(
         bases, quals, cover, ref, convert_mask, extend_eligible, params=params,
     )
     return pack_duplex_outputs(out), out["la"], out["rd"]
+
+
+def duplex_call_wire_fused(
+    words, genome, f: int, w: int,
+    params: ConsensusParams = ConsensusParams(min_reads=0),
+    qual_mode: str = "q8",
+    r: int = 4,
+) -> torch.Tensor:
+    """The wire duplex stage on the device, ONE input wire
+    (DuplexWire.to_words() as its bytes on the device): the five sections
+    (starts, limits, meta, nib, qual) are split at static offsets and
+    unpacked there (ops.wire), the [f, w+1] reference windows gathered
+    from the device-resident genome (ops.refstore), and
+    duplex_call_pipeline runs on them. Returns pack_duplex_outputs' bytes,
+    the unpacked route's output wire (unpack_duplex_outputs)."""
+    if r != 4:
+        raise ValueError(f"duplex windows have 4 rows (flags 99/163/83/147); got r={r}")
+    nib, qual, meta, starts, limits = split_duplex_wire(words, f, w, r=r, qual_mode=qual_mode)
+    bases, quals, cover, convert_mask, eligible = unpack_duplex_inputs(
+        nib, qual, meta, f, w, qual_mode=qual_mode
+    )
+    ref = gather_windows(genome, starts, limits, w + 1)
+    return pack_duplex_outputs(duplex_call_pipeline(
+        bases, quals, cover, ref, convert_mask, eligible, params=params,
+    ))

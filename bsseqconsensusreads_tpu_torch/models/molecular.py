@@ -33,6 +33,12 @@ from bsseqconsensusreads_tpu_torch.alphabet import NBASE, NUM_BASES
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.ops import cuda_vote, phred
 from bsseqconsensusreads_tpu_torch.ops.phred import NO_CALL_QUAL
+from bsseqconsensusreads_tpu_torch.ops.wire import (
+    split_duplex_wire,
+    split_molecular_rows_wire,
+    unpack_duplex_inputs,
+    unpack_rows_wire_inputs,
+)
 
 #: Absolute log-LL band treated as a vote tie (see vote_finalize): above
 #: float32 one-ulp summation noise at working magnitudes, below the
@@ -258,6 +264,39 @@ def unpack_molecular_outputs(wire, f: int, w: int) -> dict:
         "depth": depth,
         "errors": errors,
     }
+
+
+def molecular_wire_kernel(words, f: int, t: int, w: int,
+                          params: ConsensusParams = ConsensusParams(),
+                          qual_mode: str = "q8") -> torch.Tensor:
+    """The molecular stage on the v1 wire: `words` is
+    ops.wire.pack_molecular_inputs' 2T-row wire as its bytes on the
+    device, split and unpacked there, voted as the padded envelope
+    (molecular_consensus, one seg_vote launch) and returned as the
+    unpacked route's output wire (pack_molecular_outputs)."""
+    r = t * 2
+    nib, qual, meta, _starts, _limits = split_duplex_wire(words, f, w, r=r, qual_mode=qual_mode)
+    bases, quals, _cover, _cm, _el = unpack_duplex_inputs(
+        nib, qual, meta, f, w, r=r, qual_mode=qual_mode
+    )
+    out = molecular_consensus(bases.reshape(f, t, 2, w), quals.reshape(f, t, 2, w), params)
+    return pack_molecular_outputs(out)
+
+
+def molecular_wire_packed_kernel(words, n_rows: int, num_families: int, w: int,
+                                 params: ConsensusParams = ConsensusParams(),
+                                 qual_mode: str = "q8") -> torch.Tensor:
+    """The molecular stage on the packed-rows wire (v2,
+    ops.wire.pack_molecular_rows_wire) as its bytes on the device: the
+    dense rows and their segment ids unpacked there, voted by
+    molecular_consensus_packed (one seg_vote launch, ragged offsets) and
+    returned as the same output wire as molecular_wire_kernel."""
+    nib, qual, seg, _offsets = split_molecular_rows_wire(
+        words, n_rows, num_families, w, qual_mode=qual_mode
+    )
+    bases, quals = unpack_rows_wire_inputs(nib, qual, n_rows, w, qual_mode=qual_mode)
+    out = molecular_consensus_packed(bases, quals, seg.view(torch.int32), num_families, params)
+    return pack_molecular_outputs(out)
 
 
 def _overlap_cocall_np(bases, quals):

@@ -1,10 +1,9 @@
 """Streaming consensus callers on the card: BAM records in, consensus
 records out.
 
-The port of the JAX package's pipeline/calling.py, single-device
-plain-tensor route only (its transport='unpacked', mesh=None,
-layout='packed' or 'padded', emit='python'). Replaces the reference's two
-JVM consensus engines:
+The port of the JAX package's pipeline/calling.py on one device (its
+mesh=None routes; layout 'packed' or 'padded'). Replaces the reference's
+two JVM consensus engines:
 
 * call_molecular_batches — `fgbio CallMolecularConsensusReads`
   (main.snake.py:46-55)
@@ -14,10 +13,25 @@ JVM consensus engines:
 Both stream MI families in bounded batches. Per batch the host encodes
 numpy tensors, copies them to the device, launches the vote (ops.cuda_vote)
 and the elementwise ops around it, records a CUDA event, and moves on:
-the batch retires (event sync timed as 'device_wait', one D2H copy timed as
-'fetch', then the record emit) only after the NEXT batch has been
-dispatched, so the device works while the host encodes and emits. Output
-order is the batch order, exactly as in the JAX package.
+the batch retires (event sync timed as 'device_wait', one D2H copy and
+the host unpack timed as 'fetch', then the record emit) only after the
+NEXT batch has been dispatched, so the device works while the host
+encodes and emits. Output order is the batch order, exactly as in the JAX
+package.
+
+Two transports (_resolve_transport; 'auto' = the wire on the card, the
+unpacked tensors on the CPU, the JAX package's single-device rule):
+* 'wire' — ONE packed u32 array in (ops.wire). Molecular: the
+  packed-rows wire v2 (or the v1 envelope wire under layout 'padded').
+  Duplex: the packed batch, its reference windows gathered on the device
+  from the whole genome, read and uploaded once per stage (ops.refstore
+  — the encode skips the per-family host fetch, the rawize reads
+  RefStore.host_windows).
+* 'unpacked' — the batch's tensors in.
+Both return the same packed output planes (one D2H copy) and write the
+same bytes. The JAX package's slim molecular and b0 duplex outputs are
+not ported: on the card's PCIe link the bytes they save are worth less
+than the host rebuild they cost (PERF.md).
 
 Alignment modes for the emitted consensus:
 * 'unaligned' — parity with fgbio: unmapped records in sequencing
@@ -29,15 +43,16 @@ Host engines: records come in as BamRecords from a BamReader or as
 pre-grouped columnar family runs from the C decoder
 (pipeline.ingest.GroupedColumnarStream, chosen by pipeline.stages); emit
 is 'native' (the C batch record emit, with the C cB histogram, duplex
-rawize and strand-call sweeps — io.wirepack) or 'python' (BamRecord
-objects and the numpy twins). Both engines write the same bytes.
+rawize and strand-call sweeps, and on the wire the C packs —
+io.wirepack) or 'python' (BamRecord objects and the numpy twins). Both
+engines write the same bytes.
 
-Left for later slices of the port (each raises or is absent here): the
-wire transport, mesh sharding and the deep-family route (families above
-MAX_TEMPLATES templates are skipped and counted in
+Left for later slices of the port (each raises or is absent here): mesh
+sharding with its round-robin wire and the deep-family route (families
+above MAX_TEMPLATES templates are skipped and counted in
 StageStats.skipped_families and the 'deep_skipped_families' counter), the
-overlap and host pools, retry/degrade and failpoints, methylation, and
-duplex passthrough of leftover records.
+overlap and host pools, retry/degrade and failpoints, methylation with
+its wire variants, and duplex passthrough of leftover records.
 """
 
 from __future__ import annotations
@@ -72,12 +87,15 @@ from bsseqconsensusreads_tpu_torch.io.bam import (
 from bsseqconsensusreads_tpu_torch.models.duplex import (
     ROLE_STRAND_ROWS,
     duplex_call_pipeline_packed,
+    duplex_call_wire_fused,
     unpack_duplex_outputs,
 )
 from bsseqconsensusreads_tpu_torch.models.molecular import (
     molecular_base_counts,
     molecular_consensus,
     molecular_consensus_packed,
+    molecular_wire_kernel,
+    molecular_wire_packed_kernel,
     pack_molecular_outputs,
     singleton_consensus_host,
     sparsify_base_counts,
@@ -85,6 +103,12 @@ from bsseqconsensusreads_tpu_torch.models.molecular import (
 )
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.ops import hosttwin
+from bsseqconsensusreads_tpu_torch.ops.refstore import RefStore
+from bsseqconsensusreads_tpu_torch.ops.wire import (
+    pack_duplex_inputs,
+    pack_molecular_inputs,
+    pack_molecular_rows_wire,
+)
 from bsseqconsensusreads_tpu_torch.ops.encode import (
     CONVERT_ROWS,
     DUPLEX_ROW_OF_FLAG,
@@ -404,16 +428,27 @@ class _Inflight:
 
     def fetch(self, metrics: Metrics) -> np.ndarray:
         """Wait for the device ('device_wait': the device still owned the
-        batch), then copy the wire to the host ('fetch')."""
+        batch), then copy the wire to the host ('fetch'; its bytes counted
+        as 'd2h_bytes')."""
         if self.event is not None:
             with metrics.timed("device_wait"):
                 self.event.synchronize()
         with metrics.timed("fetch"):
-            return self.wire.cpu().numpy()
+            host = self.wire.cpu().numpy()
+        metrics.count("d2h_bytes", host.nbytes)
+        return host
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+def _to_device(arr: np.ndarray, device: torch.device, metrics: Metrics) -> torch.Tensor:
+    """One H2D copy, its bytes counted as 'h2d_bytes'."""
+    arr = np.ascontiguousarray(arr)
+    metrics.count("h2d_bytes", arr.nbytes)
+    return torch.from_numpy(arr).to(device)
+
+
+def _wire_to_device(words: np.ndarray, device: torch.device, metrics: Metrics) -> torch.Tensor:
+    """A u32 wire as ONE H2D copy of its bytes (a uint8 view)."""
+    return _to_device(np.ascontiguousarray(words, dtype=np.uint32).view(np.uint8), device, metrics)
 
 
 def _batch_spans(depth):
@@ -557,18 +592,16 @@ def _resolve_emit(emit: str) -> bool:
     return True
 
 
+TRANSPORTS = ("auto", "wire", "unpacked")
+
+
 def check_route(transport: str, indel_policy: str = "drop") -> None:
-    """The transports and indel policies the port runs: transport 'auto'
-    and 'unpacked' (both the plain-tensor route here), indel policy
-    'drop'. The JAX package's others raise, naming the ROADMAP item that
-    brings them — never a silent substitute."""
-    if transport == "wire":
-        raise ValueError(
-            "transport 'wire' is not ported yet (ROADMAP queue 1, item 3: "
-            "the wire transport and ops/refstore); use 'auto' or 'unpacked'"
-        )
-    if transport not in ("auto", "unpacked"):
-        raise ValueError(f"unknown transport {transport!r} (auto | unpacked)")
+    """The transports and indel policies the port runs: transport 'auto',
+    'wire' and 'unpacked' (single-device; _resolve_transport), indel
+    policy 'drop'. The JAX package's 'align' raises, naming the ROADMAP
+    item that brings it — never a silent substitute."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"unknown transport {transport!r} (auto | wire | unpacked)")
     if indel_policy == "align":
         raise ValueError(
             "indel_policy 'align' is not ported yet (ROADMAP queue 1, item "
@@ -576,6 +609,17 @@ def check_route(transport: str, indel_policy: str = "drop") -> None:
         )
     if indel_policy != "drop":
         raise ValueError(f"unknown indel_policy {indel_policy!r} (drop)")
+
+
+def _resolve_transport(transport: str, device: torch.device) -> str:
+    """The ONE transport policy of the consensus stages (the JAX package's
+    single-device rule): 'wire' for an explicit 'wire', or 'auto' on the
+    card; 'off' (plain unpacked tensors) for 'unpacked', or 'auto' on the
+    CPU, where there is no transfer to save."""
+    check_route(transport)
+    if transport == "wire" or (transport == "auto" and device.type == "cuda"):
+        return "wire"
+    return "off"
 
 
 def _emit_raw(batch, out, params, mode, stats, *, n_reads, role_reverse,
@@ -760,11 +804,21 @@ def call_molecular_batches(
     base_counts: every record carries the cB raw base histogram tag — the
     duplex stage's input for exact raw-unit errors (disable to shave tag
     bytes when no duplex stage follows). min_reads filters whole families
-    by raw read count. transport and indel_policy: see check_route.
-    device: 'cuda' (default) or 'cpu'; no silent fallback.
+    by raw read count.
+
+    transport: 'wire' packs each device batch into ONE u32 array — the
+    packed-rows wire v2 under layout 'packed' (ops.wire
+    .pack_molecular_rows_wire), the v1 envelope wire under 'padded';
+    'unpacked' copies the tensors; both fetch the same output planes;
+    'auto' is the wire on the card, unpacked on the CPU
+    (_resolve_transport). Same bytes on every route; device-issued
+    batches count as 'route_batches_wire' or 'route_batches_single'.
+    indel_policy: see check_route. device: 'cuda' (default) or 'cpu'; no
+    silent fallback.
     """
     device = resolve_device(device)
     check_route(transport, indel_policy)
+    use_wire = _resolve_transport(transport, device) == "wire"
     if layout not in ("packed", "padded"):
         raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
     native_emit = _resolve_emit(emit)
@@ -787,19 +841,52 @@ def call_molecular_batches(
             f"unknown batching {batching!r} (want 'bucketed'|'sequential')"
         )
 
+    metrics = stats.metrics
+
+    def dispatch_wire(batch):
+        """The input wire packed (the C sweep on the native engine), one
+        H2D copy, the unpack and vote on the device; returns (in-flight
+        output wire, padded f)."""
+        pk = batch.packed
+        w = batch.bases.shape[-1]
+        if pk is not None:
+            words, qmode = pack_molecular_rows_wire(
+                pk.bases, pk.quals, pk.seg, pk.num_families, pk.n_real_rows,
+                qual_mode="auto", native=native_emit,
+            )
+            wire = molecular_wire_packed_kernel(
+                _wire_to_device(words, device, metrics), pk.bases.shape[0],
+                pk.num_families, w, params, qual_mode=qmode,
+            )
+            pf = pk.num_families
+        else:
+            f, t = batch.bases.shape[:2]
+            win = pack_molecular_inputs(batch.bases, batch.quals, qual_mode="auto",
+                                        native=native_emit)
+            qmode = win.qual_mode
+            wire = molecular_wire_kernel(
+                _wire_to_device(win.to_words(), device, metrics), f, t, w, params,
+                qual_mode=qmode,
+            )
+            pf = f
+        metrics.count(f"wire_qual_{qmode}")
+        return _Inflight(wire), pf
+
     def dispatch(batch):
         """H2D copies + the vote launch; returns (in-flight wire, padded f)."""
+        if use_wire:
+            return dispatch_wire(batch)
         pk = batch.packed
         if pk is not None:
             out = molecular_consensus_packed(
-                _to_device(pk.bases, device), _to_device(pk.quals, device),
-                _to_device(pk.seg, device), pk.num_families, params,
+                _to_device(pk.bases, device, metrics), _to_device(pk.quals, device, metrics),
+                _to_device(pk.seg, device, metrics), pk.num_families, params,
             )
             pf = pk.num_families
         else:
             out = molecular_consensus(
-                _to_device(batch.bases, device), _to_device(batch.quals, device),
-                params,
+                _to_device(batch.bases, device, metrics),
+                _to_device(batch.quals, device, metrics), params,
             )
             pf = batch.bases.shape[0]
         return _Inflight(pack_molecular_outputs(out)), pf
@@ -811,8 +898,9 @@ def call_molecular_batches(
 
     def retire(inflight, pf, batch):
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
-        host = inflight.fetch(stats.metrics)
-        out = unpack_molecular_outputs(host, f=pf, w=w)
+        host = inflight.fetch(metrics)
+        with metrics.timed("fetch"):
+            out = unpack_molecular_outputs(host, f=pf, w=w)
         return emit_out({k: v[:f] for k, v in out.items()}, batch)
 
     def events():
@@ -850,6 +938,7 @@ def call_molecular_batches(
             used = int((issued != NBASE).sum())
             stats.pad_cells += issued.size - used
             stats.used_cells += used
+            metrics.count("route_batches_wire" if use_wire else "route_batches_single")
             with stats.metrics.timed("kernel"):
                 inflight, pf = dispatch(batch)
             yield "deferred", partial(retire, inflight, pf, batch)
@@ -1345,6 +1434,7 @@ def call_duplex_batches(
     transport: str = "auto",
     strand_tags: bool = True,
     chemistry: str = "bisulfite",
+    refstore: RefStore | str | None = None,
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
     group on the device, one list of consensus records per batch (the
@@ -1366,7 +1456,20 @@ def call_duplex_batches(
     pos0: conversion-prepend behavior for reads mapped at reference
     position 0 — 'skip' (default, documented deviation) or 'shift'
     (exact reference parity incl. the register shift). device: 'cuda'
-    (default) or 'cpu'; no silent fallback. transport: see check_route.
+    (default) or 'cpu'; no silent fallback.
+
+    transport: 'wire' ships each batch as ONE packed u32 array (the C pack
+    on the native engine) and gathers its reference windows on the device
+    from `refstore` — an ops.refstore.RefStore, or a FASTA path loaded
+    only when the wire engages — so the encode skips the per-family host
+    reference fetch and the rawize reads RefStore.host_windows; the
+    output planes are the unpacked route's. The genome is read and
+    uploaded before the first batch, timed as 'genome_load' (its parts
+    'genome_load.read' and '.upload'). An explicit 'wire' without a
+    refstore raises; 'auto' is the wire on the card when a refstore is
+    given, unpacked otherwise (_resolve_transport).
+    Device-issued batches count as 'route_batches_wire' or
+    'route_batches_single'.
 
     strand_tags: emit the ac/bc per-strand consensus call string tags.
     Exact raw-unit errors (from the input's cB histograms) engage
@@ -1379,7 +1482,11 @@ def call_duplex_batches(
     refused.
     """
     device = resolve_device(device)
-    check_route(transport)
+    use_wire = _resolve_transport(transport, device) == "wire"
+    if use_wire and refstore is None:
+        if transport == "wire":
+            raise ValueError("transport 'wire' needs a refstore (a RefStore or a FASTA path)")
+        use_wire = False  # 'auto' without a genome: the unpacked route
     if chemistry not in ("bisulfite", "emseq", "none"):
         raise ValueError(f"unknown chemistry {chemistry!r} (bisulfite | emseq | none)")
     unconverted = chemistry == "none"
@@ -1392,33 +1499,83 @@ def call_duplex_batches(
     emit_fn = _emit_duplex_batch_raw if native_emit else _emit_duplex_batch
     stats = stats if stats is not None else StageStats(stage="duplex")
     t0 = time.monotonic()
+    genome = rid_map = None
+    if use_wire:
+        # the whole genome is read (from a FASTA path) and uploaded only
+        # when the wire engages
+        with stats.metrics.timed("genome_load"):
+            if isinstance(refstore, str):
+                with stats.metrics.timed("genome_load.read"):
+                    refstore = RefStore.from_fasta(refstore)
+            with stats.metrics.timed("genome_load.upload"):
+                genome = refstore.device_codes(device)
+        rid_map = refstore.contig_indices(ref_names)
     groups = _timed_groups(
         stream_mi_groups(records, strip_suffix=True, grouping=grouping, stats=stats),
         stats.metrics,
     )
 
+    metrics = stats.metrics
+
+    def wire_window_offsets(batch):
+        """(starts, limits) uint32 global genome offsets for one batch,
+        computed once in dispatch and reused by the host rawize windows."""
+        fb = len(batch.meta)
+        rids = np.fromiter((m.ref_id for m in batch.meta), np.int64, fb)
+        valid = (rids >= 0) & (rids < len(rid_map))
+        # a plain rid_map[rids] would let -1 wrap to the last contig
+        mapped = np.where(valid, rid_map[np.where(valid, rids, 0)], -1)
+        return refstore.window_offsets(
+            mapped, np.fromiter((m.window_start for m in batch.meta), np.int64, fb)
+        )
+
+    def host_ref(batch, windows):
+        """[F, W+1] reference windows for the host rawize passes: the
+        encode-fetched plane off the wire, the host genome copy on it."""
+        if windows is None:
+            return batch.ref
+        return refstore.host_windows(*windows, batch.bases.shape[-1] + 1)
+
     def dispatch(batch):
-        """H2D copies + the fused convert/extend/merge; returns the
-        in-flight output wire."""
+        """H2D copies + the fused convert/extend/merge; returns (the
+        in-flight output wire, the wire's (starts, limits) or None)."""
+        if use_wire:
+            f, w = batch.bases.shape[0], batch.bases.shape[-1]
+            windows = wire_window_offsets(batch)
+            win = pack_duplex_inputs(
+                batch.bases, batch.quals.astype(np.uint8), batch.cover,
+                batch.convert_mask, batch.extend_eligible, *windows,
+                qual_mode="auto", native=native_emit,
+            )
+            metrics.count(f"wire_qual_{win.qual_mode}")
+            wire = duplex_call_wire_fused(
+                _wire_to_device(win.to_words(), device, metrics),
+                genome, f, w, params=params, qual_mode=win.qual_mode,
+            )
+            return _Inflight(wire), windows
         wire, _la, _rd = duplex_call_pipeline_packed(
-            _to_device(batch.bases, device),
-            _to_device(batch.quals.astype(np.int16), device),
-            _to_device(batch.cover, device),
-            _to_device(batch.ref, device),
-            _to_device(batch.convert_mask, device),
-            _to_device(batch.extend_eligible, device),
+            _to_device(batch.bases, device, metrics),
+            _to_device(batch.quals.astype(np.int16), device, metrics),
+            _to_device(batch.cover, device, metrics),
+            _to_device(batch.ref, device, metrics),
+            _to_device(batch.convert_mask, device, metrics),
+            _to_device(batch.extend_eligible, device, metrics),
             params=params,
         )
-        return _Inflight(wire)
+        return _Inflight(wire), None
 
-    def retire(inflight, batch, sidecar):
+    def retire(inflight, windows, batch, sidecar):
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
-        host = inflight.fetch(stats.metrics)
-        out = unpack_duplex_outputs(host, f=f, w=w)
-        with stats.metrics.timed("rawize"):
-            out = _duplex_rawize(out, batch, sidecar, batch.ref, native=native_emit,
-                                 strand_tags=strand_tags)
-        with stats.metrics.timed("emit"):
+        host = inflight.fetch(metrics)
+        with metrics.timed("fetch"):
+            out = unpack_duplex_outputs(host, f=f, w=w)
+        with metrics.timed("rawize"):
+            out = _duplex_rawize(
+                out, batch, sidecar,
+                host_ref(batch, windows) if (strand_tags or sidecar) else None,
+                native=native_emit, strand_tags=strand_tags,
+            )
+        with metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, stats)
         return [recs] if isinstance(recs, RawRecords) else recs
 
@@ -1428,9 +1585,11 @@ def call_duplex_batches(
                 # resume replay: skipped batches never encode at all
                 continue
             with stats.metrics.timed("encode"):
+                # on the wire the device gathers the reference windows, so
+                # the per-family host fetch is skipped (batch.ref stays N)
                 batch, leftovers, skipped = encode_duplex_families(
                     chunk, ref_fetch, ref_names, max_window=max_window,
-                    pos0=pos0,
+                    fetch_ref=not use_wire, pos0=pos0,
                 )
                 if unconverted:
                     # an unconverted library: clearing the flag-derived
@@ -1446,9 +1605,10 @@ def call_duplex_batches(
             used = int(batch.cover.sum())
             stats.pad_cells += batch.cover.size - used
             stats.used_cells += used
+            metrics.count("route_batches_wire" if use_wire else "route_batches_single")
             with stats.metrics.timed("kernel"):
-                inflight = dispatch(batch)
-            yield "deferred", partial(retire, inflight, batch, sidecar)
+                inflight, windows = dispatch(batch)
+            yield "deferred", partial(retire, inflight, windows, batch, sidecar)
 
     yield from _pipelined(events())
     stats.wall_seconds += time.monotonic() - t0

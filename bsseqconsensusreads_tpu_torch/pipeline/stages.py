@@ -29,9 +29,9 @@ Config keys the port does not honour yet raise a WorkflowError in
 PipelineBuilder.build(), before any stage runs, naming the ROADMAP item
 (queue 1) that brings them: group_umis that would prepend UMI grouping,
 filter, duplex_passthrough and sort_engine 'bucket' (item 8), methyl
-other than 'off' (item 4), transport 'wire' (item 3), indel_policy
-'align' (item 7). stream_interstage takes the JAX package's loud
-fallback to the two-pass path: the fused rule needs the bucket engine.
+other than 'off' (item 4), indel_policy 'align' (item 7).
+stream_interstage takes the JAX package's loud fallback to the two-pass
+path: the fused rule needs the bucket engine.
 
 Left for later slices: the run ledger (observe.open_ledger,
 emit_stage_stats, BSSEQ_TPU_STATS) and the traces (item 9), the input
@@ -304,6 +304,9 @@ class PipelineBuilder:
                 emit=cfg.emit,
                 skip_batches=ck.batches_done if ck else 0,
                 transport=cfg.transport,
+                # the FASTA path: loaded into a device-resident genome only
+                # when the wire transport engages (call_duplex_batches decides)
+                refstore=cfg.genome_fasta,
                 strand_tags=cfg.duplex_strand_tags,
                 chemistry=cfg.chemistry,
             )
@@ -440,7 +443,7 @@ class PipelineBuilder:
                               "record_ops host code, duplex passthrough")
         if cfg.sort_engine == "bucket":
             raise _not_ported("sort_engine: bucket", 8, "bucketemit and the bucket engine")
-        try:  # transport 'wire' (item 3), indel_policy 'align' (item 7)
+        try:  # an unknown transport; indel_policy 'align' (item 7)
             check_route(cfg.transport, cfg.indel_policy)
         except ValueError as exc:
             raise WorkflowError(f"config: {exc}") from None

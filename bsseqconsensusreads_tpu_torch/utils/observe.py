@@ -5,8 +5,9 @@ The port's counterpart of Metrics from the JAX package's utils/observe.py
 stages time: ingest, encode, kernel (host-side dispatch: H2D copies and
 launches), device_wait (CUDA event sync — the device still owned the
 batch), fetch (D2H copy + unpack), host_vote (singleton host path),
-rawize (duplex raw units + strand calls), emit, and sort_write (the
-output writer's sort, spill, merge and deflate). A dotted name
+rawize (duplex raw units + strand calls), emit, sort_write (the
+output writer's sort, spill, merge and deflate), and genome_load (the
+duplex wire's whole-genome read and upload, once per stage). A dotted name
 ('emit.pack', 'sort_write.merge') is a part of the phase before the dot.
 """
 

@@ -36,21 +36,36 @@ Phases:
      the JAX package's tools/scale_rehearsal.py mixture: read length 150,
      fragment 180, 2 Mb genome, 70% one template per strand and the rest
      two, RTA3-binned quals, ~1.3% substitutions), written by the port's
-     native writer; the molecular stage (mode 'self', grouping
-     'coordinate', 2048 families per batch), write_batch_stream, the
-     duplex stage, write_batch_stream — with the native host engines
-     named explicitly (ingest, emit and sort 'native': a failed host build
-     fails the run), the kernels' launch counts set to 0 before and read
-     after each stage, each stage under torch.profiler (the card's
-     activity only) for its device busy seconds and idle share, and
-     seg_vote's launches counted by (N, P, W, S). Per stage: families/s,
-     the seconds of every host phase (ingest, encode, host_vote, rawize,
-     emit, sort_write) and device phase (kernel, device_wait, fetch), the
-     ingest_native / group_native counters and the launches. Then the
-     first --cpu-families families through both stages on the card with
-     the native engines, on the card with the Python engines (SHA-equal
-     required) and on the CPU with the native engines, stage by stage on
-     identical input, and the qual tables built on the card against the
+     native writer, and a human-scale genome FASTA + .fai made from a
+     seed (25 random contigs of GRCh38's chromosome lengths, then the 2 Mb
+     data contig last, 3.09 Gbp; the duplex stages of phases 3, 3w and 4a
+     read it, the head and phases 4b-4c the 2 Mb one); the molecular
+     stage (mode 'self', grouping 'coordinate', 2048 families per batch),
+     write_batch_stream, the duplex stage, write_batch_stream — with the
+     native host engines and
+     transport 'unpacked' named explicitly (ingest, emit and sort
+     'native': a failed host build fails the run), the kernels' launch
+     counts set to 0 before and read after each stage, each stage under
+     torch.profiler (the card's activity only) for its device busy seconds
+     and idle share, and seg_vote's launches counted by (N, P, W, S). Per
+     stage: families/s, the seconds of every host phase (ingest, encode,
+     host_vote, rawize, emit, sort_write) and device phase (kernel,
+     device_wait, fetch), the ingest_native / group_native counters, the
+     route of the device batches, the bytes each way per device batch,
+     the peak host RSS and device memory, and the launches.
+  3w. the same input through both stages with transport 'wire' (one
+     packed input wire per batch, the whole human-scale genome read and
+     uploaded to the card inside the duplex stage, timed as genome_load),
+     measured the same way in the same call: both BAMs must equal Phase
+     3's byte for byte, every device batch must take
+     the wire and seg_vote must launch in both stages; printed beside
+     Phase 3's numbers, with the wire's resolved qual modes.
+     Then the identity head: the first --cpu-families families through
+     both stages on the card with the native and the Python engines over
+     both transports (all SHA-equal to native unpacked required), and on
+     the CPU over both transports (SHA-equal to each other, and held
+     against the card under the card-vs-CPU contract), stage by stage on
+     identical input; and the qual tables built on the card against the
      CPU-built ones.
   4. `run`, the system's entry point, in the same temporary directory:
      a. cli.main(["run", "--bam", <Phase 3's input>, "--reference", ...,
@@ -62,8 +77,9 @@ Phases:
         and seg_vote shapes, the idle share. The intermediate's and the
         target's records must equal Phase 3's molecular.bam and duplex.bam
         byte for byte, their headers equal apart from @PG lines, both
-        stages must launch seg_vote, the qual-table build vote_finalize,
-        and deep_skipped_families must be 0. A second identical run must
+        stages must take the wire (transport 'auto' on the card) and launch
+        seg_vote, the qual-table build vote_finalize, and
+        deep_skipped_families must be 0. A second identical run must
         skip both rules "up to date" and leave the target's SHA and mtime.
      b. crash and resume on the card at the --cpu-families head: a child
         process runs the checkpointed pipeline (checkpoint_every 1, 16
@@ -75,8 +91,8 @@ Phases:
      c. aligner 'none' at the head on the card and on the CPU: the FASTQs
         equal, or quals within 1 (counts logged).
 
-Prints the kernel table as one JSON line (launches: Phase 3's and Phase
-4a's main paths together), the nvidia-smi line, and last {"ok": true,
+Prints the kernel table as one JSON line (launches: the main paths of
+Phases 3, 3w and 4a together), the nvidia-smi line, and last {"ok": true,
 "device": {...}}. Any failed check exits non-zero.
 """
 
@@ -463,6 +479,93 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int):
     return fasta, big, small
 
 
+#: GRCh38 primary-assembly chromosome lengths (chr1..chr22, chrX, chrY,
+#: chrM): the human-scale genome's filler contigs, 3,088,286,401 bases
+GRCH38_LENGTHS = (
+    248956422, 242193529, 198295559, 190214555, 181538259, 170805979, 159345973,
+    145138636, 138394717, 133797422, 135086622, 133275309, 114364328, 107043718,
+    101991189, 90338345, 83257441, 80373285, 58617616, 64444167, 46709983,
+    50818468, 156040895, 57227415, 16569,
+)
+FASTA_LINE = 60
+
+
+def write_human_genome(np, workdir: str, data_fasta: str) -> str:
+    """A human-scale genome FASTA and its .fai (as `samtools faidx` writes
+    it): 25 random contigs of GRCh38's chromosome lengths made from a seed,
+    then the data genome's chr1 LAST, so every read's window lies past
+    2**31 in the concatenated genome (the uint32 offsets' upper half). The
+    reads and their windows are the data genome's, so every stage writes
+    the bytes it writes on the data genome alone."""
+    from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
+
+    with FastaFile(data_fasta) as fa:
+        data = fa.fetch("chr1").encode("ascii")
+    path = os.path.join(workdir, "genome_human_scale.fa")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(38)
+    contigs = [(f"hs_chr{i}", n) for i, n in enumerate(GRCH38_LENGTHS, start=1)]
+    fai = []
+    with open(path, "wb") as fh:
+        for name, n in contigs + [("chr1", len(data))]:
+            if name == "chr1":
+                seq = np.frombuffer(data, np.uint8)
+            else:
+                seq = acgt[np.frombuffer(rng.bytes(n), np.uint8) & 3]
+            fh.write(f">{name}\n".encode())
+            fai.append(f"{name}\t{n}\t{fh.tell()}\t{FASTA_LINE}\t{FASTA_LINE + 1}\n")
+            full = n // FASTA_LINE
+            lines = np.empty((full, FASTA_LINE + 1), np.uint8)
+            lines[:, :FASTA_LINE] = seq[: full * FASTA_LINE].reshape(full, FASTA_LINE)
+            lines[:, FASTA_LINE] = ord("\n")
+            fh.write(lines.data)
+            if n % FASTA_LINE:
+                fh.write(seq[full * FASTA_LINE:].tobytes() + b"\n")
+            del seq, lines
+    with open(path + ".fai", "w") as fh:
+        fh.writelines(fai)
+    return path
+
+
+class PeakMemory:
+    """Peak host RSS (/proc/self/statm read every 5 ms by a thread: the
+    card's machine refuses the VmHWM reset) and peak device memory
+    allocated by torch over a `with` block, in GiB; the host RSS at its
+    start beside it."""
+
+    PAGE = os.sysconf("SC_PAGE_SIZE")
+
+    def __init__(self, torch):
+        import threading
+
+        self.torch = torch
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self.host_gib = self.host_start_gib = self.device_gib = 0.0
+
+    @classmethod
+    def _rss_gib(cls) -> float:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * cls.PAGE / 2**30
+
+    def _sample(self):
+        while not self._done.wait(0.005):
+            self.host_gib = max(self.host_gib, self._rss_gib())
+
+    def __enter__(self):
+        self.host_gib = self.host_start_gib = self._rss_gib()
+        self.torch.cuda.reset_peak_memory_stats()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+        self.host_gib = max(self.host_gib, self._rss_gib())
+        self.device_gib = self.torch.cuda.max_memory_allocated() / 2**30
+        return False
+
+
 def device_busy_s(torch, prof) -> float:
     """Seconds in which the card ran a kernel or a copy during a profiled
     run: the union of the device events' intervals."""
@@ -479,18 +582,21 @@ def device_busy_s(torch, prof) -> float:
 
 
 def run_stage(stage: str, inp: str, out: str, fasta: str, device: str, prof=None,
-              engine: str = "native"):
+              engine: str = "native", *, transport: str):
     """One stage through the port's entry points, every host engine
-    (ingest, emit, sort) named `engine`; returns (StageStats, per-kernel
-    launches in this stage, wall seconds). With `prof`, a torch.profiler
-    that records the card's activity, the stage runs under it."""
+    (ingest, emit, sort) named `engine` and the device transport named
+    `transport` ('unpacked' or 'wire'; the duplex stage gets the FASTA as
+    its refstore); returns (StageStats, per-kernel launches in this stage,
+    wall seconds). With `prof`, a torch.profiler that records the card's
+    activity, the stage runs under it."""
     import contextlib
 
     with prof if prof is not None else contextlib.nullcontext():
-        return _run_stage(stage, inp, out, fasta, device, engine)
+        return _run_stage(stage, inp, out, fasta, device, engine, transport)
 
 
-def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: str):
+def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: str,
+               transport: str):
     from bsseqconsensusreads_tpu_torch.io.bam import BamReader
     from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
@@ -509,7 +615,7 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                 stages.molecular_ingest_stream(inp, reader, stats, ingest_choice=engine),
                 ConsensusParams(min_reads=1), mode="self",
                 batch_families=2048, grouping="coordinate", stats=stats,
-                device=device, emit=engine,
+                device=device, emit=engine, transport=transport,
             )
             write_batch_stream(batches, out, reader.header, "self",
                                sort_engine=engine, metrics=stats.metrics)
@@ -520,7 +626,8 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                     stages.duplex_ingest_stream(inp, reader, stats, ingest_choice=engine),
                     fa.fetch, names, ConsensusParams(min_reads=0),
                     mode="self", batch_families=2048, grouping="coordinate",
-                    stats=stats, device=device, emit=engine,
+                    stats=stats, device=device, emit=engine, transport=transport,
+                    refstore=fasta,
                 )
                 write_batch_stream(batches, out, reader.header, "self",
                                    sort_engine=engine, metrics=stats.metrics)
@@ -533,17 +640,27 @@ DEVICE_PHASES = ("kernel", "device_wait", "fetch")
 
 
 def stage_summary(stage: str, stats, wall: float) -> dict:
-    """families/s and the seconds of every phase of one stage run."""
+    """families/s, the seconds of every phase of one stage run, the route
+    its device batches took, the bytes each way per device batch and the
+    wire's resolved qual modes."""
     m = stats.metrics.seconds
+    c = stats.metrics.counters
+    device_batches = c.get("route_batches_wire", 0) + c.get("route_batches_single", 0)
     return {
         "stage": stage, "families": stats.families,
         "families_per_s": stats.families / wall, "wall_s": wall,
         "records_in": stats.records_in, "records_out": stats.consensus_out,
         "batches": stats.batches, "skipped_families": stats.skipped_families,
         **{f"{k}_s": m.get(k, 0.0) for k in HOST_PHASES + DEVICE_PHASES},
+        "genome_load_s": m.get("genome_load", 0.0),
         "sub_phases_s": {k: v for k, v in m.items() if "." in k},
-        "ingest_native": stats.metrics.counters.get("ingest_native", 0),
-        "group_native": stats.metrics.counters.get("group_native", 0),
+        "ingest_native": c.get("ingest_native", 0),
+        "group_native": c.get("group_native", 0),
+        "route_batches_wire": c.get("route_batches_wire", 0),
+        "route_batches_single": c.get("route_batches_single", 0),
+        "h2d_bytes_per_batch": c.get("h2d_bytes", 0) / device_batches if device_batches else 0,
+        "d2h_bytes_per_batch": c.get("d2h_bytes", 0) / device_batches if device_batches else 0,
+        "wire_qual": {k[len("wire_qual_"):]: v for k, v in c.items() if k.startswith("wire_qual_")},
     }
 
 
@@ -584,75 +701,154 @@ def diff_records(a_path: str, b_path: str) -> tuple[int, int, str]:
     return n, ndiff, first
 
 
+def main_path(torch, stages_io, fasta: str, transport: str, tag: str) -> tuple[dict, dict, dict]:
+    """Both stages on the card, native engines, over `transport`: each
+    stage under torch.profiler with the kernels' counts set to 0 just
+    before and read just after. Returns (launches summed over the stages,
+    per-stage summaries, seg_vote launches by shape)."""
+    import collections
+
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+
+    launches = {}
+    summaries = {}
+    shapes = collections.Counter()
+    for stage, inp, out in stages_io:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with PeakMemory(torch) as mem:
+            stats, counts, wall = run_stage(stage, inp, out, fasta, "cuda", prof,
+                                            engine="native", transport=transport)
+        shapes.update(cuda_vote.SEG_VOTE_SHAPES)
+        busy = device_busy_s(torch, prof)
+        summary = {
+            **stage_summary(stage, stats, wall), "transport": transport,
+            "device_busy_s": busy if busy > 0 else "not measured",
+            "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+            "peak_host_rss_gib": mem.host_gib, "host_rss_at_start_gib": mem.host_start_gib,
+            "peak_device_allocated_gib": mem.device_gib,
+            "launches": counts, "sha256": sha256(out),
+        }
+        log(f"{tag} stage {json.dumps(summary)}")
+        summaries[stage] = summary
+        check(stats.families > 0 and stats.consensus_out > 0, f"{tag} {stage}: no output")
+        check(summary["ingest_native"] == 1 and summary["group_native"] == 1,
+              f"{tag} {stage}: the main path did not ingest through the native engine")
+        check(counts["seg_vote"] > 0, f"{tag} {stage}: seg_vote never launched")
+        route = "route_batches_wire" if transport == "wire" else "route_batches_single"
+        other = "route_batches_single" if transport == "wire" else "route_batches_wire"
+        check(summary[route] > 0 and summary[other] == 0,
+              f"{tag} {stage}: the device batches did not all take the {transport} route")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, summaries, shapes
+
+
+def log_shapes(tag: str, shapes, case_shapes) -> None:
+    """seg_vote's launches by (N, P, W, S), most frequent first, and
+    whether the leading one is a Phase 2 case."""
+    top = [[list(k), v] for k, v in shapes.most_common()]
+    log(f"{tag} seg_vote shapes: {json.dumps(top)}")
+    if top:
+        log(f"{tag} most frequent shape {top[0][0]} is a phase-2 case: "
+            f"{tuple(top[0][0]) in case_shapes}")
+
+
 def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
-    """Returns (launches on the main path, its per-stage summaries, the
-    inputs (fasta, grouped BAM, head BAM))."""
+    """Phase 3 (the unpacked main path), Phase 3w (the wire main path), the
+    identity head and the qual tables. Returns (launches on both main
+    paths, Phase 3's per-stage summaries, the inputs (data genome FASTA,
+    grouped BAM, head BAM, human-scale genome FASTA))."""
     import collections
 
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
-    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
+    from bsseqconsensusreads_tpu_torch.ops import reconstruct
 
     t0 = time.monotonic()
     fasta, big, small = write_inputs(np, work, families, cpu_families)
     log(f"phase3 input: {families} families written in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    genome = write_human_genome(np, work, fasta)
+    log(f"phase3 human-scale genome: {os.path.getsize(genome)} bytes, "
+        f"{len(GRCH38_LENGTHS) + 1} contigs, written in {time.monotonic() - t0:.1f} s")
 
-    # the main path: the kernels' counts cover exactly these two stages, and
-    # the qual tables are built inside them (first use on this device)
+    def io(suffix):
+        mol = os.path.join(work, f"molecular{suffix}.bam")
+        return (("molecular", big, mol),
+                ("duplex", mol, os.path.join(work, f"duplex{suffix}.bam")))
+
+    # the main path (Phase 3) and the same input over the wire (Phase 3w),
+    # in alternating order: molecular unpacked then wire, duplex wire then
+    # unpacked. Each stage's kernel counts cover exactly that stage; the
+    # qual tables are built inside the first (first use on this device)
     reconstruct._CACHE.clear()
-    launches = {}
-    summaries = {}
-    shapes = collections.Counter()
-    for stage, inp, out in (
-        ("molecular", big, os.path.join(work, "molecular.bam")),
-        ("duplex", os.path.join(work, "molecular.bam"), os.path.join(work, "duplex.bam")),
-    ):
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-        stats, counts, wall = run_stage(stage, inp, out, fasta, "cuda", prof, engine="native")
-        shapes.update(cuda_vote.SEG_VOTE_SHAPES)
-        busy = device_busy_s(torch, prof)
-        summary = {
-            **stage_summary(stage, stats, wall),
-            "device_busy_s": busy if busy > 0 else "not measured",
-            "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
-            "launches": counts, "sha256": sha256(out),
+    mol, dup = io(""), io("_wire")
+    runs = [main_path(torch, mol[:1], genome, "unpacked", "phase3"),
+            main_path(torch, dup[:1], genome, "wire", "phase3w"),
+            main_path(torch, dup[1:], genome, "wire", "phase3w"),
+            main_path(torch, mol[1:], genome, "unpacked", "phase3")]
+    check(runs[0][0]["vote_finalize"] > 0, "molecular: vote_finalize never launched")
+    launches, summaries, shapes = {}, {}, collections.Counter()
+    wire_launches, wire_summaries, wire_shapes = {}, {}, collections.Counter()
+    for (la, su, sh), (l_acc, s_acc, sh_acc) in zip(runs, [
+            (launches, summaries, shapes), (wire_launches, wire_summaries, wire_shapes),
+            (wire_launches, wire_summaries, wire_shapes), (launches, summaries, shapes)]):
+        for k, v in la.items():
+            l_acc[k] = l_acc.get(k, 0) + v
+        s_acc.update(su)
+        sh_acc.update(sh)
+    log_shapes("phase3", shapes, case_shapes)
+    log_shapes("phase3w", wire_shapes, case_shapes)
+    for stage, wsum in wire_summaries.items():
+        usum = summaries[stage]
+        side = {
+            "stage": stage,
+            "families_per_s": {"wire": wsum["families_per_s"], "unpacked": usum["families_per_s"]},
+            **{k: {"wire": wsum[k], "unpacked": usum[k]} for k in (
+                "wall_s", *(f"{p}_s" for p in HOST_PHASES + DEVICE_PHASES), "genome_load_s",
+                "h2d_bytes_per_batch", "d2h_bytes_per_batch", "device_idle_share",
+                "peak_host_rss_gib", "host_rss_at_start_gib", "peak_device_allocated_gib",
+                "route_batches_wire", "route_batches_single")},
+            "sub_phases_s": {"wire": wsum["sub_phases_s"], "unpacked": usum["sub_phases_s"]},
+            "wire_qual": wsum["wire_qual"],
+            "same_sha256": wsum["sha256"] == usum["sha256"],
         }
-        log(f"phase3 stage {json.dumps(summary)}")
-        summaries[stage] = summary
-        check(stats.families > 0 and stats.consensus_out > 0, f"{stage}: no output")
-        check(summary["ingest_native"] == 1 and summary["group_native"] == 1,
-              f"{stage}: the main path did not ingest through the native engine")
-        check(counts["seg_vote"] > 0, f"{stage}: seg_vote never launched")
-        if stage == "molecular":
-            check(counts["vote_finalize"] > 0, "molecular: vote_finalize never launched")
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-
-    # the main path's seg_vote launches by (N, P, W, S), most frequent first
-    top = [[list(k), v] for k, v in shapes.most_common()]
-    log(f"phase3 seg_vote shapes: {json.dumps(top)}")
-    if top:
-        log(f"phase3 most frequent shape {top[0][0]} is a phase-2 case: "
-            f"{tuple(top[0][0]) in case_shapes}")
+        log(f"phase3w vs phase3 {json.dumps(side)}")
+        check(side["same_sha256"], f"phase3w {stage}: the wire wrote other bytes than phase 3")
+    for k, v in wire_launches.items():
+        launches[k] = launches.get(k, 0) + v
 
     # on the head input, stage by stage on identical input: the card with
-    # the native engines against the card with the Python engines (the
-    # same bytes required), and against the CPU with the native engines
+    # the native engines against the card with the Python engines, both
+    # transports each (the same bytes required), and against the CPU
+    runs = (("cuda", "native", "unpacked"), ("cuda", "python", "unpacked"),
+            ("cuda", "native", "wire"), ("cuda", "python", "wire"),
+            ("cpu", "native", "unpacked"), ("cpu", "native", "wire"))
     for stage, inp in (("molecular", small),
-                       ("duplex", os.path.join(work, "mol_head_cuda_native.bam"))):
+                       ("duplex", os.path.join(work, "mol_head_cuda_native_unpacked.bam"))):
         outs = {}
-        for dev, engine in (("cuda", "native"), ("cuda", "python"), ("cpu", "native")):
-            out = os.path.join(work, f"{stage[:3]}_head_{dev}_{engine}.bam")
-            _stats, _counts, wall = run_stage(stage, inp, out, fasta, dev, engine=engine)
-            outs[dev, engine] = out
-            log(f"phase3 head {stage} {dev} {engine}: {wall:.2f} s, sha256 {sha256(out)}")
-        same_engines = sha256(outs["cuda", "native"]) == sha256(outs["cuda", "python"])
-        log(f"phase3 native-vs-python engines on the card {stage}: byte-identical={same_engines}")
-        check(same_engines, f"{stage}: native and Python host engines wrote different bytes")
-        n, ndiff, first = diff_records(outs["cuda", "native"], outs["cpu", "native"])
-        same = sha256(outs["cuda", "native"]) == sha256(outs["cpu", "native"])
-        log(f"phase3 card-vs-cpu {stage}: {n} records, {ndiff} differ, "
-            f"byte-identical={same}" + (f", first: {first}" if first else ""))
-        check(n > 0, f"{stage}: the card-vs-CPU comparison saw no records")
+        for dev, engine, transport in runs:
+            out = os.path.join(work, f"{stage[:3]}_head_{dev}_{engine}_{transport}.bam")
+            _stats, _counts, wall = run_stage(stage, inp, out, fasta, dev, engine=engine,
+                                              transport=transport)
+            outs[dev, engine, transport] = out
+            log(f"phase3 head {stage} {dev} {engine} {transport}: {wall:.2f} s, "
+                f"sha256 {sha256(out)}")
+        ref = sha256(outs["cuda", "native", "unpacked"])
+        for key in runs[1:4]:
+            same = sha256(outs[key]) == ref
+            log(f"phase3 head {stage}: card {key[1]} {key[2]} vs card native unpacked: "
+                f"byte-identical={same}")
+            check(same, f"{stage}: card {key[1]} {key[2]} wrote other bytes than native unpacked")
+        same_cpu = sha256(outs["cpu", "native", "wire"]) == sha256(outs["cpu", "native", "unpacked"])
+        log(f"phase3 head {stage}: cpu wire vs cpu unpacked: byte-identical={same_cpu}")
+        check(same_cpu, f"{stage}: the wire on the CPU wrote other bytes than unpacked")
+        for transport in ("unpacked", "wire"):
+            card, cpu = outs["cuda", "native", transport], outs["cpu", "native", transport]
+            n, ndiff, first = diff_records(card, cpu)
+            log(f"phase3 card-vs-cpu {stage} {transport}: {n} records, {ndiff} differ, "
+                f"byte-identical={sha256(card) == sha256(cpu)}"
+                + (f", first: {first}" if first else ""))
+            check(n > 0, f"{stage}: the card-vs-CPU comparison saw no records")
 
     params = ConsensusParams(min_reads=1)
     card = reconstruct.qual_tables(params, "cuda")
@@ -672,7 +868,7 @@ def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
             idx = np.argwhere(a != b)[:10].tolist()
             log(f"phase3 qual table {name}: differing entries {idx}")
         check(over == 0, f"qual table {name}: {over} entries differ by more than 1")
-    return launches, summaries, (fasta, big, small)
+    return launches, summaries, (fasta, big, small, genome)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -724,8 +920,8 @@ def phase4(np, torch, work: str, inputs, phase3_summaries: dict, case_shapes=fro
     at Phase 3's input, 4b a SIGKILLed checkpointed run resumed in a new
     process, 4c aligner 'none' on the card and on the CPU. Returns the
     kernels' launches on 4a's main path."""
-    fasta, big, small = inputs
-    launches = phase4a(torch, work, fasta, big, phase3_summaries, case_shapes)
+    fasta, big, small, genome = inputs
+    launches = phase4a(torch, work, genome, big, phase3_summaries, case_shapes)
     phase4b(work, fasta, small)
     phase4c(work, fasta, small)
     return launches
@@ -753,11 +949,11 @@ def phase4a(torch, work: str, fasta: str, big: str, phase3_summaries: dict,
             shapes_before = collections.Counter(cuda_vote.SEG_VOTE_SHAPES)
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
             t0 = time.monotonic()
-            with prof:
+            with PeakMemory(torch) as mem, prof:
                 originals[name](self, rule, mode)
             wall = time.monotonic() - t0
             shapes.update(cuda_vote.SEG_VOTE_SHAPES - shapes_before)
-            per_stage[stage] = (self.stats[stage], wall, prof,
+            per_stage[stage] = (self.stats[stage], wall, prof, mem,
                                 {k: v - before[k] for k, v in cuda_vote.LAUNCHES.items()})
         return body
 
@@ -781,17 +977,25 @@ def phase4a(torch, work: str, fasta: str, big: str, phase3_summaries: dict,
     rules = [ln for ln in err if ln.startswith(("[ran]", "[skip]"))]
     log(f"phase4a run: {run_wall:.3f} s; rules: {json.dumps(rules)}")
     log(f"phase4a stdout stats: {json.dumps(doc['stats'])}")
-    for stage, (stats, wall, prof, counts) in per_stage.items():
+    for stage, (stats, wall, prof, mem, counts) in per_stage.items():
         busy = device_busy_s(torch, prof)
         summary = {
             **stage_summary(stage, stats, wall),
             "device_busy_s": busy if busy > 0 else "not measured",
             "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+            "peak_host_rss_gib": mem.host_gib, "host_rss_at_start_gib": mem.host_start_gib,
+            "peak_device_allocated_gib": mem.device_gib,
             "launches": counts,
             "phase3_families_per_s": phase3_summaries[stage]["families_per_s"],
         }
         log(f"phase4a stage {json.dumps(summary)}")
+        route = "wire" if summary["route_batches_single"] == 0 else (
+            "unpacked" if summary["route_batches_wire"] == 0 else "both")
+        log(f"phase4a route {stage}: {route} ({summary['route_batches_wire']} wire, "
+            f"{summary['route_batches_single']} unpacked device batches)")
         check(counts["seg_vote"] > 0, f"run {stage}: seg_vote never launched")
+        check(route == "wire" and summary["route_batches_wire"] > 0,
+              f"run {stage}: transport 'auto' on the card did not take the wire")
     check(set(per_stage) == {"molecular", "duplex"}, f"run drove stages {sorted(per_stage)}")
     check(launches["vote_finalize"] > 0, "run: vote_finalize never launched")
     check(doc["stats"]["molecular"]["deep_skipped_families"] == 0,
@@ -951,7 +1155,8 @@ def engine_ab(np, torch, families: int) -> None:
             mol = os.path.join(work, f"mol_{turn}.bam")
             for stage, inp, out in (("molecular", big, mol),
                                     ("duplex", mol, os.path.join(work, f"dup_{turn}.bam"))):
-                stats, _counts, wall = run_stage(stage, inp, out, fasta, "cuda", engine=engine)
+                stats, _counts, wall = run_stage(stage, inp, out, fasta, "cuda", engine=engine,
+                                                 transport="unpacked")
                 row = {"turn": turn, "engine": engine, **stage_summary(stage, stats, wall),
                        "sha256": sha256(out)}
                 log(f"ab stage {json.dumps(row)}")
