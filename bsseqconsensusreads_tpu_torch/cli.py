@@ -22,9 +22,13 @@ with the --reference genome uploaded to the device once) or the plain
 tensors; 'auto' is the wire on the card and unpacked on the CPU. Same
 bytes either way. --ingest and --emit pick the host engines: the port's C++
 libraries (built from csrc/host at first use; a failed build fails the
-command) or the Python twins, with byte-identical output. molecular and
-duplex write their StageStats as one JSON line on stderr; run prints
-{target, stats} on stdout and one [ran|skip] line per rule on stderr.
+command) or the Python twins, with byte-identical output. --methyl
+bedmethyl|cx|both on duplex and run extracts methylation in the duplex
+stage and writes <output>.bedmethyl / <output>.CX_report.txt (or at
+--methyl-out); duplex then prints one {"methyl": report} line on stderr.
+molecular and duplex write their StageStats as one JSON line on stderr;
+run prints {target, stats} on stdout and one [ran|skip] line per rule on
+stderr.
 """
 
 from __future__ import annotations
@@ -136,6 +140,19 @@ def cmd_duplex(args) -> int:
     from bsseqconsensusreads_tpu_torch.pipeline.stages import duplex_ingest_stream
 
     stats = StageStats(stage="duplex")
+    methyl_acc = None
+    store = args.reference  # the FASTA path; loaded only if the wire engages
+    if args.methyl != "off":
+        from bsseqconsensusreads_tpu_torch.methyl.tally import MethylAccumulator
+        from bsseqconsensusreads_tpu_torch.ops.refstore import RefStore
+        from bsseqconsensusreads_tpu_torch.pipeline.stages import methyl_paths
+
+        with stats.metrics.timed("genome_load"), stats.metrics.timed("genome_load.read"):
+            store = RefStore.from_fasta(args.reference)
+        methyl_acc = MethylAccumulator(
+            store, *methyl_paths(args.methyl, args.methyl_out or args.output),
+            metrics=stats.metrics, engine=args.emit,
+        )
     with FastaFile(args.reference) as fasta, BamReader(args.input) as reader:
         names = [n for n, _ in reader.header.references]
         batches = call_duplex_batches(
@@ -156,10 +173,15 @@ def cmd_duplex(args) -> int:
             emit=args.emit,
             chemistry=args.chemistry,
             transport=args.transport,
-            refstore=args.reference,  # the FASTA path; loaded only if the wire engages
+            refstore=store,
+            methyl=methyl_acc,
+            methyl_engine=args.methyl_engine,
         )
         write_batch_stream(batches, args.output, reader.header, args.mode,
                            metrics=stats.metrics)
+    if methyl_acc is not None:
+        report = methyl_acc.finalize()
+        print(json.dumps({"methyl": report}), file=sys.stderr)
     print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 
@@ -269,8 +291,8 @@ def main(argv: list[str] | None = None) -> int:
     )
     p.add_argument(
         "--methyl", choices=("off", "bedmethyl", "cx", "both"), default="",
-        help="fused methylation extraction (overrides config; not ported "
-        "yet: anything but 'off' is refused)",
+        help="methylation extraction in the duplex stage (overrides config; "
+        "see `duplex --help`)",
     )
     p.add_argument("--methyl-out", default="", help="base path for the methylation outputs")
     p.add_argument(
@@ -330,6 +352,21 @@ def main(argv: list[str] | None = None) -> int:
         "engine (identical C->T readout; emseq is provenance), 'none' "
         "declares an unconverted plain duplex library — the convert "
         "transform is disabled, same engine otherwise",
+    )
+    p.add_argument(
+        "--methyl", choices=("off", "bedmethyl", "cx", "both"), default="off",
+        help="methylation extraction: a per-column classify-and-count "
+        "epilogue on the duplex batch, written as bedMethyl and/or a CX "
+        "cytosine report next to the output",
+    )
+    p.add_argument(
+        "--methyl-out", default="",
+        help="base path for the methylation outputs (default: the output BAM's path)",
+    )
+    p.add_argument(
+        "--methyl-engine", choices=("auto", "device", "host"), default="auto",
+        help="where the epilogue runs: on the vote's device, inside the "
+        "dispatch (auto = device), or the numpy twin on the host",
     )
     _add_params(p, min_reads_default=0)
     p.set_defaults(fn=cmd_duplex)

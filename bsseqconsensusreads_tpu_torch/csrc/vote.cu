@@ -54,16 +54,23 @@
 //     leave a deep segment to R / 8 threads, each a long chain of rows.
 //     There every consumer thread takes 2 cells of each row instead, the
 //     threads walk the unit's rows together and finish each segment where
-//     its rows end (deep_unit).
+//     its rows end (deep_unit). When the segments average more than
+//     kDeepRows rows (the deep route's padded dispatches), a unit holds
+//     one segment, so the families of a dispatch run on separate blocks;
+//     a segment's rows stay on one block, whose ring bounds it (PERF.md).
 //   * Every thread adds its segment's rows IN ROW ORDER into 4 float sums
 //     per cell — the unfactored per-observation term — so the float sums
 //     are bit-identical to the plain version's in-order segment sum by
 //     construction (no reordering, no atomics, no multiply to contract;
 //     adding -0 for an unobserved cell changes no bit). The four per-base
 //     counts of a cell are 8-bit fields of one register, widened every
-//     255 rows into 16-bit fields of a 64-bit word in shared memory (a
-//     segment has at most 4,096 rows on the path; the int16 outputs cap
-//     it at 32,767).
+//     255 rows into 16-bit fields of a 64-bit word in shared memory;
+//     deep_unit counts in 16-bit fields of a register directly. A 16-bit
+//     field holds 65,535 rows and the int16 depth / errors outputs
+//     32,767; a segment has at most 16,384 rows on the path (the deep
+//     route's DEEP_TEMPLATE_CAP, pipeline/calling.py), and the ring,
+//     whose stages hold whole rows, does not depend on the segment's
+//     length.
 //   * The finalize (tie-band argmax, 5-comparator ascending posterior,
 //     two trials with the pre-UMI rate, Phred round) runs in registers and
 //     each output is written once; a cell with depth 0 skips it (the
@@ -81,6 +88,12 @@
 // mbarrier that outlasts 2 s traps: a lost copy fails the launch instead
 // of hanging the card.
 //
+// Built with -DBSSEQ_VOTE_BOUNDS_CHECK (ops/cuda_vote.py's bounds-checked
+// debug build, its own library), every row range, segment, offset, shared
+// memory stage, output cell and TMA address is checked against its tensor
+// and the kernel traps on the first one outside; the release build
+// compiles the checks to nothing.
+//
 // Design of bsseq_vote_finalize: one column per thread, one 128-thread
 // block per 128 columns (one float4 of ll and one depth in, two 1-byte
 // stores out; neighbouring threads take neighbouring columns, so every
@@ -93,6 +106,15 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef BSSEQ_VOTE_BOUNDS_CHECK
+#define BOUNDS(cond)         \
+  do {                       \
+    if (!(cond)) __trap();   \
+  } while (0)
+#else
+#define BOUNDS(cond) ((void)0)
+#endif
 
 namespace {
 
@@ -223,6 +245,7 @@ __device__ __forceinline__ int finalize(const float ll[4], int depth,
 
 // The launch's geometry, fixed by (S, P, W) on the host.
 struct Geo {
+  int N;       // rows of the bases / quals tensors
   int S;       // segments
   int R;       // cells per row (P * W)
   int tiles;   // column tiles per row (1: the tile is the whole row)
@@ -260,6 +283,9 @@ __device__ __forceinline__ Unit unit_at(const Geo& g,
   un.rb = offsets[un.sb];
   un.k = kStageCells / un.tw;
   un.chunks = (un.rb - un.ra + un.k - 1) / un.k;
+  BOUNDS(0 <= un.sa && un.sa < un.sb && un.sb <= g.S);
+  BOUNDS(0 <= un.ra && un.ra <= un.rb && un.rb <= g.N);
+  BOUNDS(un.c0 >= 0 && un.tw > 0 && un.c0 + un.tw <= g.R && un.k >= 1);
   return un;
 }
 
@@ -296,14 +322,21 @@ __device__ __forceinline__ void fill_slot(Cursor& c, const Geo& g,
   uint64_t* bar = full + slot;
   const int r0 = un.ra + c.k * un.k;
   const int nr = min(un.k, un.rb - r0);
+  BOUNDS(nr >= 1 && r0 >= un.ra && r0 + nr <= un.rb && nr * un.tw <= kStageCells);
+  BOUNDS(slot >= 0 && slot < kStages);
   mbar_expect_tx(bar, (uint32_t)(nr * un.tw * 3));
   if (g.tiles == 1) {
     const size_t cell = (size_t)r0 * g.R;
+    BOUNDS(cell + (size_t)nr * g.R <= (size_t)g.N * g.R);
+    BOUNDS(((uintptr_t)(bases + cell) & 15) == 0 && ((uintptr_t)(quals + cell) & 15) == 0);
+    BOUNDS((nr * g.R) % 16 == 0 && (smem_addr(sb) & 15) == 0 && (smem_addr(sq) & 15) == 0);
     bulk_load(sb, bases + cell, (uint32_t)(nr * g.R), bar);
     bulk_load(sq, quals + cell, (uint32_t)(2 * nr * g.R), bar);
   } else {
     for (int i = 0; i < nr; ++i) {
       const size_t cell = (size_t)(r0 + i) * g.R + un.c0;
+      BOUNDS(cell + un.tw <= (size_t)g.N * g.R && un.tw % 16 == 0);
+      BOUNDS(((uintptr_t)(bases + cell) & 15) == 0 && ((uintptr_t)(quals + cell) & 15) == 0);
       bulk_load(sb + i * un.tw, bases + cell, (uint32_t)un.tw, bar);
       bulk_load(sq + i * un.tw, quals + cell, (uint32_t)(2 * un.tw), bar);
     }
@@ -347,6 +380,7 @@ __device__ __forceinline__ void add_row(uint2 bw, uint4 qw, int min_in,
 
 // What every unit writes to, and the vote's scalar parameters.
 struct Out {
+  size_t cells;  // S * R: the output planes' length in cells
   int8_t* base;
   uint8_t* qual;
   int16_t* depth;
@@ -365,6 +399,7 @@ __device__ __forceinline__ void store_cells(const Out& out, size_t o,
                                             const float (*ll)[4],
                                             const unsigned long long* cnt) {
   static_assert(C == 8 || C == 2, "8 cells (the groups) or 2 (deep units)");
+  BOUNDS(o + C <= out.cells && o % C == 0);
   uint32_t bo[(C + 3) / 4] = {}, qo[(C + 3) / 4] = {};
   uint32_t dp[C / 2] = {}, ep[C / 2] = {};
 #pragma unroll
@@ -427,15 +462,19 @@ __device__ __noinline__ void deep_unit(const Unit& un, const Geo& g,
     const int16_t* sq = reinterpret_cast<const int16_t*>(sb + kStageCells);
     const int r0 = un.ra + k * un.k;
     const int r1 = min(r0 + un.k, un.rb);
+    BOUNDS(slot >= 0 && slot < kStages && r0 < r1 && (r1 - r0) * g.R <= kStageCells);
     for (int r = r0; r < r1;) {
       while (r >= end) {  // segment s is done
+        BOUNDS(s < un.sb && offsets[s] <= offsets[s + 1]);
         if (active) store_cells<2, 1>(out, (size_t)s * g.R + cell, ll, cnt);
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           ll[c][0] = ll[c][1] = ll[c][2] = ll[c][3] = 0.0f;
           cnt[c] = 0ull;
         }
-        end = offsets[++s + 1];
+        ++s;
+        BOUNDS(s < un.sb);
+        end = offsets[s + 1];
       }
       const int stop = min(r1, end);  // rows of segment s in this chunk
       if (!active) {
@@ -445,6 +484,7 @@ __device__ __noinline__ void deep_unit(const Unit& un, const Geo& g,
 #pragma unroll 8
       for (; r < stop; ++r) {  // unrolled: the rows' loads overlap
         const int at = (r - r0) * g.R + cell;
+        BOUNDS(at >= 0 && at + 2 <= (r1 - r0) * g.R);
         const uint32_t bw = *reinterpret_cast<const uint16_t*>(sb + at);
         const uint32_t qw = *reinterpret_cast<const uint32_t*>(sq + at);
 #pragma unroll
@@ -548,7 +588,7 @@ seg_vote_kernel(const int8_t* __restrict__ bases,
   const int j = tid / g.groups;                    // segment within the unit
   const int cell = (tid - j * g.groups) * kCells;  // first cell in the tile
   int consumed = 0;
-  const Out out = {base_out, qual_out, depth_out, err_out, ll_out,
+  const Out out = {(size_t)g.S * g.R, base_out, qual_out, depth_out, err_out, ll_out,
                    min_in, min_cons, p2};
   for (int u = blockIdx.x; u < g.units; u += gridDim.x) {
     const Unit un = unit_at(g, offsets, u);
@@ -563,6 +603,7 @@ seg_vote_kernel(const int8_t* __restrict__ bases,
     if (active) {
       rs = offsets[s];
       re = offsets[s + 1];
+      BOUNDS(un.ra <= rs && rs <= re && re <= un.rb);
     }
     float ll[kCells][4];
     // per-base counts per cell: four 8-bit fields taken every row, moved
@@ -584,6 +625,7 @@ seg_vote_kernel(const int8_t* __restrict__ bases,
       const int hi = min(re, r0 + un.k);
       for (int r = max(rs, r0); r < hi; ++r) {
         const int at = (r - r0) * un.tw + cell;
+        BOUNDS(r - r0 < un.k && at >= 0 && at + kCells <= kStageCells);
         const uint2 bw = *reinterpret_cast<const uint2*>(sb + at);
         if (bw.x == kAllN && bw.y == kAllN) continue;  // 8 uncovered cells
         add_row(bw, *reinterpret_cast<const uint4*>(sq + at), min_in, terms, ll, cnt8);
@@ -648,18 +690,21 @@ int seg_vote_slots[64];
 // `stream` and returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int bsseq_seg_vote(const int8_t* bases, const int16_t* quals,
                               const int32_t* offsets, const float* table,
-                              int S, int P, int W, int min_in, float min_cons,
+                              int N, int S, int P, int W, int min_in, float min_cons,
                               float p2, int8_t* base_out, uint8_t* qual_out,
                               int16_t* depth_out, int16_t* err_out,
                               float* ll_out, void* stream) {
   Geo g;
+  g.N = N;
   g.S = S;
   g.R = P * W;
   if (g.R <= kTileMax) {
     g.tiles = 1;
     g.tile = g.R;
     g.groups = g.R / kCells;
-    g.segs = kThreads / g.groups;
+    // segments deeper than kDeepRows on average (the deep route's padded
+    // dispatches): one segment per unit, so each family takes its own block
+    g.segs = N > (long long)S * kDeepRows ? 1 : kThreads / g.groups;
     g.units = (S + g.segs - 1) / g.segs;
   } else {
     g.tiles = (g.R + kTileMax - 1) / kTileMax;

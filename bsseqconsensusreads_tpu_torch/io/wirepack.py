@@ -2,16 +2,16 @@
 
 The port of the JAX package's io/wirepack.py: the batch record emit, the
 in-RAM raw-record sort of one spill run, the molecular cB histogram, the
-duplex rawize and strand-call sweeps, and the wire transport's duplex
-and packed-rows input packs. Each is byte-identical to the numpy twin
-that stays beside it (pipeline.calling, ops.hosttwin, models.molecular,
-ops.wire). The library builds at first use (io._nativelib); a failed
-build or load raises NativeLibraryError.
+duplex rawize and strand-call sweeps, the wire transport's duplex
+and packed-rows input packs, and the methylation tally merge. Each is
+byte-identical to the numpy twin that stays beside it (pipeline.calling,
+ops.hosttwin, models.molecular, ops.wire, methyl.tally). The library
+builds at first use (io._nativelib); a failed build or load raises
+NativeLibraryError.
 
-The b0 output unpack, the one-pass duplex retire, the bucket split and
-the methylation tally merge of the same source are not bound: the
-port's wire returns the full output planes, and the bucket engine and
-methylation come with later slices.
+The b0 output unpack, the one-pass duplex retire and the bucket split of
+the same source are not bound: the port's wire returns the full output
+planes, and the bucket engine comes with a later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ REQUIRED_SYMBOLS = (
     "wirepack_bcount_sparse",
     "wirepack_pack_duplex",
     "wirepack_pack_rows",
+    "wirepack_methyl_tally_merge",
 )
 
 # Error codes from csrc/host/wirepack.cpp.
@@ -75,6 +76,8 @@ def lib() -> C.CDLL:
     )
     lib.wirepack_pack_rows.restype = C.c_int
     lib.wirepack_pack_rows.argtypes = [vp, vp, C.c_int64, C.c_int64, C.c_int] + [vp] * 4
+    lib.wirepack_methyl_tally_merge.restype = C.c_int64
+    lib.wirepack_methyl_tally_merge.argtypes = [vp] * 4 + [C.c_int64] + [vp] * 4
     _LIB = lib
     return lib
 
@@ -355,3 +358,20 @@ def pack_rows(bases, quals, qual_mode):
     nib[cells // 2:] = 0
     return nib.view(np.uint32), qual[: qual_len.value].view(np.uint32).copy(), _BITS_MODE[bits]
 
+
+
+def methyl_tally_merge(sites, ctx, meth, unmeth):
+    """The C merge of methylation site tallies: sorted unique sites with
+    summed counts (methyl.tally.merge_tallies holds the numpy twin)."""
+    L = lib()
+    sites = _c(sites, np.int64)
+    ctx = _c(ctx, np.uint8)
+    meth = _c(meth, np.uint32)
+    unmeth = _c(unmeth, np.uint32)
+    n = sites.size
+    out = (np.empty(n, np.int64), np.empty(n, np.uint8),
+           np.empty(n, np.uint32), np.empty(n, np.uint32))
+    m = L.wirepack_methyl_tally_merge(
+        _p(sites), _p(ctx), _p(meth), _p(unmeth), n, *(_p(a) for a in out)
+    )
+    return tuple(a[:m].copy() for a in out)

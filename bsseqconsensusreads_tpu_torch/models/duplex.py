@@ -19,7 +19,10 @@ Two device routes share that merge and its output wire (b0 + qual
 planes, pack_duplex_outputs): the unpacked route
 (duplex_call_pipeline_packed: the batch's tensors in) and the wire route
 (duplex_call_wire_fused: one packed input wire whose reference windows
-are gathered from the device-resident genome).
+are gathered from the device-resident genome). Each has a methyl variant
+(duplex_call_pipeline_packed_methyl, duplex_call_wire_fused_methyl) that
+runs the methylation epilogue (methyl.context) on the same batch, on the
+raw pre-conversion planes and the vote's base plane.
 """
 
 from __future__ import annotations
@@ -39,8 +42,12 @@ from bsseqconsensusreads_tpu_torch.ops.extend import (
     ROW_163,
     extend_gap,
 )
-from bsseqconsensusreads_tpu_torch.ops.refstore import gather_windows
-from bsseqconsensusreads_tpu_torch.ops.wire import split_duplex_wire, unpack_duplex_inputs
+from bsseqconsensusreads_tpu_torch.ops.refstore import gather_windows, gather_windows_ext
+from bsseqconsensusreads_tpu_torch.ops.wire import (
+    split_duplex_wire,
+    unpack_duplex_inputs,
+    wire_section_sizes,
+)
 
 # (rows merged, A-strand row, B-strand row) for duplex R1 and R2.
 R1_ROWS = (ROW_99, ROW_163)
@@ -200,3 +207,72 @@ def duplex_call_wire_fused(
     return pack_duplex_outputs(duplex_call_pipeline(
         bases, quals, cover, ref, convert_mask, eligible, params=params,
     ))
+
+
+# ---- methylation epilogue variants (methyl/context.py) -------------------
+#
+# Each mirrors its plain counterpart with the methylation epilogue run on
+# the same batch: it reads the RAW pre-conversion planes (ops.convert
+# erases the bottom-strand signal) and the vote's base plane, and adds two
+# u8 planes per family to the output.
+
+
+def duplex_call_pipeline_packed_methyl(
+    bases, quals, cover, ref, convert_mask, extend_eligible, ref_ext,
+    params: ConsensusParams = ConsensusParams(min_reads=0),
+):
+    """duplex_call_pipeline_packed + the methyl epilogue.
+
+    ref_ext int8 [F, W + 4]: the bounded extension windows (gathered on
+    the host on this route: ops.refstore.RefStore.host_windows_ext).
+    Returns (packed, la, rd, planes u8 [F, 2, W])."""
+    from bsseqconsensusreads_tpu_torch.methyl.context import methyl_epilogue
+
+    out = duplex_call_pipeline(
+        bases, quals, cover, ref, convert_mask, extend_eligible, params=params,
+    )
+    planes = methyl_epilogue(
+        bases, quals, cover, convert_mask, out["base"], ref_ext,
+        params.min_input_base_quality,
+    )
+    return pack_duplex_outputs(out), out["la"], out["rd"], planes
+
+
+def duplex_call_wire_fused_methyl(
+    words, genome, f: int, w: int,
+    params: ConsensusParams = ConsensusParams(min_reads=0),
+    qual_mode: str = "q8",
+    r: int = 4,
+) -> torch.Tensor:
+    """duplex_call_wire_fused + the methyl epilogue, one wire each way.
+
+    Input wire (its bytes on the device) = DuplexWire.to_words() ++ los
+    u32 [f], each family's contig origin (gather_windows_ext's lower
+    bound), appended at the END so the five-section prefix parses as it
+    is. Output = pack_duplex_outputs' full planes (f * 4 * w bytes) ++ the
+    methyl planes' bytes (methyl_wire_words, f * 2 * w bytes): the host
+    unpacks the prefix with unpack_duplex_outputs and peels the planes off
+    the tail (methyl.context.unpack_methyl_planes)."""
+    from bsseqconsensusreads_tpu_torch.methyl.context import (
+        methyl_epilogue,
+        methyl_wire_words,
+    )
+
+    if r != 4:
+        raise ValueError(f"duplex windows have 4 rows (flags 99/163/83/147); got r={r}")
+    base_bytes = 4 * sum(wire_section_sizes(f, w, r, qual_mode))
+    nib, qual, meta, starts, limits = split_duplex_wire(words, f, w, r=r, qual_mode=qual_mode)
+    los = words[base_bytes: base_bytes + 4 * f]
+    bases, quals, cover, convert_mask, eligible = unpack_duplex_inputs(
+        nib, qual, meta, f, w, qual_mode=qual_mode
+    )
+    ref = gather_windows(genome, starts, limits, w + 1)
+    ref_ext = gather_windows_ext(genome, starts, los, limits, w + 4)
+    out = duplex_call_pipeline(
+        bases, quals, cover, ref, convert_mask, eligible, params=params,
+    )
+    planes = methyl_epilogue(
+        bases, quals, cover, convert_mask, out["base"], ref_ext,
+        params.min_input_base_quality,
+    )
+    return torch.cat([pack_duplex_outputs(out), methyl_wire_words(planes).view(torch.uint8)])

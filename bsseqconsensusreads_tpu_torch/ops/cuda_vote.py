@@ -38,8 +38,14 @@ Numbers: the plain versions are bit-equal to the JAX package's XLA legs
 on the CPU (tests/test_torch_vote.py). On the card the log-likelihood
 sums are bit-identical to the plain version by construction (same table
 bits, same add order, -fmad=false); base, depth and errors agree outside
-the tie band, and a qual may differ by 1 where the card's expf/logf move
-a value across a .5 rounding edge.
+the tie band, and chip_smoke.py requires every qual equal too (every run
+on the card has logged 0 differing quals).
+
+A bounds-checked debug build of the same source
+(use_bounds_checked_build(True): -DBSSEQ_VOTE_BOUNDS_CHECK -lineinfo,
+into build/torch_kernels/libbsseq_vote_debug.so) traps on any row,
+offset, segment, shared-memory stage, output cell or TMA address outside
+its tensor; the release build compiles those checks to nothing.
 """
 
 from __future__ import annotations
@@ -61,10 +67,13 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "vote.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIBRARY = BUILD_DIR / "libbsseq_vote.so"
+DEBUG_LIBRARY = BUILD_DIR / "libbsseq_vote_debug.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
+#: the bounds-checked debug build's extra flags
+DEBUG_FLAGS = ("-DBSSEQ_VOTE_BOUNDS_CHECK", "-lineinfo")
 
 #: launches of each kernel — one added where the wrapper launches, nowhere
 #: else; callers reset entries to 0 around the run they measure
@@ -72,7 +81,8 @@ LAUNCHES = {"seg_vote": 0, "vote_finalize": 0}
 #: seg_vote launches by (N, P, W, S) — counted with LAUNCHES, reset with it
 SEG_VOTE_SHAPES: collections.Counter = collections.Counter()
 
-_lib = None
+_libs: dict = {}
+_debug = False
 
 
 def _nvcc() -> str:
@@ -85,17 +95,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the vote kernels build on a machine with the CUDA toolkit")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/vote.cu into LIBRARY unless a build of the same source
-    and flags is already there. Returns the library path."""
+def build(verbose: bool = False, debug: bool = False) -> Path:
+    """Compile csrc/vote.cu into LIBRARY (DEBUG_LIBRARY with DEBUG_FLAGS
+    when `debug`) unless a build of the same source and flags is already
+    there. Returns the library path."""
+    library = DEBUG_LIBRARY if debug else LIBRARY
+    flags = NVCC_FLAGS + (DEBUG_FLAGS if debug else ())
     src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    stamp = LIBRARY.with_name(LIBRARY.name + ".sha256")
-    if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
-        return LIBRARY
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+    stamp = library.with_name(library.name + ".sha256")
+    if library.exists() and stamp.exists() and stamp.read_text() == digest:
+        return library
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", str(tmp), str(SOURCE)]
@@ -104,26 +117,33 @@ def build(verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     if verbose and proc.stderr:
         print(proc.stderr, end="")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     stamp.write_text(digest)
-    return LIBRARY
+    return library
+
+
+def use_bounds_checked_build(on: bool) -> None:
+    """Launch the kernels from the bounds-checked debug build (True) or
+    the release build (False, the default) from now on in this process."""
+    global _debug
+    _debug = bool(on)
 
 
 def _load():
-    """The built library with its C signatures declared (pointers and the
-    stream as c_void_p), loaded once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+    """The selected build with its C signatures declared (pointers and the
+    stream as c_void_p), loaded once per process and build."""
+    lib = _libs.get(_debug)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(debug=_debug)))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsseq_seg_vote.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp,
         ]
         lib.bsseq_seg_vote.restype = ci
         lib.bsseq_vote_finalize.argtypes = [vp, vp, ci, cf, cf, vp, vp, vp]
         lib.bsseq_vote_finalize.restype = ci
-        _lib = lib
-    return _lib
+        _libs[_debug] = lib
+    return lib
 
 
 def _check_cuda(*tensors) -> None:
@@ -188,7 +208,7 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
         return out
     rc = _load().bsseq_seg_vote(
         bases.data_ptr(), quals.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-        s, p, w, int(params.min_input_base_quality),
+        n, s, p, w, int(params.min_input_base_quality),
         float(params.min_consensus_base_quality),
         phred.pre_umi_prob(params.error_rate_pre_umi),
         out["base"].data_ptr(), out["qual"].data_ptr(),

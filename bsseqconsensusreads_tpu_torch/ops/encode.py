@@ -199,10 +199,10 @@ def bucket_window(w: int) -> int:
     return max(WINDOW_GRAN, _round_up(w, WINDOW_GRAN))
 
 
-#: Families deeper than this are skipped AND reported (never silent):
-#: keeps counts inside the int16 output dtypes (narrow_outputs) with a
-#: wide margin. The JAX package routes them to its deep-family path, a
-#: later slice of the port.
+#: Default template cap of one encode: deeper families are routed to the
+#: deep-family path (pipeline.calling._split_deep, up to
+#: DEEP_TEMPLATE_CAP) or, past a cap given here, skipped AND reported
+#: (never silent).
 MAX_TEMPLATES = 4096
 
 #: band half-width of the JAX package's indel_policy='align'; the C encode

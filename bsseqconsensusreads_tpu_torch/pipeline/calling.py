@@ -47,12 +47,23 @@ rawize and strand-call sweeps, and on the wire the C packs —
 io.wirepack) or 'python' (BamRecord objects and the numpy twins). Both
 engines write the same bytes.
 
+Deep families (more kept templates than deep_threshold, default
+MAX_TEMPLATES) take the JAX package's single-device deep route: padded
+dispatches bucketed by template count (_split_deep, _bucket_deep), up to
+DEEP_TEMPLATE_CAP templates; only families beyond the cap are skipped
+and counted ('deep_skipped_families').
+
+With methyl (a methyl.tally.MethylAccumulator), call_duplex_batches also
+computes the methylation planes of every batch (methyl.context): on the
+batch's device inside the duplex dispatch (on the wire its output wire
+carries them after the duplex planes) or with the numpy twin on the host
+(methyl_engine 'host'), and adds their tallies to the accumulator in
+retire.
+
 Left for later slices of the port (each raises or is absent here): mesh
-sharding with its round-robin wire and the deep-family route (families
-above MAX_TEMPLATES templates are skipped and counted in
-StageStats.skipped_families and the 'deep_skipped_families' counter), the
-overlap and host pools, retry/degrade and failpoints, methylation with
-its wire variants, and duplex passthrough of leftover records.
+sharding with its round-robin wire and the deep route's template-axis
+split over devices, the overlap and host pools, retry/degrade and
+failpoints, and duplex passthrough of leftover records.
 """
 
 from __future__ import annotations
@@ -84,10 +95,16 @@ from bsseqconsensusreads_tpu_torch.io.bam import (
     BamRecord,
     RawRecords,
 )
+from bsseqconsensusreads_tpu_torch.methyl.context import (
+    methyl_epilogue_host,
+    unpack_methyl_planes,
+)
 from bsseqconsensusreads_tpu_torch.models.duplex import (
     ROLE_STRAND_ROWS,
     duplex_call_pipeline_packed,
+    duplex_call_pipeline_packed_methyl,
     duplex_call_wire_fused,
+    duplex_call_wire_fused_methyl,
     unpack_duplex_outputs,
 )
 from bsseqconsensusreads_tpu_torch.models.molecular import (
@@ -124,6 +141,11 @@ from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
 
 _COMPLEMENT = str.maketrans("ACGTNacgtn", "TGCANtgcan")
+
+#: Ceiling of the deep-family route: keeps per-column depth inside the
+#: int16 output dtypes (models.molecular.narrow_outputs) with margin.
+#: Families beyond it are skipped AND counted ('deep_skipped_families').
+DEEP_TEMPLATE_CAP = 16_384
 
 
 def _revcomp(seq: str) -> str:
@@ -335,21 +357,24 @@ def _group_batches(groups, size: int):
         yield buf
 
 
-def _kept_template_count(records) -> int:
-    """Distinct qnames among records the encoder keeps (hardclipped and
-    indel reads never encode)."""
-    drop_ops = (CINS, CDEL, CHARD_CLIP)
+def _kept_template_count(records, indel_policy: str = "drop") -> int:
+    """Distinct qnames among records the encoder keeps: hardclipped reads
+    never encode, indel reads do not under indel_policy 'drop' — the
+    template-depth estimate shared by the deep-family splitter and the
+    bucketed batcher, so both agree with what encode materializes."""
+    drop_indels = indel_policy == "drop"
+    drop_ops = (CINS, CDEL, CHARD_CLIP) if drop_indels else (CHARD_CLIP,)
 
     def kept(r) -> bool:
         info = getattr(r, "clip_info", None)
         if info is not None:  # columnar view: the C CIGAR digest
-            return not (info[2] or info[3])
+            return not (info[3] or (drop_indels and info[2]))
         return not any(op in drop_ops for op, _ in r.cigar)
 
     return len({r.qname for r in records if kept(r)})
 
 
-def _group_batches_bucketed(groups, size: int):
+def _group_batches_bucketed(groups, size: int, indel_policy: str = "drop"):
     """Depth-homogeneous chunking for the molecular stage: families
     accumulate per template bucket (ops.encode.bucket_templates of the
     kept-qname count) and a chunk is emitted when its bucket fills (at
@@ -360,11 +385,11 @@ def _group_batches_bucketed(groups, size: int):
     counts: dict[int, int] = {}
     max_records = size * 8
     for g in groups:
-        if scan_matches(g, "drop"):  # the C scan counted the templates
+        if scan_matches(g, indel_policy):  # the C scan counted the templates
             n_tpl, n_rec = g.ntpl_est, g.n
         else:
             _, records = g
-            n_tpl, n_rec = _kept_template_count(records), len(records)
+            n_tpl, n_rec = _kept_template_count(records, indel_policy), len(records)
         b = bucket_templates(n_tpl)
         lst = pending.setdefault(b, [])
         lst.append(g)
@@ -376,20 +401,52 @@ def _group_batches_bucketed(groups, size: int):
         yield pending[b]
 
 
-def _split_deep(chunk, threshold: int):
-    """(normal, deep) families: deep ones have more than `threshold` kept
-    templates. Families with <= threshold records skip the CIGAR scan."""
+def _split_deep(chunk, threshold: int, indel_policy: str = "drop"):
+    """Partition groups by encodable template count: families whose count
+    exceeds `threshold` go to the deep-family route (_bucket_deep, the
+    padded vote) instead of being skipped at encode's max_templates cap.
+
+    Counts distinct qnames of the records the encoder keeps
+    (_kept_template_count), so a family padded with droppable reads is not
+    misrouted. Families with <= threshold records skip the CIGAR scan (the
+    count cannot exceed the record count); families carrying the C encode
+    scan skip the record walk altogether. Deep entries carry the count:
+    (group, depth)."""
     normal, deep = [], []
     for g in chunk:
-        if scan_matches(g, "drop"):  # the C scan counted the templates
-            (deep if g.ntpl_est > threshold else normal).append(g)
+        if scan_matches(g, indel_policy):  # the C scan counted the templates
+            if g.ntpl_est <= threshold:
+                normal.append(g)
+            else:
+                deep.append((g, g.ntpl_est))
             continue
         _, records = g
-        if len(records) > threshold and _kept_template_count(records) > threshold:
-            deep.append(g)
+        if len(records) <= threshold:
+            normal.append(g)
+            continue
+        n = _kept_template_count(records, indel_policy)
+        if n > threshold:
+            deep.append((g, n))
         else:
             normal.append(g)
     return normal, deep
+
+
+def _bucket_deep(deep):
+    """Group deep families into shared padded dispatches by template
+    bucket (ops.encode.bucket_templates): families of one bucket vote as
+    one [K, T, 2, W] batch, families of very different depth never pad
+    each other. Each dispatch holds at most DEEP_TEMPLATE_CAP padded
+    templates (K * T), so a deep-heavy chunk never builds an unbounded
+    batch. Buckets yield in first-appearance order; families keep input
+    order within a bucket."""
+    buckets: dict[int, list] = {}
+    for g, depth in deep:
+        buckets.setdefault(bucket_templates(depth), []).append(g)
+    for bucket, group in buckets.items():
+        max_k = max(1, DEEP_TEMPLATE_CAP // bucket)
+        for i in range(0, len(group), max_k):
+            yield group[i:i + max_k]
 
 
 def _pipelined(events):
@@ -779,6 +836,7 @@ def call_molecular_batches(
     indel_policy: str = "drop",
     transport: str = "auto",
     base_counts: bool = True,
+    deep_threshold: int | None = None,
 ) -> Iterator[list]:
     """Molecular (single-strand) consensus over MI families, one list of
     consensus records per batch — the checkpoint/resume granularity
@@ -815,9 +873,21 @@ def call_molecular_batches(
     batches count as 'route_batches_wire' or 'route_batches_single'.
     indel_policy: see check_route. device: 'cuda' (default) or 'cpu'; no
     silent fallback.
+
+    Families deeper than deep_threshold kept templates (default: encode's
+    MAX_TEMPLATES) take the deep-family route, as in the JAX package on one
+    device: bucketed by template count (_bucket_deep), encoded with
+    max_templates DEEP_TEMPLATE_CAP and voted as padded [K, T, 2, W]
+    dispatches (models.molecular.molecular_consensus: seg_vote over
+    offsets k * T), their records emitted after their chunk's normal
+    batch. 'deep_routed_families' counts them; only families beyond
+    DEEP_TEMPLATE_CAP are skipped, counted in skipped_families and
+    'deep_skipped_families'.
     """
     device = resolve_device(device)
     check_route(transport, indel_policy)
+    if deep_threshold is None:
+        deep_threshold = MAX_TEMPLATES
     use_wire = _resolve_transport(transport, device) == "wire"
     if layout not in ("packed", "padded"):
         raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
@@ -833,7 +903,7 @@ def call_molecular_batches(
         stream_mi_groups(records, grouping=grouping, stats=stats), stats.metrics
     )
     if batching == "bucketed":
-        chunks = _group_batches_bucketed(groups, batch_families)
+        chunks = _group_batches_bucketed(groups, batch_families, indel_policy)
     elif batching == "sequential":
         chunks = _group_batches(groups, batch_families)
     else:
@@ -891,37 +961,71 @@ def call_molecular_batches(
             pf = batch.bases.shape[0]
         return _Inflight(pack_molecular_outputs(out)), pf
 
-    def emit_out(out, batch):
+    def emit_out(out, batch, deep_emitted=()):
         with stats.metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, stats)
-        return [recs] if isinstance(recs, RawRecords) else recs
+        recs = [recs] if isinstance(recs, RawRecords) else recs
+        return recs + list(deep_emitted)
 
-    def retire(inflight, pf, batch):
+    def retire(inflight, pf, batch, deep_emitted):
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
         host = inflight.fetch(metrics)
         with metrics.timed("fetch"):
             out = unpack_molecular_outputs(host, f=pf, w=w)
-        return emit_out({k: v[:f] for k, v in out.items()}, batch)
+        return emit_out({k: v[:f] for k, v in out.items()}, batch, deep_emitted)
+
+    def deep_records(deep) -> list:
+        """Vote and emit one chunk's deep families: one padded dispatch
+        per _bucket_deep group, retired at once (deep families are rare)."""
+        emitted: list = []
+        n_over = sum(1 for _g, depth in deep if depth > DEEP_TEMPLATE_CAP)
+        stats.metrics.count("deep_routed_families", len(deep))
+        stats.metrics.count("deep_skipped_families", n_over)
+        for group in _bucket_deep(deep):
+            with stats.metrics.timed("encode"):
+                dbatch, dskipped = encode_molecular_families(
+                    group, max_window=max_window, max_templates=DEEP_TEMPLATE_CAP
+                )
+            stats.skipped_families += len(dskipped)
+            if not dbatch.meta:
+                continue
+            stats.batches += 1
+            used = int((dbatch.bases != NBASE).sum())
+            stats.pad_cells += dbatch.bases.size - used
+            stats.used_cells += used
+            with stats.metrics.timed("kernel"):
+                out = molecular_consensus(
+                    _to_device(dbatch.bases, device, metrics),
+                    _to_device(dbatch.quals, device, metrics), params,
+                )
+                inflight = _Inflight(pack_molecular_outputs(out))
+            f, w = dbatch.bases.shape[0], dbatch.bases.shape[-1]
+            host = inflight.fetch(metrics)
+            with metrics.timed("fetch"):
+                out = unpack_molecular_outputs(host, f=f, w=w)
+            emitted.extend(emit_out(out, dbatch))
+        return emitted
 
     def events():
         for batch_index, chunk in enumerate(chunks, start=1):
             if batch_index <= skip_batches:
                 # resume replay: skipped batches never encode at all
                 continue
-            normal, deep = _split_deep(chunk, MAX_TEMPLATES)
-            if deep:
-                stats.skipped_families += len(deep)
-                stats.metrics.count("deep_skipped_families", len(deep))
+            normal, deep = _split_deep(chunk, deep_threshold, indel_policy)
             with stats.metrics.timed("encode"):
+                # the cap tracks the routing threshold: a family the
+                # splitter called normal must never hit encode's cap
                 batch, skipped = encode_molecular_families(
-                    normal, max_window=max_window
+                    normal, max_window=max_window,
+                    max_templates=min(deep_threshold, DEEP_TEMPLATE_CAP),
                 )
                 singleton = batch.bases.shape[1] == 1
                 if layout == "packed" and batch.meta and not singleton:
                     batch.packed = pack_molecular_rows(batch)
             stats.skipped_families += len(skipped)
+            deep_emitted = deep_records(deep) if deep else []
             if not batch.meta:
-                yield "now", []
+                yield "now", deep_emitted
                 continue
             stats.batches += 1
             if singleton:
@@ -932,7 +1036,7 @@ def call_molecular_batches(
                         batch.bases, batch.quals, params, device,
                         with_histogram=base_counts and not native_emit,
                     )
-                yield "deferred", partial(emit_out, out, batch)
+                yield "deferred", partial(emit_out, out, batch, deep_emitted)
                 continue
             issued = batch.packed.bases if batch.packed is not None else batch.bases
             used = int((issued != NBASE).sum())
@@ -941,7 +1045,7 @@ def call_molecular_batches(
             metrics.count("route_batches_wire" if use_wire else "route_batches_single")
             with stats.metrics.timed("kernel"):
                 inflight, pf = dispatch(batch)
-            yield "deferred", partial(retire, inflight, pf, batch)
+            yield "deferred", partial(retire, inflight, pf, batch, deep_emitted)
 
     yield from _pipelined(events())
     stats.wall_seconds += time.monotonic() - t0
@@ -1435,6 +1539,8 @@ def call_duplex_batches(
     strand_tags: bool = True,
     chemistry: str = "bisulfite",
     refstore: RefStore | str | None = None,
+    methyl=None,
+    methyl_engine: str = "auto",
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
     group on the device, one list of consensus records per batch (the
@@ -1478,8 +1584,24 @@ def call_duplex_batches(
     chemistry: 'bisulfite' (default) and 'emseq' run the conversion-aware
     engine (identical computation; 'emseq' is provenance). 'none'
     declares an unconverted duplex library: the convert mask is cleared
-    after encode, and pos0='shift' (a conversion-prepend behavior) is
-    refused.
+    after encode, and pos0='shift' (a conversion-prepend behavior) and
+    methylation extraction (it needs a converting chemistry) are refused.
+
+    methyl: a methyl.tally.MethylAccumulator, or None. When set, every
+    device batch also yields per-column methylation planes
+    (methyl.context) and their sparse tallies land in the accumulator,
+    batch index by batch index, in retire — after the rawize, before the
+    emit. methyl_engine: 'auto' and 'device' run the epilogue on the
+    batch's device inside the dispatch (duplex_call_wire_fused_methyl on
+    the wire, whose input appends each family's contig origin and whose
+    output carries the planes after the duplex planes;
+    duplex_call_pipeline_packed_methyl unpacked, whose planes are appended
+    to its output on the device so the fetch stays one copy); 'host' runs
+    the numpy twin (methyl_epilogue_host) on the retired batch — an
+    explicit choice, never a fallback. The extension windows and the
+    tallies' global offsets come from the accumulator's RefStore through
+    the BAM header's names (bind_names); give the same store as
+    `refstore` so the wire gathers from it too. Seconds: 'methyl'.
     """
     device = resolve_device(device)
     use_wire = _resolve_transport(transport, device) == "wire"
@@ -1495,6 +1617,21 @@ def call_duplex_batches(
             "chemistry='none' is incompatible with pos0='shift' (the "
             "shift is a conversion-prepend behavior)"
         )
+    if methyl_engine not in ("auto", "device", "host"):
+        raise ValueError(f"unknown methyl engine {methyl_engine!r} (auto | device | host)")
+    methyl_device = False
+    if methyl is not None:
+        if unconverted:
+            raise ValueError(
+                "methylation extraction needs a converting chemistry "
+                "(bisulfite or emseq), not chemistry='none'"
+            )
+        methyl_store = methyl.refstore
+        methyl_rid_map = methyl_store.contig_indices(ref_names)
+        # the tallies' global offsets take the same name mapping as the
+        # extension windows: one coordinate system
+        methyl.bind_names(ref_names)
+        methyl_device = methyl_engine != "host"
     native_emit = _resolve_emit(emit)
     emit_fn = _emit_duplex_batch_raw if native_emit else _emit_duplex_batch
     stats = stats if stats is not None else StageStats(stage="duplex")
@@ -1517,16 +1654,30 @@ def call_duplex_batches(
 
     metrics = stats.metrics
 
+    def mapped_rids(batch, rmap):
+        """Store contig index per family (-1 when unknown) through `rmap`
+        (a store's contig_indices of the header's names)."""
+        fb = len(batch.meta)
+        rids = np.fromiter((m.ref_id for m in batch.meta), np.int64, fb)
+        valid = (rids >= 0) & (rids < len(rmap))
+        # a plain rmap[rids] would let -1 wrap to the last contig
+        return np.where(valid, rmap[np.where(valid, rids, 0)], -1)
+
+    def window_starts(batch):
+        return np.fromiter((m.window_start for m in batch.meta), np.int64, len(batch.meta))
+
     def wire_window_offsets(batch):
         """(starts, limits) uint32 global genome offsets for one batch,
         computed once in dispatch and reused by the host rawize windows."""
-        fb = len(batch.meta)
-        rids = np.fromiter((m.ref_id for m in batch.meta), np.int64, fb)
-        valid = (rids >= 0) & (rids < len(rid_map))
-        # a plain rid_map[rids] would let -1 wrap to the last contig
-        mapped = np.where(valid, rid_map[np.where(valid, rids, 0)], -1)
-        return refstore.window_offsets(
-            mapped, np.fromiter((m.window_start for m in batch.meta), np.int64, fb)
+        return refstore.window_offsets(mapped_rids(batch, rid_map), window_starts(batch))
+
+    def methyl_ref_ext(batch):
+        """[F, W+4] extension windows from the accumulator's store, on the
+        host: the unpacked dispatch's input and the host twin's."""
+        mapped = mapped_rids(batch, methyl_rid_map)
+        starts, limits = methyl_store.window_offsets(mapped, window_starts(batch))
+        return methyl_store.host_windows_ext(
+            starts, methyl_store.window_origins(mapped), limits, batch.bases.shape[-1] + 4
         )
 
     def host_ref(batch, windows):
@@ -1548,33 +1699,60 @@ def call_duplex_batches(
                 qual_mode="auto", native=native_emit,
             )
             metrics.count(f"wire_qual_{win.qual_mode}")
-            wire = duplex_call_wire_fused(
-                _wire_to_device(win.to_words(), device, metrics),
-                genome, f, w, params=params, qual_mode=win.qual_mode,
-            )
+            words = win.to_words()
+            if methyl_device:
+                # the methyl input appendix: each family's contig origin
+                # (the extension gather's lower bound) after the base wire
+                los = refstore.window_origins(mapped_rids(batch, rid_map))
+                wire = duplex_call_wire_fused_methyl(
+                    _wire_to_device(np.concatenate([words, los]), device, metrics),
+                    genome, f, w, params=params, qual_mode=win.qual_mode,
+                )
+            else:
+                wire = duplex_call_wire_fused(
+                    _wire_to_device(words, device, metrics),
+                    genome, f, w, params=params, qual_mode=win.qual_mode,
+                )
             return _Inflight(wire), windows
-        wire, _la, _rd = duplex_call_pipeline_packed(
-            _to_device(batch.bases, device, metrics),
-            _to_device(batch.quals.astype(np.int16), device, metrics),
-            _to_device(batch.cover, device, metrics),
-            _to_device(batch.ref, device, metrics),
-            _to_device(batch.convert_mask, device, metrics),
-            _to_device(batch.extend_eligible, device, metrics),
-            params=params,
-        )
+        arrays = [
+            _to_device(a, device, metrics) for a in (
+                batch.bases, batch.quals.astype(np.int16), batch.cover, batch.ref,
+                batch.convert_mask, batch.extend_eligible,
+            )
+        ]
+        if methyl_device:
+            wire, _la, _rd, planes = duplex_call_pipeline_packed_methyl(
+                *arrays, _to_device(methyl_ref_ext(batch), device, metrics), params=params,
+            )
+            # the planes ride the same fetch, after the duplex planes
+            wire = torch.cat([wire, planes.reshape(-1)])
+        else:
+            wire, _la, _rd = duplex_call_pipeline_packed(*arrays, params=params)
         return _Inflight(wire), None
 
-    def retire(inflight, windows, batch, sidecar):
+    def retire(inflight, windows, batch, sidecar, bi):
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
         host = inflight.fetch(metrics)
         with metrics.timed("fetch"):
             out = unpack_duplex_outputs(host, f=f, w=w)
+        if methyl is not None:
+            with metrics.timed("methyl"):
+                if methyl_device:  # the planes ride the fetched wire's tail
+                    planes = unpack_methyl_planes(host[f * 4 * w:], f, w)
+                else:
+                    planes = methyl_epilogue_host(
+                        batch.bases, batch.quals, batch.cover, batch.convert_mask,
+                        out["base"], methyl_ref_ext(batch), params.min_input_base_quality,
+                    )
         with metrics.timed("rawize"):
             out = _duplex_rawize(
                 out, batch, sidecar,
                 host_ref(batch, windows) if (strand_tags or sidecar) else None,
                 native=native_emit, strand_tags=strand_tags,
             )
+        if methyl is not None:
+            with metrics.timed("methyl"):
+                methyl.add_planes(bi, planes, batch.meta)
         with metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, stats)
         return [recs] if isinstance(recs, RawRecords) else recs
@@ -1608,7 +1786,7 @@ def call_duplex_batches(
             metrics.count("route_batches_wire" if use_wire else "route_batches_single")
             with stats.metrics.timed("kernel"):
                 inflight, windows = dispatch(batch)
-            yield "deferred", partial(retire, inflight, windows, batch, sidecar)
+            yield "deferred", partial(retire, inflight, windows, batch, sidecar, batch_index)
 
     yield from _pipelined(events())
     stats.wall_seconds += time.monotonic() - t0

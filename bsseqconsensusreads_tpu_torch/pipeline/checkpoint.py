@@ -163,6 +163,13 @@ class BatchCheckpoint:
             self.manifest = _Manifest()
         self.manifest.fingerprint = fingerprint
         self.manifest.input_fingerprint = input_fingerprint
+        #: optional watermark hook, called as on_flush(batches_done) after
+        #: a shard write succeeds and BEFORE the manifest commits: the
+        #: methyl tally accumulator spills at exactly these points, so a
+        #: crash between the two leaves at worst a run the next resume
+        #: drops as above the watermark (its batches replay), never a hole
+        #: and never a double count (methyl.tally.MethylAccumulator)
+        self.on_flush = None
         self._verify_shards()
 
     def _discard(self, reason: str) -> None:
@@ -275,6 +282,8 @@ class BatchCheckpoint:
     def _flush(self, items: list, n_batches: int) -> None:
         path = self._shard_path(len(self.manifest.shards))
         n = self._write_shard(path, items)
+        if self.on_flush is not None:
+            self.on_flush(self.manifest.batches_done + n_batches)
         self.manifest.batches_done += n_batches
         self.manifest.shards.append(os.path.basename(path))
         self.manifest.records += n

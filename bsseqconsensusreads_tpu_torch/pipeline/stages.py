@@ -25,11 +25,18 @@ pin every columnar batch for the whole file). 'native' where the stage
 cannot take it raises, and a native library that does not build raises
 io._nativelib.NativeLibraryError — nothing falls back to Python.
 
+methyl 'bedmethyl' | 'cx' | 'both' runs the methylation epilogue in the
+duplex stage and writes `<target>.bedmethyl` / `<target>.CX_report.txt`
+(or at cfg.methyl_out as the base path) after the stage output; with
+checkpoints the tally spills at the checkpoint's watermarks and resumes
+with it. It refuses chemistry 'none' and single_strand, as the JAX
+package does.
+
 Config keys the port does not honour yet raise a WorkflowError in
 PipelineBuilder.build(), before any stage runs, naming the ROADMAP item
 (queue 1) that brings them: group_umis that would prepend UMI grouping,
-filter, duplex_passthrough and sort_engine 'bucket' (item 8), methyl
-other than 'off' (item 4), indel_policy 'align' (item 7).
+filter, duplex_passthrough and sort_engine 'bucket' (item 8),
+indel_policy 'align' (item 7).
 stream_interstage takes the JAX package's loud fallback to the two-pass
 path: the fused rule needs the bucket engine.
 
@@ -146,6 +153,14 @@ def stage_fingerprint(cfg: FrameworkConfig, stage: str, device_type: str) -> dic
         fingerprint["chemistry"] = cfg.chemistry
         fingerprint["methyl"] = cfg.methyl
     return fingerprint
+
+
+def methyl_paths(choice: str, base: str) -> tuple[str | None, str | None]:
+    """(bedMethyl path, CX report path) of a methyl choice at `base`."""
+    return (
+        base + ".bedmethyl" if choice in ("bedmethyl", "both") else None,
+        base + ".CX_report.txt" if choice in ("cx", "both") else None,
+    )
 
 
 def _not_ported(key: str, item: int, what: str) -> WorkflowError:
@@ -278,6 +293,24 @@ class PipelineBuilder:
             )
             self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
 
+    def _methyl_accumulator(self, rule, stats: StageStats):
+        """The tally sink of the duplex stage's methyl epilogue
+        (methyl.tally): outputs next to the duplex target (or at
+        cfg.methyl_out as the base path), on a RefStore of the run's
+        genome (its read timed as 'genome_load.read') — the store the wire
+        then gathers from too, so the device windows and the tallies'
+        global offsets come from one coordinate system. The merge engine
+        follows cfg.emit."""
+        from bsseqconsensusreads_tpu_torch.methyl.tally import MethylAccumulator
+        from bsseqconsensusreads_tpu_torch.ops.refstore import RefStore
+
+        with stats.metrics.timed("genome_load"), stats.metrics.timed("genome_load.read"):
+            store = RefStore.from_fasta(self.cfg.genome_fasta)
+        return MethylAccumulator(
+            store, *methyl_paths(self.cfg.methyl, self.cfg.methyl_out or rule.outputs[0]),
+            metrics=stats.metrics, engine=self.cfg.emit,
+        )
+
     def run_duplex(self, rule, mode: str) -> None:
         cfg = self.cfg
         stats = self.stats.setdefault("duplex", StageStats(stage="duplex"))
@@ -288,6 +321,18 @@ class PipelineBuilder:
             if mode == "self":  # output leaves coordinate-sorted
                 header = header.with_sort_order("coordinate")
             ck = self._checkpointed("duplex", rule, header)
+            methyl_acc = None
+            # the FASTA path: loaded into a device-resident genome only
+            # when the wire transport engages (call_duplex_batches decides)
+            # — or the methyl accumulator's store when extraction is on
+            store = cfg.genome_fasta
+            if cfg.methyl != "off":
+                methyl_acc = self._methyl_accumulator(rule, stats)
+                store = methyl_acc.refstore
+                if ck is not None:
+                    # spill at the checkpoint's committed watermarks, and
+                    # restore the run chain on resume
+                    methyl_acc.attach_checkpoint(ck)
             batches = call_duplex_batches(
                 duplex_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
                                      grouping=cfg.grouping),
@@ -304,13 +349,14 @@ class PipelineBuilder:
                 emit=cfg.emit,
                 skip_batches=ck.batches_done if ck else 0,
                 transport=cfg.transport,
-                # the FASTA path: loaded into a device-resident genome only
-                # when the wire transport engages (call_duplex_batches decides)
-                refstore=cfg.genome_fasta,
+                refstore=store,
                 strand_tags=cfg.duplex_strand_tags,
                 chemistry=cfg.chemistry,
+                methyl=methyl_acc,
             )
             self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
+            if methyl_acc is not None:
+                methyl_acc.finalize()
 
     def _interstage_blocked(self) -> str:
         """Why the fused molecular->duplex streaming path cannot engage:
@@ -434,8 +480,16 @@ class PipelineBuilder:
             raise WorkflowError(
                 f"unknown methyl mode {cfg.methyl!r} (off | bedmethyl | cx | both)"
             )
-        if cfg.methyl != "off":
-            raise _not_ported(f"methyl: {cfg.methyl}", 4, "methylation")
+        if cfg.methyl != "off" and cfg.chemistry == "none":
+            raise WorkflowError(
+                "methyl extraction needs a converting chemistry "
+                "(bisulfite or emseq), not chemistry 'none'"
+            )
+        if cfg.methyl != "off" and cfg.single_strand:
+            raise WorkflowError(
+                "methyl extraction is a duplex-stage epilogue; "
+                "single_strand stops after the molecular stage"
+            )
         if cfg.filter is not None:
             raise _not_ported("filter", 8, "group_umi, filter and metrics")
         if cfg.duplex_passthrough:

@@ -6,9 +6,12 @@ stages time: ingest, encode, kernel (host-side dispatch: H2D copies and
 launches), device_wait (CUDA event sync — the device still owned the
 batch), fetch (D2H copy + unpack), host_vote (singleton host path),
 rawize (duplex raw units + strand calls), emit, sort_write (the
-output writer's sort, spill, merge and deflate), and genome_load (the
-duplex wire's whole-genome read and upload, once per stage). A dotted name
-('emit.pack', 'sort_write.merge') is a part of the phase before the dot.
+output writer's sort, spill, merge and deflate), genome_load (the duplex
+wire's whole-genome read and upload, or the methyl accumulator's read,
+once per stage), methyl (the methylation planes peeled or computed on
+the host, and their tallies added) and methyl_finalize (the tally merge
+and the bedMethyl / CX writes). A dotted name ('emit.pack',
+'sort_write.merge') is a part of the phase before the dot.
 """
 
 from __future__ import annotations

@@ -215,15 +215,86 @@ def test_padded_molecular_layout_writes_the_same_bytes(mixture_env):
     assert _sha(pmol) == _sha(qmol)
 
 
-def test_families_past_the_template_cap_are_skipped_and_counted(grouped_env, monkeypatch):
-    # the deep-family route is a later slice: over-cap families are
-    # skipped and counted, never dropped silently
-    monkeypatch.setattr(tc, "MAX_TEMPLATES", 2)
-    stats = tc.StageStats()
-    _port_chain(grouped_env, "unaligned", "deep", stats=stats)
-    deep = stats.metrics.counters.get("deep_skipped_families", 0)
-    assert deep > 0 and stats.skipped_families >= deep
-    assert stats.families > 0
+def _molecular_deep(env, tag, deep_threshold, engine=None, mode="self"):
+    """The molecular stage of both packages at a lowered deep_threshold:
+    (JAX BAM, JAX stats, port BAM, port stats). The port runs `engine`'s
+    ingest and emit (None: BamReader records, Python emit)."""
+    jmol = str(env["tmp"] / f"jax_deep_{tag}.bam")
+    jstats = jc.StageStats()
+    with BamReader(env["bam"]) as r:
+        batches = jc.call_molecular_batches(
+            r, JaxParams(min_reads=1), mode=mode, grouping="coordinate", stats=jstats,
+            deep_threshold=deep_threshold, **ROUTE,
+        )
+        je.write_batch_stream(batches, jmol, r.header, mode, sort_engine="python")
+    pmol = str(env["tmp"] / f"port_deep_{tag}.bam")
+    pstats = tc.StageStats()
+    with PortReader(env["bam"]) as r:
+        src = r if engine is None else stages.molecular_ingest_stream(
+            env["bam"], r, pstats, ingest_choice=engine)
+        batches = tc.call_molecular_batches(
+            src, ConsensusParams(min_reads=1), mode=mode, grouping="coordinate",
+            stats=pstats, device="cpu", deep_threshold=deep_threshold,
+            **({} if engine is None else {"emit": engine}),
+        )
+        te.write_batch_stream(batches, pmol, r.header, mode, metrics=pstats.metrics,
+                              **({} if engine is None else {"sort_engine": engine}))
+    return jmol, jstats, pmol, pstats
+
+
+@pytest.mark.parametrize("fixture,threshold", [
+    ("grouped_env", 2), ("grouped_env", 3), ("mixture_env", 1)])
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_deep_families_route_as_the_jax_package_routes_them(fixture, threshold, engine,
+                                                           request):
+    """Families above deep_threshold vote on the padded deep route; the
+    BAM is the JAX package's, and — the deep route being the same vote —
+    the BAM of the default threshold, where no family is deep."""
+    env = request.getfixturevalue(fixture)
+    tag = f"{fixture}_{threshold}_{engine}"
+    jmol, jstats, pmol, pstats = _molecular_deep(env, tag, threshold, engine)
+    routed = pstats.metrics.counters.get("deep_routed_families", 0)
+    assert routed > 0
+    assert routed == jstats.metrics.counters["deep_routed_families"]
+    assert pstats.metrics.counters["deep_skipped_families"] == 0
+    assert pstats.skipped_families == jstats.skipped_families == 0
+    assert pstats.families == jstats.families and pstats.consensus_out > 0
+    assert _sha(pmol) == _sha(jmol)
+    normal, _ = _port_chain(env, "self", f"deep_ref_{tag}", engine=engine)
+    assert _sha(pmol) == _sha(normal)
+
+
+def test_unaligned_deep_records_follow_their_batch_as_in_the_jax_package(grouped_env):
+    # unaligned output is not sorted: the deep records' place in the
+    # stream is the JAX package's (after their chunk's normal batch)
+    jmol, _js, pmol, pstats = _molecular_deep(grouped_env, "unaligned", 2, mode="unaligned")
+    assert pstats.metrics.counters["deep_routed_families"] > 0
+    assert _sha(pmol) == _sha(jmol)
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_families_past_the_deep_cap_are_skipped_and_counted_as_in_the_jax_package(
+        grouped_env, monkeypatch, engine):
+    # the cap lowered on both sides: families deeper than it are skipped
+    # (and counted) by both packages alike; the rest vote on the deep route
+    monkeypatch.setattr(jc, "DEEP_TEMPLATE_CAP", 3)
+    monkeypatch.setattr(tc, "DEEP_TEMPLATE_CAP", 3)
+    jmol, jstats, pmol, pstats = _molecular_deep(grouped_env, f"cap_{engine}", 1, engine)
+    counters = pstats.metrics.counters
+    assert counters["deep_routed_families"] == jstats.metrics.counters["deep_routed_families"]
+    assert 0 < counters["deep_skipped_families"] < counters["deep_routed_families"]
+    assert pstats.skipped_families == jstats.skipped_families == counters["deep_skipped_families"]
+    assert pstats.families == jstats.families
+    assert _sha(pmol) == _sha(jmol)
+
+
+def test_deep_buckets_share_dispatches_up_to_the_cap():
+    deep = [(f"g{i}", d) for i, d in enumerate([4097, 5000, 4500, 16384, 5100, 700, 4200])]
+    groups = list(tc._bucket_deep(deep))
+    # bucket 5120 holds 3 families per dispatch (3 * 5120 <= 16,384), the
+    # cap bucket one, and buckets yield in first-appearance order
+    assert groups == [["g0", "g1", "g2"], ["g4", "g6"], ["g3"], ["g5"]]
+    assert list(tc._bucket_deep(deep)) == list(jc._bucket_deep(deep))
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu(grouped_env):

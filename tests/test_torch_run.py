@@ -417,7 +417,6 @@ def test_config_from_yaml_matches_the_jax_reader(tmp_path, monkeypatch):
 REFUSED = {
     "group_umis_always": ({"group_umis": "always"}, 8),
     "filter": ({"filter": {"min_reads": [1]}}, 8),
-    "methyl": ({"methyl": "bedmethyl"}, 4),
     "duplex_passthrough": ({"duplex_passthrough": True}, 8),
     "sort_engine_bucket": ({"sort_engine": "bucket"}, 8),
     "indel_policy_align": ({"indel_policy": "align"}, 7),

@@ -191,6 +191,27 @@ def test_padded_vote_is_bit_equal_to_the_jax_xla_leg(t):
     _assert_equal(got, want)
 
 
+def test_deep_padded_vote_is_bit_equal_to_the_jax_xla_leg():
+    # the deep route's dispatch shape: 4,097 real templates padded to the
+    # 5,120 bucket, per-column depths far past an 8-bit count
+    rng = np.random.default_rng(77)
+    t, w, real = 5120, 32, 4097
+    truth = rng.integers(0, 4, w).astype(np.int8)
+    bases = np.full((1, t, 2, w), 4, np.int8)
+    quals = np.zeros((1, t, 2, w), np.uint8)
+    obs = np.broadcast_to(truth, (real, 2, w)).copy()
+    flip = rng.random(obs.shape) < 0.1
+    obs[flip] = rng.integers(0, 4, int(flip.sum()))
+    bases[0, :real] = obs
+    quals[0, :real] = rng.choice(RTA3, (real, 2, w))
+    jp, tp = _both()
+    want = jm.molecular_consensus(bases, quals, jp)
+    got = tm.molecular_consensus(torch.from_numpy(bases), torch.from_numpy(quals), tp)
+    _assert_equal(got, want)
+    assert 3000 < got["depth"].max() <= real  # co-calling masks disagreements
+    assert got["depth"].dtype == torch.int16
+
+
 def test_exact_ties_call_the_lowest_base_like_the_jax_leg():
     # two observations per column, different bases, equal quals: an exact
     # log-likelihood tie in every column
