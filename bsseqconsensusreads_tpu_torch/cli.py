@@ -13,6 +13,23 @@ card:
 * sam-to-fastq / zipper / filter-mapped — the standalone record ops the
               bwameth path runs (Picard SamToFastq, fgbio ZipperBams,
               samtools view -F 4)
+* sort      — fgbio SortBam / samtools sort equivalent (external merge,
+              bounded memory): --order coordinate | name |
+              template-coordinate
+* group     — fgbio GroupReadsByUmi equivalent (pipeline.group_umi): RX ->
+              MI with /A|/B duplex suffixes; GroupStats JSON on stderr
+* metrics   — fgbio CollectDuplexSeqMetrics equivalent (pipeline.metrics)
+              over an MI-grouped BAM, read through the native columnar
+              decoder (a failed build raises NativeLibraryError: no Python
+              fallback); JSON on stdout
+* filter-consensus — fgbio FilterConsensusReads equivalent
+              (pipeline.filter); FilterStats JSON on stderr
+
+`run` takes a grouped BAM or a raw aligned one (RX, no MI): with the
+default group_umis 'auto' the latter is grouped first. duplex
+--passthrough writes the stage's leftover records through with the
+reference's convert-stage treatment (Python ingest; refuses --ingest
+native and --chemistry none).
 
 --device cuda|cpu picks where the vote runs (default cuda, or the
 config's `backend` on `run`; with no card the command fails rather than
@@ -159,6 +176,7 @@ def cmd_duplex(args) -> int:
             duplex_ingest_stream(
                 args.input, reader, stats,
                 ingest_choice=args.ingest, grouping=args.grouping,
+                passthrough=args.passthrough,
             ),
             fasta.fetch,
             names,
@@ -176,6 +194,7 @@ def cmd_duplex(args) -> int:
             refstore=store,
             methyl=methyl_acc,
             methyl_engine=args.methyl_engine,
+            passthrough=args.passthrough,
         )
         write_batch_stream(batches, args.output, reader.header, args.mode,
                            metrics=stats.metrics)
@@ -220,6 +239,108 @@ def cmd_run(args) -> int:
         status = "ran" if r.ran else "skip"
         stderr_line(f"[{status}] {r.name} ({r.seconds:.2f}s) {r.reason}")
     print(json.dumps({"target": target, "stats": {k: s.as_dict() for k, s in stats.items()}}))
+    return 0
+
+
+def cmd_sort(args) -> int:
+    """`fgbio SortBam` / `samtools sort` equivalent (main.snake.py:106,152):
+    external-merge sort in bounded memory, order from --order."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+    from bsseqconsensusreads_tpu_torch.pipeline.extsort import sorted_write
+    from bsseqconsensusreads_tpu_torch.pipeline.record_ops import (
+        coordinate_key,
+        name_key,
+        template_coordinate_key,
+    )
+
+    key, so, ss = {
+        "coordinate": (coordinate_key, "coordinate", None),
+        "name": (name_key, "queryname", None),
+        # fgbio SortBam -s TemplateCoordinate declares the sub-sort
+        "template-coordinate": (template_coordinate_key, "unsorted", "template-coordinate"),
+    }[args.order]
+    with BamReader(args.input) as reader:
+        header = reader.header.with_sort_order(so, ss)
+        n = sorted_write(reader, key, args.output, header)
+    print(json.dumps({"records": n, "order": args.order}), file=sys.stderr)
+    return 0
+
+
+def cmd_group(args) -> int:
+    """`fgbio GroupReadsByUmi` equivalent (the step producing the
+    reference's input contract, README.md:51-55): MI molecule ids from RX
+    UMIs, /A|/B duplex strand suffixes under -s paired, bounded memory via
+    two external passes."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader, BamWriter
+    from bsseqconsensusreads_tpu_torch.pipeline.group_umi import (
+        GroupStats,
+        group_reads_by_umi_raw,
+        grouped_header,
+    )
+
+    stats = GroupStats()
+    with BamReader(args.input) as reader:
+        with BamWriter(args.output, grouped_header(reader.header)) as w:
+            w.write_raw_many(
+                group_reads_by_umi_raw(
+                    reader, reader.header,
+                    strategy=args.strategy, edits=args.edits,
+                    raw_tag=args.raw_tag, min_map_q=args.min_map_q,
+                    stats=stats,
+                )
+            )
+    print(json.dumps(stats.as_dict()), file=sys.stderr)
+    return 0
+
+
+def cmd_metrics(args) -> int:
+    """`fgbio CollectDuplexSeqMetrics` equivalent (pipeline.metrics):
+    family-size histograms and duplex yield from an MI-grouped BAM, one
+    streaming pass over the native columnar views (they carry the qname
+    and MI this reads), JSON on stdout. The native library is required:
+    a failed build raises io._nativelib.NativeLibraryError."""
+    from bsseqconsensusreads_tpu_torch.io import native
+    from bsseqconsensusreads_tpu_torch.pipeline import ingest
+    from bsseqconsensusreads_tpu_torch.pipeline.metrics import duplex_seq_metrics
+
+    native.lib()
+    m = duplex_seq_metrics(ingest.columnar_records(args.input))
+    print(json.dumps(m.as_dict(), indent=None if args.compact else 1))
+    return 0
+
+
+def cmd_filter_consensus(args) -> int:
+    """`fgbio FilterConsensusReads` equivalent (pipeline.filter): the
+    filtered variant the reference's dead rule hints at
+    (main.snake.py:70-80) — read-level drops on depth/error rate,
+    per-base masking, template-atomic. Each record is decoded and
+    encoded again before the blob filter, as the JAX package's CLI
+    writes it, so input from any writer leaves with that CLI's bytes."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader, BamWriter, encode_record
+    from bsseqconsensusreads_tpu_torch.pipeline.filter import (
+        FilterParams,
+        FilterStats,
+        filter_consensus_raw,
+        filtered_header,
+        probe_strand_tag_support,
+    )
+
+    params = FilterParams(
+        min_reads=tuple(args.min_reads),
+        max_read_error_rate=args.max_read_error_rate,
+        max_base_error_rate=args.max_base_error_rate,
+        min_base_quality=args.min_base_quality,
+        max_no_call_fraction=args.max_no_call_fraction,
+        min_mean_base_quality=args.min_mean_base_quality,
+        require_single_strand_agreement=args.require_single_strand_agreement,
+    )
+    stats = FilterStats()
+    probe_strand_tag_support(args.input, params)  # fail before any write
+    with BamReader(args.input) as reader:
+        with BamWriter(args.output, filtered_header(reader.header)) as w:
+            blobs = (encode_record(rec) for rec in reader)
+            w.write_raw_many(filter_consensus_raw(blobs, params, stats=stats))
+    print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 
 
@@ -280,7 +401,9 @@ def main(argv: list[str] | None = None) -> int:
 
     p = sub.add_parser("run", help="run the full pipeline for one sample")
     p.add_argument("--config", default="", help="YAML config (reference-compatible; needs PyYAML)")
-    p.add_argument("--bam", required=True, help="GroupReadsByUmi output BAM")
+    p.add_argument("--bam", required=True,
+                   help="GroupReadsByUmi output BAM, or a raw aligned BAM (RX, no MI: "
+                   "grouped first under group_umis 'auto')")
     p.add_argument("--outdir", default="output")
     p.add_argument("--aligner", choices=("self", "bwameth", "none"), default="")
     p.add_argument("--reference", default="", help="genome FASTA (overrides config)")
@@ -303,7 +426,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument(
         "--sort-engine", choices=("auto", "native", "python", "bucket"), default="",
         help="raw coordinate-sort engine for stage outputs (overrides "
-        "config; 'bucket' is not ported yet and is refused)",
+        "config; 'bucket' is not ported yet and is refused, ROADMAP item 5)",
     )
     p.add_argument("--sort-buckets", type=int, default=0,
                    help="bucket count for --sort-engine bucket")
@@ -368,8 +491,70 @@ def main(argv: list[str] | None = None) -> int:
         help="where the epilogue runs: on the vote's device, inside the "
         "dispatch (auto = device), or the numpy twin on the host",
     )
+    p.add_argument(
+        "--passthrough", action="store_true",
+        help="reference-parity emission of off-vocabulary records (the "
+        "convert-stage treatment of tools/1.convert_AG_to_CT.py applied "
+        "to leftovers; default drops them, counted in stats)",
+    )
     _add_params(p, min_reads_default=0)
     p.set_defaults(fn=cmd_duplex)
+
+    p = sub.add_parser("sort", help="SortBam equivalent (external-merge, bounded memory)")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument(
+        "--order", choices=("coordinate", "name", "template-coordinate"),
+        default="coordinate",
+        help="template-coordinate = fgbio SortBam -s TemplateCoordinate "
+        "(main.snake.py:152); name = samtools sort -n",
+    )
+    p.set_defaults(fn=cmd_sort)
+
+    p = sub.add_parser("group", help="GroupReadsByUmi equivalent (RX -> MI, duplex /A|/B)")
+    p.add_argument("-i", "--input", required=True, help="aligned BAM with RX tags")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument(
+        "-s", "--strategy", choices=("identity", "edit", "adjacency", "paired"),
+        default="paired",
+        help="paired = duplex: strand-canonicalized UMI pairs, MI gets "
+        "/A|/B suffixes (the reference's input contract, README.md:51-55)",
+    )
+    p.add_argument("-e", "--edits", type=int, default=1,
+                   help="max UMI mismatches merged within a position group")
+    p.add_argument("-t", "--raw-tag", default="RX")
+    p.add_argument("-m", "--min-map-q", type=int, default=1)
+    p.set_defaults(fn=cmd_group)
+
+    p = sub.add_parser(
+        "metrics", help="CollectDuplexSeqMetrics equivalent (family sizes, duplex yield)"
+    )
+    p.add_argument("-i", "--input", required=True, help="MI-grouped BAM")
+    p.add_argument("--compact", action="store_true", help="one-line JSON")
+    p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser(
+        "filter-consensus",
+        help="FilterConsensusReads equivalent (depth/error filters + masking)",
+    )
+    p.add_argument("-i", "--input", required=True, help="consensus BAM")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument(
+        "-M", "--min-reads", type=int, nargs="+", default=[1],
+        help="M [A B]: total / larger-strand / smaller-strand depth floors",
+    )
+    p.add_argument("-E", "--max-read-error-rate", type=float, default=0.025)
+    p.add_argument("-e", "--max-base-error-rate", type=float, default=0.1)
+    p.add_argument("-N", "--min-base-quality", type=int, default=1)
+    p.add_argument("-n", "--max-no-call-fraction", type=float, default=0.1)
+    p.add_argument("-q", "--min-mean-base-quality", type=float, default=None)
+    p.add_argument(
+        "-s", "--require-single-strand-agreement", action="store_true",
+        help="mask duplex bases where the two single-strand calls "
+        "disagree (consumes the ac/bc tags this framework's duplex "
+        "output carries)",
+    )
+    p.set_defaults(fn=cmd_filter_consensus)
 
     p = sub.add_parser("zipper", help="ZipperBams equivalent (tag graft + coordinate sort)")
     p.add_argument("-i", "--input", required=True, help="aligned BAM")

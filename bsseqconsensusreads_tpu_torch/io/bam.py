@@ -271,6 +271,35 @@ _TAG_NP_DTYPE = {
 }
 
 
+def skip_tag(data: bytes, off: int) -> int:
+    """Offset just past the tag starting at data[off] (key + type char +
+    value) — the tag byte widths for raw no-decode walkers (the MI splice
+    of pipeline.group_umi); _decode_tags consumes the same layout."""
+    tc = chr(data[off + 2])
+    off += 3
+    if tc == "A":
+        return off + 1
+    if tc in _TAG_FMT:
+        return off + struct.calcsize(_TAG_FMT[tc])
+    if tc in ("Z", "H"):
+        return data.index(0, off) + 1
+    if tc == "B":
+        sub = chr(data[off])
+        count = struct.unpack_from("<I", data, off + 1)[0]
+        return off + 5 + count * struct.calcsize(_TAG_FMT[sub])
+    raise BamError(f"unknown tag type {tc!r}")
+
+
+def tag_region_offset(blob: bytes) -> int:
+    """Byte offset of the tag region inside an encoded record blob
+    (including its leading block_size prefix): fixed fields + qname +
+    cigar + 4-bit seq + qual."""
+    l_qname = blob[12]
+    (n_cigar,) = struct.unpack_from("<H", blob, 16)
+    (l_seq,) = struct.unpack_from("<i", blob, 20)
+    return 36 + l_qname + 4 * n_cigar + (l_seq + 1) // 2 + l_seq
+
+
 def _decode_tags(data: bytes, off: int) -> dict[str, tuple[str, Any]]:
     try:
         return _decode_tags_inner(data, off)

@@ -63,7 +63,7 @@ retire.
 Left for later slices of the port (each raises or is absent here): mesh
 sharding with its round-robin wire and the deep route's template-axis
 split over devices, the overlap and host pools, retry/degrade and
-failpoints, and duplex passthrough of leftover records.
+failpoints.
 """
 
 from __future__ import annotations
@@ -136,9 +136,11 @@ from bsseqconsensusreads_tpu_torch.ops.encode import (
     encode_molecular_families,
     pack_molecular_rows,
     scan_matches,
+    trim_softclips,
 )
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
+from bsseqconsensusreads_tpu_torch.utils.oracle import oracle_convert_read
 
 _COMPLEMENT = str.maketrans("ACGTNacgtn", "TGCANtgcan")
 
@@ -1521,6 +1523,60 @@ def _emit_duplex_batch(batch, out, params, mode, stats) -> list[BamRecord]:
     return emitted
 
 
+#: Reference flag vocabulary at the convert stage: pass-through set and
+#: B-strand conversion set (tools/1.convert_AG_to_CT.py:70-73); any other
+#: flag is silently dropped there (:69-186 structure — no else branch).
+_PASS_FLAGS = (0, 99, 147)
+_CONVERT_FLAGS = (1, 83, 163)
+
+
+def _passthrough_records(leftovers, ref_fetch, ref_names,
+                         pos0: str = "skip") -> list[BamRecord]:
+    """Reference-parity emission for records the duplex tensorizer rejected
+    (off-vocabulary flags, duplicate rows, non-4-group members).
+
+    Mirrors what the reference chain would do with them before fgbio:
+    flags {0,99,147} pass through verbatim (tools/1.convert_AG_to_CT.py:
+    70-72); flags {1,83,163} are softclip-trimmed and CT-converted (:73-186,
+    via the scalar oracle transcription, incl. LA/RD tags; CIGAR emitted as
+    one M run of the final length); indel/hardclip conversion candidates
+    and every other flag are dropped (:79-80, no-else). Reads empty after
+    trimming are dropped (they cannot be written as records).
+    """
+    out: list[BamRecord] = []
+    for rec in leftovers:
+        if rec.flag in _PASS_FLAGS:
+            out.append(rec)
+            continue
+        if rec.flag not in _CONVERT_FLAGS:
+            continue
+        if any(op in (CINS, CDEL, CHARD_CLIP) for op, _ in rec.cigar):
+            continue
+        trimmed = trim_softclips(rec)
+        if trimmed is None or len(trimmed[0]) == 0:
+            continue
+        codes, quals, pos = trimmed
+        seq = codes_to_seq(codes)
+        ws = max(pos - 1, 0)
+        window = ref_fetch(ref_names[rec.ref_id], ws, pos + len(seq) + 2) if (
+            0 <= rec.ref_id < len(ref_names)
+        ) else ""
+        cseq, cquals, cpos, la, rd = oracle_convert_read(
+            seq, [int(q) for q in quals], pos - ws, window, pos0=pos0
+        )
+        new = BamRecord(
+            qname=rec.qname, flag=rec.flag, ref_id=rec.ref_id,
+            pos=cpos + ws, mapq=rec.mapq, cigar=[(CMATCH, len(cseq))],
+            next_ref_id=rec.next_ref_id, next_pos=rec.next_pos,
+            tlen=rec.tlen, seq=cseq, qual=bytes(int(q) for q in cquals),
+            tags=dict(rec.tags),
+        )
+        new.tags["LA"] = ("i", la)
+        new.tags["RD"] = ("i", rd)
+        out.append(new)
+    return out
+
+
 def call_duplex_batches(
     records: Iterable[BamRecord],
     ref_fetch,
@@ -1541,6 +1597,7 @@ def call_duplex_batches(
     refstore: RefStore | str | None = None,
     methyl=None,
     methyl_engine: str = "auto",
+    passthrough: bool = False,
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
     group on the device, one list of consensus records per batch (the
@@ -1556,8 +1613,16 @@ def call_duplex_batches(
     Input: the aligned molecular consensus BAM, or call_molecular_batches
     (mode='self') output directly. min_reads=0 emits every group. Records
     that cannot be tensorized (flags outside {99,163,83,147}, duplicate
-    flags, indel reads) are counted as leftovers and dropped (the JAX
-    package's default; its passthrough option is a later slice).
+    flags, indel reads) are counted as leftovers. By default they are
+    dropped (a documented deviation: the reference would pass some of
+    them through to fgbio). passthrough=True restores reference parity:
+    they are written through with the reference's convert-stage treatment
+    (_passthrough_records — pass-through flags verbatim, B-strand flags
+    CT-converted with LA/RD tags, every other flag dropped), as BamRecord
+    objects after the batch's consensus records (after its RawRecords
+    block on the native emit); a batch with no family left carries them
+    alone. Passthrough needs full-tag Python records
+    (pipeline.stages.duplex_ingest_stream) and refuses chemistry 'none'.
 
     pos0: conversion-prepend behavior for reads mapped at reference
     position 0 — 'skip' (default, documented deviation) or 'shift'
@@ -1612,6 +1677,12 @@ def call_duplex_batches(
     if chemistry not in ("bisulfite", "emseq", "none"):
         raise ValueError(f"unknown chemistry {chemistry!r} (bisulfite | emseq | none)")
     unconverted = chemistry == "none"
+    if unconverted and passthrough:
+        raise ValueError(
+            "chemistry='none' is incompatible with passthrough=True: the "
+            "leftover surface re-applies the reference convert-stage "
+            "treatment the chemistry disables"
+        )
     if unconverted and pos0 == "shift":
         raise ValueError(
             "chemistry='none' is incompatible with pos0='shift' (the "
@@ -1730,7 +1801,7 @@ def call_duplex_batches(
             wire, _la, _rd = duplex_call_pipeline_packed(*arrays, params=params)
         return _Inflight(wire), None
 
-    def retire(inflight, windows, batch, sidecar, bi):
+    def retire(inflight, windows, batch, sidecar, bi, passed):
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
         host = inflight.fetch(metrics)
         with metrics.timed("fetch"):
@@ -1755,7 +1826,7 @@ def call_duplex_batches(
                 methyl.add_planes(bi, planes, batch.meta)
         with metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, stats)
-        return [recs] if isinstance(recs, RawRecords) else recs
+        return ([recs] if isinstance(recs, RawRecords) else recs) + passed
 
     def events():
         for batch_index, chunk in enumerate(_group_batches(groups, batch_families), start=1):
@@ -1776,8 +1847,10 @@ def call_duplex_batches(
                 sidecar = _duplex_sidecar(chunk, pos0=pos0) if batch.meta else None
             stats.skipped_families += len(skipped)
             stats.leftover_records += len(leftovers)
+            passed = (_passthrough_records(leftovers, ref_fetch, ref_names, pos0=pos0)
+                      if passthrough and leftovers else [])
             if not batch.meta:
-                yield "now", []
+                yield "now", passed
                 continue
             stats.batches += 1
             used = int(batch.cover.sum())
@@ -1786,7 +1859,8 @@ def call_duplex_batches(
             metrics.count("route_batches_wire" if use_wire else "route_batches_single")
             with stats.metrics.timed("kernel"):
                 inflight, windows = dispatch(batch)
-            yield "deferred", partial(retire, inflight, windows, batch, sidecar, batch_index)
+            yield "deferred", partial(retire, inflight, windows, batch, sidecar, batch_index,
+                                      passed)
 
     yield from _pipelined(events())
     stats.wall_seconds += time.monotonic() - t0

@@ -19,8 +19,10 @@ Keys are read at fixed offsets of the encoded records. Both in-run sorts
 are stable and both merges break ties by run order, so the output equals
 the JAX package's. external_sort runs the same spill/merge machinery over
 BamRecord objects under a pipeline.record_ops key (the zipper's and
-sam-to-fastq's name and coordinate sorts). Spill CRCs, the background
-spill writer and the bucketed engine are later slices of the port.
+sam-to-fastq's name and coordinate sorts, and sorted_write, the `sort`
+subcommand's); raw_name_key is name_key over blobs (UMI grouping's and
+the consensus filter's name sorts). Spill CRCs, the background spill
+writer and the bucketed engine are later slices of the port.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import time
 from typing import Iterable, Iterator
 
 from bsseqconsensusreads_tpu_torch.io.bam import (
+    FREAD2,
     BamHeader,
     BamReader,
     BamRecord,
@@ -63,6 +66,14 @@ def raw_coordinate_key(blob: bytes) -> tuple:
         blob[36 : 36 + blob[12] - 1],
         flag,
     )
+
+
+def raw_name_key(blob: bytes) -> tuple:
+    """record_ops.name_key read at the fixed offsets of an encoded record
+    blob (l_qname +12, flag +18, qname +36; ASCII qnames byte-compare in
+    str order)."""
+    (flag,) = struct.unpack_from("<H", blob, 18)
+    return (blob[36 : 36 + blob[12] - 1], bool(flag & FREAD2), flag)
 
 
 def iter_record_blobs(items: Iterable) -> Iterator[bytes]:
@@ -210,6 +221,28 @@ def external_sort(
         write_items_fn=lambda w, run: w.write_all(run),
         read_run=iter,
     )
+
+
+def sorted_write(
+    records: Iterable[BamRecord],
+    key,
+    out_path: str,
+    header: BamHeader,
+    workdir: str | None = None,
+    buffer_records: int = DEFAULT_BUFFER_RECORDS,
+    level: int = 6,
+) -> int:
+    """external_sort + streaming write to `out_path` at BGZF deflate
+    `level`; returns the record count (the `sort` subcommand and the
+    self-mode consensus filter)."""
+    n = 0
+    with BamWriter(out_path, header, level=level) as w:
+        for rec in external_sort(
+            records, key, header, workdir=workdir, buffer_records=buffer_records
+        ):
+            w.write(rec)
+            n += 1
+    return n
 
 
 def resolve_sort_engine(engine: str = "auto") -> str:

@@ -4,7 +4,16 @@ The port of the JAX package's pipeline/stages.py: the stage ingest
 (ingest_records and the two stage streams), PipelineBuilder and
 run_pipeline. The rule chain is the reference's (main.snake.py:40-189)
 with the consensus stages on the card, and the intermediate file names
-are the reference's suffix chain. Three alignment modes (cfg.aligner):
+are the reference's suffix chain.
+
+A raw aligned BAM (raw UMIs in cfg.group_raw_tag, no MI) first goes
+through the GroupReadsByUmi-equivalent rule `group_reads_by_umi`
+(pipeline.group_umi) into `<sample>_umigrouped.bam`, whose molecules are
+MI-contiguous, so the molecular stage then groups 'adjacent'.
+group_umis 'auto' (the default) prepends it when the input's first
+records carry the raw tag and no MI; 'always' regroups any input.
+
+Three alignment modes (cfg.aligner):
 
 * 'self'    — molecular consensus (mode 'self': window-space consensus
               keeps coordinates) written as the intermediate
@@ -15,7 +24,18 @@ are the reference's suffix chain. Three alignment modes (cfg.aligner):
               shelling out to bwameth exactly as the reference does.
 * 'none'    — stop after the molecular consensus FASTQs.
 
-single_strand stops after the molecular stage.
+single_strand stops after the molecular stage. cfg.filter (a dict of
+pipeline.filter.FilterParams fields, validated at build time) appends the
+FilterConsensusReads-equivalent rule: on 'self' `filter_consensus_duplex`
+over the coordinate-sorted duplex target (name sort, filter, coordinate
+sort: three passes over encoded blobs, off the duplex stage) into
+`<sample>_consensus_duplex_filtered.bam`, the new target; on 'none' and
+'bwameth' `filter_consensus_molecular` into
+`<sample>_unalignedConsensus_molecular_filtered.bam`, which the FASTQs
+and the zipper then read. duplex_passthrough writes the duplex stage's
+leftover records through (pipeline.calling._passthrough_records) and
+forces the Python ingest; with a filter it is refused (leftovers carry no
+cd tags).
 
 Ingest engines are resolved by what the stage can take, never by what
 happens to be built: 'auto' is the native columnar decoder with C-side MI
@@ -34,11 +54,10 @@ package does.
 
 Config keys the port does not honour yet raise a WorkflowError in
 PipelineBuilder.build(), before any stage runs, naming the ROADMAP item
-(queue 1) that brings them: group_umis that would prepend UMI grouping,
-filter, duplex_passthrough and sort_engine 'bucket' (item 8),
-indel_policy 'align' (item 7).
-stream_interstage takes the JAX package's loud fallback to the two-pass
-path: the fused rule needs the bucket engine.
+(queue 1) that brings them: sort_engine 'bucket' (item 5, with the
+failpoints, retry and host pool the bucket engine runs on), indel_policy
+'align' (item 7). stream_interstage takes the JAX package's loud fallback
+to the two-pass path: the fused rule needs the bucket engine.
 
 Left for later slices: the run ledger (observe.open_ledger,
 emit_stage_stats, BSSEQ_TPU_STATS) and the traces (item 9), the input
@@ -74,11 +93,14 @@ def ingest_records(path: str, reader, stats: StageStats,
                    grouping: str = "coordinate",
                    strip_suffix: bool = False,
                    scan_policy: str | None = None,
-                   threads: int | None = None):
+                   threads: int | None = None,
+                   native_block_reason: str | None = None):
     """The record stream for one consensus stage: a
     pipeline.ingest.GroupedColumnarStream over `path` (records decoded and
     grouped in C, with the stage's encode scan) or `reader`, the open
-    BamReader on the same file. The chosen engine lands in stats.metrics
+    BamReader on the same file. native_block_reason: why this stage
+    needs the Python records ('auto' then takes them; 'native' raises a
+    WorkflowError naming it). The chosen engine lands in stats.metrics
     as the 'ingest_native' / 'group_native' counters."""
     if ingest_choice not in INGEST_CHOICES:
         raise ValueError(f"unknown ingest {ingest_choice!r}; use auto|native|python")
@@ -88,6 +110,13 @@ def ingest_records(path: str, reader, stats: StageStats,
             f"ingest 'native' is incompatible with grouping {grouping!r} "
             "(it would pin every columnar batch for the whole file)"
         )
+    if native_block_reason is not None:
+        if ingest_choice == "native":
+            # an explicit request the stage cannot honor fails loudly
+            raise WorkflowError(
+                f"ingest 'native' is incompatible here: {native_block_reason}"
+            )
+        native_ok = False
     use_native = native_ok and ingest_choice != "python"
     stats.metrics.count("ingest_native", int(use_native))
     stats.metrics.count("group_native", int(use_native))
@@ -116,14 +145,21 @@ def molecular_ingest_stream(path: str, reader, stats: StageStats,
 def duplex_ingest_stream(path: str, reader, stats: StageStats,
                          ingest_choice: str = "auto",
                          grouping: str = "coordinate",
-                         threads: int | None = None):
+                         threads: int | None = None,
+                         passthrough: bool = False):
     """The duplex stage's ingest: strand-suffix-stripped grouping (base
     MI) and the duplex-shaped C scan. The duplex stage reads only MI, RX
     and the cd/ce/cB consensus arrays off its records, all of which the
-    columnar views carry."""
-    return ingest_records(path, reader, stats, ingest_choice=ingest_choice,
-                          grouping=grouping, strip_suffix=True,
-                          scan_policy="duplex", threads=threads)
+    columnar views carry — except under passthrough, whose leftovers are
+    written through with their full tag set: Python records then."""
+    return ingest_records(
+        path, reader, stats, ingest_choice=ingest_choice, grouping=grouping,
+        strip_suffix=True, scan_policy="duplex", threads=threads,
+        native_block_reason=(
+            "duplex passthrough needs full-tag Python records "
+            "(native views carry only MI/RX)"
+        ) if passthrough else None,
+    )
 
 
 def sample_name(bam_path: str) -> str:
@@ -267,6 +303,106 @@ class PipelineBuilder:
             f"{stage} sample={self.sample}",
         )
 
+    def run_group(self, rule) -> None:
+        """UMI-grouping pre-stage (fgbio GroupReadsByUmi equivalent,
+        pipeline.group_umi): RX -> MI with /A|/B duplex suffixes, two
+        bounded-memory external passes over raw record blobs."""
+        from bsseqconsensusreads_tpu_torch.pipeline.group_umi import (
+            GroupStats,
+            group_reads_by_umi_raw,
+            grouped_header,
+        )
+
+        stats = self.stats.setdefault("group", GroupStats())
+        out_path = rule.outputs[0]
+        with BamReader(rule.inputs[0]) as reader:
+            header = self._pg(grouped_header(reader.header), "group")
+            with BamWriter(out_path, header, level=self._out_level(out_path)) as w:
+                w.write_raw_many(
+                    group_reads_by_umi_raw(
+                        reader, reader.header,
+                        strategy=self.cfg.group_strategy,
+                        edits=self.cfg.group_edits,
+                        raw_tag=self.cfg.group_raw_tag,
+                        min_map_q=self.cfg.group_min_map_q,
+                        workdir=self.cfg.tmp or None,
+                        buffer_records=self.cfg.sort_buffer_records,
+                        stats=stats,
+                    )
+                )
+
+    def _filter_params(self):
+        """cfg.filter dict -> validated pipeline.filter.FilterParams.
+        Called at build() time too, so a bad dict fails in seconds, not
+        after the consensus stages have run."""
+        from bsseqconsensusreads_tpu_torch.pipeline.filter import FilterParams
+
+        kw = dict(self.cfg.filter or {})
+        if "min_reads" in kw:
+            v = kw["min_reads"]
+            kw["min_reads"] = (v,) if isinstance(v, int) else tuple(v)
+        try:
+            return FilterParams(**kw)
+        except (TypeError, ValueError) as exc:
+            raise WorkflowError(f"invalid `filter:` config: {exc}") from exc
+
+    def run_filter(self, rule) -> None:
+        """Consensus-filter stage (pipeline.filter) over the unaligned
+        molecular consensus: the producer of the
+        `…_molecular_filtered.bam` the reference's dead rule expects
+        (main.snake.py:70-80)."""
+        from bsseqconsensusreads_tpu_torch.pipeline.filter import (
+            FilterStats,
+            filter_consensus_raw,
+            probe_strand_tag_support,
+        )
+
+        params = self._filter_params()
+        probe_strand_tag_support(rule.inputs[0], params)
+        stats = self.stats.setdefault("filter", FilterStats())
+        out_path = rule.outputs[0]
+        with BamReader(rule.inputs[0]) as reader:
+            header = self._pg(reader.header, "filter")
+            with BamWriter(out_path, header, level=self._out_level(out_path)) as w:
+                w.write_raw_many(filter_consensus_raw(reader.raw_records(), params, stats=stats))
+
+    def run_filter_duplex(self, rule) -> None:
+        """Self-mode consensus filter: the duplex output is
+        coordinate-sorted, so template mates are not adjacent — stream it
+        through an external name sort, filter template-atomically, and
+        coordinate-sort the survivors back out. Three bounded-memory
+        passes, kept off the duplex stage (filtering before its sort would
+        force the Python emit there), all over encoded blobs: the name
+        sort (raw_name_key), filter_consensus_raw, then the stage outputs'
+        raw coordinate sort (cfg.sort_engine) — the JAX package's record
+        passes' bytes with no object round trip per spill."""
+        from bsseqconsensusreads_tpu_torch.pipeline.extsort import (
+            external_sort_raw,
+            external_sort_raw_to_writer,
+            raw_name_key,
+        )
+        from bsseqconsensusreads_tpu_torch.pipeline.filter import (
+            FilterStats,
+            filter_consensus_raw,
+            probe_strand_tag_support,
+        )
+
+        params = self._filter_params()
+        probe_strand_tag_support(rule.inputs[0], params)
+        stats = self.stats.setdefault("filter", FilterStats())
+        sort_kw = dict(workdir=self.cfg.tmp or None,
+                       buffer_records=self.cfg.sort_buffer_records)
+        out_path = rule.outputs[0]
+        with BamReader(rule.inputs[0]) as reader:
+            header = self._pg(reader.header, "filter").with_sort_order("coordinate")
+            name_sorted = external_sort_raw(reader.raw_records(), header, key=raw_name_key,
+                                            **sort_kw)
+            with BamWriter(out_path, header, level=self._out_level(out_path)) as w:
+                external_sort_raw_to_writer(
+                    filter_consensus_raw(name_sorted, params, stats=stats), w, header,
+                    engine=self.cfg.sort_engine, **sort_kw,
+                )
+
     def run_molecular(self, rule, mode: str) -> None:
         cfg = self.cfg
         stats = self.stats.setdefault("molecular", StageStats(stage="molecular"))
@@ -335,7 +471,8 @@ class PipelineBuilder:
                     methyl_acc.attach_checkpoint(ck)
             batches = call_duplex_batches(
                 duplex_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
-                                     grouping=cfg.grouping),
+                                     grouping=cfg.grouping,
+                                     passthrough=cfg.duplex_passthrough),
                 fasta.fetch,
                 names,
                 params=cfg.duplex,
@@ -353,6 +490,7 @@ class PipelineBuilder:
                 strand_tags=cfg.duplex_strand_tags,
                 chemistry=cfg.chemistry,
                 methyl=methyl_acc,
+                passthrough=cfg.duplex_passthrough,
             )
             self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
             if methyl_acc is not None:
@@ -361,7 +499,7 @@ class PipelineBuilder:
     def _interstage_blocked(self) -> str:
         """Why the fused molecular->duplex streaming path cannot engage:
         it needs the bucket sort engine's in-plan-order bucket emit, which
-        the port does not have yet (ROADMAP queue 1, item 8; the fused rule
+        the port does not have yet (ROADMAP queue 1, item 5; the fused rule
         itself waits for it too)."""
         return "sort_engine must resolve to 'bucket'"
 
@@ -490,28 +628,33 @@ class PipelineBuilder:
                 "methyl extraction is a duplex-stage epilogue; "
                 "single_strand stops after the molecular stage"
             )
-        if cfg.filter is not None:
-            raise _not_ported("filter", 8, "group_umi, filter and metrics")
-        if cfg.duplex_passthrough:
-            raise _not_ported("duplex_passthrough", 8,
-                              "record_ops host code, duplex passthrough")
         if cfg.sort_engine == "bucket":
-            raise _not_ported("sort_engine: bucket", 8, "bucketemit and the bucket engine")
+            raise _not_ported("sort_engine: bucket", 5,
+                              "bucketemit and the bucket engine, on failpoints, "
+                              "retry and the host pool")
         try:  # an unknown transport; indel_policy 'align' (item 7)
             check_route(cfg.transport, cfg.indel_policy)
         except ValueError as exc:
             raise WorkflowError(f"config: {exc}") from None
-        if self._needs_grouping():
-            raise _not_ported(
-                f"group_umis: {cfg.group_umis} (the input needs UMI grouping)",
-                8, "group_umi",
-            )
+        if cfg.filter is not None and not cfg.single_strand:  # single_strand: no filter rule
+            self._filter_params()  # fail fast on a bad dict
+            if cfg.duplex_passthrough and cfg.aligner == "self":
+                raise WorkflowError(
+                    "filter + duplex_passthrough: passthrough leftovers carry "
+                    "no cd consensus tags, which the filter requires — "
+                    "disable one of the two"
+                )
 
     def build(self) -> tuple[Workflow, str]:
         cfg = self.cfg
         self._check_config()
         wf = Workflow()
         consensus_input = self.bam_path
+        if self._needs_grouping():
+            consensus_input = self.out("_umigrouped.bam")
+            wf.rule("group_reads_by_umi", [self.bam_path], [consensus_input], self.run_group)
+            # the grouped intermediate is MI-contiguous in position order
+            self.molecular_grouping = "adjacent"
         if cfg.single_strand:
             # molecular emit without duplex pairing: 'self' leaves a
             # coordinate-sorted aligned BAM; other aligner modes leave the
@@ -547,6 +690,10 @@ class PipelineBuilder:
                 [target],
                 lambda r: self.run_duplex(r, mode="self"),
             )
+            if cfg.filter is not None:
+                ftarget = self.out("_consensus_duplex_filtered.bam")
+                wf.rule("filter_consensus_duplex", [target], [ftarget], self.run_filter_duplex)
+                target = ftarget
             self.final_output = target
             return wf, target
 
@@ -557,9 +704,14 @@ class PipelineBuilder:
             [molecular],
             lambda r: self.run_molecular(r, mode="unaligned"),
         )
+        fq_src = molecular
+        if cfg.filter is not None:
+            # the file the reference's dead rule reads (main.snake.py:72)
+            fq_src = self.out("_unalignedConsensus_molecular_filtered.bam")
+            wf.rule("filter_consensus_molecular", [molecular], [fq_src], self.run_filter)
         fq1 = self.out("_unalignedConsensus_unfiltered_1.fq.gz")
         fq2 = self.out("_unalignedConsensus_unfiltered_2.fq.gz")
-        wf.rule("consensus_to_fq_unfiltered", [molecular], [fq1, fq2], self.run_sam_to_fastq)
+        wf.rule("consensus_to_fq_unfiltered", [fq_src], [fq1, fq2], self.run_sam_to_fastq)
         if cfg.aligner == "none":
             self.final_output = fq1
             return wf, fq1
@@ -567,7 +719,9 @@ class PipelineBuilder:
         aligned0 = self.out("_consensus_unfiltered.bam")
         wf.rule("align_consensus_unfiltered", [fq1, fq2], [aligned0], self.run_bwameth)
         merged = self.out("_consensus_unfiltered_aunamerged.bam")
-        wf.rule("mergeAunA_consensus", [aligned0, molecular], [merged], self.run_zipper)
+        # the tag graft reads the BAM that fed the aligner (the filtered
+        # one when the filter rule ran)
+        wf.rule("mergeAunA_consensus", [aligned0, fq_src], [merged], self.run_zipper)
         aligned = self.out("_consensus_unfiltered_aunamerged_aligned.bam")
         wf.rule("mergeAunA_consensus_grepaligned", [merged], [aligned], self.run_filter_mapped)
         duplex = self.out(

@@ -148,3 +148,42 @@ def stream_duplex_families(
                         rec.set_tag("RX", rx, "Z")
                         rec.set_tag("MI", f"{fam}/{strand}", "Z")
                     yield rec
+
+
+def passthrough_leftovers(records) -> list:
+    """Records the duplex stage cannot tensorize, made from an aligned
+    molecular consensus stream (MI-tagged 99/147/163/83 records): for
+    successive families, a flag-0 and a flag-1 copy, a duplicated 83, a
+    softclipped duplicate 163, an 83 with an insertion and a hard-clipped
+    163 — each a new qname in its source family. Under duplex passthrough
+    the first two pass verbatim / convert, the duplicate and the softclip
+    convert, the indel read is dropped, and the hard-clipped read never
+    becomes a leftover (the stage drops it)."""
+    from bsseqconsensusreads_tpu_torch.io.bam import CHARD_CLIP, CINS, CSOFT_CLIP
+
+    by_family: dict = {}
+    for rec in records:
+        by_family.setdefault(str(rec.get_tag("MI")).split("/")[0], {})[rec.flag] = rec
+    out = []
+    # each kind and the flag of the family record it copies
+    kinds = (("flag0", 99), ("flag1", 163), ("dup83", 83), ("softclip163", 163),
+             ("indel83", 83), ("hardclip163", 163))
+    fams = [f for f in by_family.values() if 83 in f and 163 in f and 99 in f]
+    for (kind, flag), fam in zip(kinds, fams[1::2]):
+        src = fam[flag]
+        rec = src.copy()
+        rec.qname = f"{src.qname}:{kind}"
+        n = len(rec.seq)
+        if kind == "flag0":
+            rec.flag = 0
+        elif kind == "flag1":
+            rec.flag = 1
+        elif kind == "softclip163":
+            rec.cigar = [(CSOFT_CLIP, 5), (CMATCH, n - 5)]
+            rec.pos += 5
+        elif kind == "indel83":
+            rec.cigar = [(CMATCH, 10), (CINS, 2), (CMATCH, n - 12)]
+        elif kind == "hardclip163":
+            rec.cigar = [(CHARD_CLIP, 5), (CMATCH, n)]
+        out.append(rec)
+    return out

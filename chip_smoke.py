@@ -119,8 +119,37 @@ Phases:
         process: target, bedMethyl and CX SHA-equal to an uninterrupted
         run, the resumed stage spilling >= 1 run.
 
+  6. the raw-BAM entry: Phase 3's mixture, seed and genome one step
+     earlier (raw.bam: per-family duplex UMIs in RX, B strands' halves
+     swapped, no MI; and raw_head.bam, the head's families), written by a
+     child process while Phase 3 writes its inputs (awaited before any
+     stage is measured):
+     a. run_pipeline(FrameworkConfig(filter={"min_reads": [2, 1, 1]}))
+        on raw.bam and the human-scale genome, default settings: the
+        rules group_reads_by_umi, call_consensus_molecular_tpu,
+        call_duplex_tpu and filter_consensus_duplex, each under
+        torch.profiler and the peak-memory sampler (seconds, records/s of
+        the group and filter rules, stage phases, launches, idle share),
+        the kernels' counts set to 0 just before and read just after (a
+        main path). Gates: molecules = --families and every drop counter
+        0; the grouped intermediate's MIs partition its records exactly
+        by generator family and strand (records whose MI is not
+        '<family>/<strand>' are counted); the unfiltered target's records,
+        as a sorted multiset with RX set aside, equal 4a's target's, the
+        headers equal apart from @PG; the filter's counts reconcile;
+     b. raw_head.bam through `run` (grouped, the same filter) on the card
+        and on the CPU: grouped intermediate, unfiltered and filtered
+        targets SHA-equal; `metrics --compact` on both grouped heads the
+        same JSON; `group` through cli.main: the runs' grouped records;
+        `sort --order coordinate|name|template-coordinate` of the card's
+        and the CPU's grouped heads SHA-equal;
+     c. `duplex --passthrough` on the head's molecular BAM with leftover
+        records appended (flag 0 and 1, a duplicated 83, a softclipped
+        163, an indel read, a hard-clipped read) on the card and the CPU:
+        SHA-equal, leftover_records 5, the four kinds written through.
+
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a and 5b together), the nvidia-smi line, and last
+Phases 3, 3w, 4a, 5a, 5b and 6a together), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 """
 
@@ -491,10 +520,13 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict]]:
 DEEP_HEAD = (4097, 5000, 16385)
 
 
-def write_inputs(np, workdir: str, families: int, cpu_families: int):
+def write_inputs(np, workdir: str, families: int, cpu_families: int, raw: bool = False):
     """The grouped BAM of `families` families, the head BAM of
     `cpu_families` families of the same mixture plus the DEEP_HEAD
-    families spread among them, and the genome FASTA."""
+    families spread among them, and the genome FASTA. raw: the same two
+    inputs one step earlier, raw.bam and raw_head.bam — per-family
+    duplex UMIs in RX (B strands' halves swapped) and no MI — and no
+    FASTA."""
     from bsseqconsensusreads_tpu_torch.io.bam import BamHeader, BamWriter
     from bsseqconsensusreads_tpu_torch.ops.encode import codes_to_seq
     from bsseqconsensusreads_tpu_torch.utils.testing import (
@@ -506,7 +538,8 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int):
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 4, size=genome_len).astype(np.int8)
     fasta = os.path.join(workdir, "genome.fa")
-    write_fasta(fasta, "chr1", codes_to_seq(codes))
+    if not raw:
+        write_fasta(fasta, "chr1", codes_to_seq(codes))
     qual_pool = [
         bytes(np.random.default_rng(100 + i).choice(
             np.array([2, 12, 23, 37], np.uint8), size=read_len
@@ -523,8 +556,8 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int):
         return seq
 
     header = BamHeader("@HD\tVN:1.6\tSO:coordinate\n", [("chr1", genome_len)])
-    big = os.path.join(workdir, "grouped.bam")
-    small = os.path.join(workdir, "grouped_head.bam")
+    big = os.path.join(workdir, "raw.bam" if raw else "grouped.bam")
+    small = os.path.join(workdir, "raw_head.bam" if raw else "grouped_head.bam")
     n_head = cpu_families + len(DEEP_HEAD)
     deep = {n_head * (i + 1) // (len(DEEP_HEAD) + 1): t for i, t in enumerate(DEEP_HEAD)}
     for path, n, tmpl in ((big, families, lambda fam: 1 if fam % 10 < 7 else 2),
@@ -533,7 +566,7 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int):
             for rec in stream_duplex_families(
                 codes, n, read_len=read_len, frag_extra=30, templates_for=tmpl,
                 qual_for=lambda fam, ti, flag: qual_pool[(fam + ti * 13 + flag) & 63],
-                mutate=mutate, bisulfite=True,
+                mutate=mutate, bisulfite=True, raw_umis=raw,
             ):
                 w.write(rec)
     return fasta, big, small
@@ -852,16 +885,32 @@ def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
     from concurrent.futures import ThreadPoolExecutor
 
     # the human-scale genome's filler contigs are written while the inputs
-    # are; its data contig, the data genome, is appended after
-    with ThreadPoolExecutor(1) as pool:
-        t0 = time.monotonic()
-        fillers = pool.submit(write_genome_fillers, np, work)
-        fasta, big, small = write_inputs(np, work, families, cpu_families)
-        log(f"phase3 input: {families} families written in {time.monotonic() - t0:.1f} s")
-        genome = write_human_genome(np, fasta, *fillers.result())
-    log(f"phase3 human-scale genome: {os.path.getsize(genome)} bytes, "
-        f"{len(GRCH38_LENGTHS) + 1} contigs, written in {time.monotonic() - t0:.1f} s "
-        "(beside the inputs)")
+    # are, and Phase 6's raw inputs by a child process meanwhile (awaited
+    # before any stage is measured); the data contig, the data genome, is
+    # appended after
+    t0 = time.monotonic()
+    raw_child = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--write-raw", work,
+         "--families", str(families), "--cpu-families", str(cpu_families)],
+        env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    )
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            fillers = pool.submit(write_genome_fillers, np, work)
+            fasta, big, small = write_inputs(np, work, families, cpu_families)
+            log(f"phase3 input: {families} families written in {time.monotonic() - t0:.1f} s")
+            genome = write_human_genome(np, fasta, *fillers.result())
+        log(f"phase3 human-scale genome: {os.path.getsize(genome)} bytes, "
+            f"{len(GRCH38_LENGTHS) + 1} contigs, written in {time.monotonic() - t0:.1f} s "
+            "(beside the inputs)")
+        _out, err = raw_child.communicate(timeout=900)
+    finally:
+        if raw_child.poll() is None:
+            raw_child.kill()
+            raw_child.wait()
+    log(f"phase6 raw input: {families} families (and the raw head) written by a child "
+        f"process in {time.monotonic() - t0:.1f} s, rc {raw_child.returncode}")
+    check(raw_child.returncode == 0, f"writing the raw inputs failed: {err.decode()[-2000:]}")
 
     def io(suffix):
         mol = os.path.join(work, f"molecular{suffix}.bam")
@@ -1519,6 +1568,309 @@ def phase5d(work: str, fasta: str, small: str, batch_families: int = 64) -> None
           "phase5d: the resumed duplex stage did not skip its durable batches")
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+#: the rules `run` must drive on a raw BAM with a filter, in order
+RAW_RULES = ("group_reads_by_umi", "call_consensus_molecular_tpu", "call_duplex_tpu",
+             "filter_consensus_duplex")
+RAW_FILTER = {"min_reads": [2, 1, 1]}
+
+
+def strip_tag(blob: bytes, key: bytes) -> bytes:
+    """An encoded record blob (with its block_size prefix) with the tag
+    `key` cut out of its tag region, block_size fixed."""
+    import struct
+
+    from bsseqconsensusreads_tpu_torch.io.bam import skip_tag, tag_region_offset
+
+    off, n = tag_region_offset(blob), len(blob)
+    while off < n:
+        end = skip_tag(blob, off)
+        if blob[off:off + 2] == key:
+            body = blob[4:off] + blob[end:]
+            return struct.pack("<i", len(body)) + body
+        off = end
+    return blob
+
+
+def record_multiset(path: str, key: bytes) -> tuple[list, list]:
+    """(header lines apart from @PG, the sorted encoded records with the
+    tag `key` set aside) of a BAM."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    with BamReader(path) as r:
+        lines = [ln for ln in r.header.text.splitlines() if not ln.startswith("@PG")]
+        return lines, sorted(strip_tag(b, key) for b in r.raw_records())
+
+
+def mi_partition(path: str) -> tuple[int, int, int, int]:
+    """Over a grouped BAM whose qnames are the generator's
+    f'f{fam}:{strand}:{ti}': (records, MIs, (family, strand) pairs,
+    records whose MI is not f'{fam}/{strand}'). The partition holds when
+    every MI is one (family, strand) and every pair one MI: then MIs ==
+    pairs and the two maps agree, which the caller checks."""
+    from bsseqconsensusreads_tpu_torch.io import native
+    from bsseqconsensusreads_tpu_torch.pipeline import ingest
+
+    native.lib()
+    pair_of_mi: dict = {}
+    mi_of_pair: dict = {}
+    n = differ = clash = 0
+    for rec in ingest.columnar_records(path):
+        n += 1
+        fam, strand, _ti = rec.qname.split(":")
+        pair = f"{fam[1:]}/{strand}"
+        mi = str(rec.get_tag("MI"))
+        differ += mi != pair
+        if pair_of_mi.setdefault(mi, pair) != pair or mi_of_pair.setdefault(pair, mi) != mi:
+            clash += 1
+    check(clash == 0, f"{path}: {clash} records break the MI partition")
+    return n, len(pair_of_mi), len(mi_of_pair), differ
+
+
+def cli_io(argv: list[str]) -> tuple[str, str]:
+    """cli.main(argv) (exit 0 required) with its stdout and stderr."""
+    import contextlib
+    import io
+
+    from bsseqconsensusreads_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    check(rc == 0, f"{argv[0]} exited {rc}")
+    return out.getvalue(), err.getvalue()
+
+
+def phase6(np, torch, work: str, inputs, phase3_summaries: dict, families: int,
+           cpu_families: int) -> dict:
+    """The raw-BAM entry: 6a `run` on the 200,000-family raw BAM (the main
+    path: grouping, both consensus stages, the consensus filter), 6b the
+    raw head through `run` on the card and the CPU with the `group`,
+    `sort` and `metrics` subcommands, 6c `duplex --passthrough` on the
+    head with leftover records. Returns the kernels' launches on 6a."""
+    fasta, _big, _small, genome = inputs
+    t0 = time.monotonic()
+    launches = phase6a(torch, work, genome, phase3_summaries, families)
+    t1 = time.monotonic()
+    phase6b(work, fasta, cpu_families + len(DEEP_HEAD))
+    t2 = time.monotonic()
+    phase6c(work, fasta)
+    log(f"phase6 seconds: 6a {t1 - t0:.1f}, 6b {t2 - t1:.1f}, 6c {time.monotonic() - t2:.1f}")
+    return launches
+
+
+def phase6a(torch, work: str, genome: str, phase3_summaries: dict, families: int) -> dict:
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
+    from bsseqconsensusreads_tpu_torch.pipeline import stages
+
+    raw = os.path.join(work, "raw.bam")
+    outdir = os.path.join(work, "raw_run")
+    bodies = {"run_group": "group", "run_molecular": "molecular", "run_duplex": "duplex",
+              "run_filter_duplex": "filter"}
+    originals = {name: getattr(stages.PipelineBuilder, name) for name in bodies}
+    per_rule: dict = {}
+
+    def observed(name):
+        """The rule body under torch.profiler (the card's activity) and
+        PeakMemory, with its launches and wall."""
+        def body(self, rule, *args, **kw):
+            before = dict(cuda_vote.LAUNCHES)
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            t0 = time.monotonic()
+            with PeakMemory(torch) as mem, prof:
+                originals[name](self, rule, *args, **kw)
+            per_rule[bodies[name]] = (time.monotonic() - t0, prof, mem,
+                                      {k: v - before[k] for k, v in cuda_vote.LAUNCHES.items()})
+        return body
+
+    cfg = FrameworkConfig(genome_dir=os.path.dirname(genome),
+                          genome_fasta_file_name=os.path.basename(genome), filter=RAW_FILTER)
+    # the main path: counts set to 0 just before, read just after; the
+    # qual tables are built again inside it (first use on this device)
+    reconstruct._CACHE.clear()
+    for k in cuda_vote.LAUNCHES:
+        cuda_vote.LAUNCHES[k] = 0
+    try:
+        for name in originals:
+            setattr(stages.PipelineBuilder, name, observed(name))
+        t0 = time.monotonic()
+        target, results, stats = stages.run_pipeline(cfg, raw, outdir=outdir)
+        run_wall = time.monotonic() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(stages.PipelineBuilder, name, fn)
+    launches = dict(cuda_vote.LAUNCHES)
+    rules = {r.name: r.seconds for r in results}
+    log(f"phase6a run: {run_wall:.3f} s; rule seconds {json.dumps(rules)}")
+    check(tuple(r.name for r in results) == RAW_RULES and all(r.ran for r in results),
+          f"phase6a: run drove {[(r.name, r.ran) for r in results]}")
+    gs, fs = stats["group"].as_dict(), stats["filter"].as_dict()
+    for rule, (wall, prof, mem, counts) in per_rule.items():
+        busy = device_busy_s(torch, prof)
+        row = {"rule": rule, "wall_s": wall, "device_busy_s": busy,
+               "device_idle_share": 1.0 - busy / wall,
+               "peak_host_rss_gib": mem.host_gib, "host_rss_at_start_gib": mem.host_start_gib,
+               "peak_device_allocated_gib": mem.device_gib, "launches": counts}
+        if rule in ("molecular", "duplex"):
+            row.update(stage_summary(rule, stats[rule], wall))
+            row["phase3_families_per_s"] = phase3_summaries[rule]["families_per_s"]
+            check(counts["seg_vote"] > 0, f"phase6a {rule}: seg_vote never launched")
+            check(row["route_batches_wire"] > 0 and row["route_batches_single"] == 0,
+                  f"phase6a {rule}: transport 'auto' on the card did not take the wire")
+        elif rule == "group":
+            row.update({"records_in": gs["records_in"],
+                        "records_per_s": gs["records_in"] / wall, "stats": gs})
+        else:
+            row.update({"records_in": fs["records_in"],
+                        "records_per_s": fs["records_in"] / wall, "stats": fs})
+        log(f"phase6a rule {json.dumps(row)}")
+    check(launches["vote_finalize"] > 0, "phase6a: vote_finalize never launched")
+    check(gs["molecules"] == families, f"phase6a: {gs['molecules']} molecules, want {families}")
+    drops = {k: v for k, v in gs.items() if k.startswith("dropped_") and v}
+    check(not drops and gs["accepted"] == gs["templates"] == gs["records_in"] // 2,
+          f"phase6a: grouping dropped templates {drops}")
+    check(stats["molecular"].metrics.counters.get("deep_skipped_families", 0) == 0,
+          "phase6a: deep families were skipped")
+
+    grouped = os.path.join(outdir, "raw_umigrouped.bam")
+    t0 = time.monotonic()
+    n, mis, pairs, differ = mi_partition(grouped)
+    log(f"phase6a MI partition of the grouped intermediate: {n} records, {mis} MIs, "
+        f"{pairs} (family, strand) pairs, {differ} records whose MI is not "
+        f"'<family>/<strand>' ({time.monotonic() - t0:.1f} s)")
+    check(n == gs["records_in"] and mis == pairs == 2 * families,
+          "phase6a: the MIs do not partition the records by family and strand")
+
+    unfiltered = os.path.join(outdir, "raw_consensus_duplex_unfiltered.bam")
+    ref = os.path.join(work, "run", "grouped_consensus_duplex_unfiltered.bam")
+    t0 = time.monotonic()
+    lines, got = record_multiset(unfiltered, b"RX")
+    ref_lines, want = record_multiset(ref, b"RX")
+    same = got == want
+    log(f"phase6a unfiltered target vs phase 4a's target, RX and @PG aside: {len(got)} "
+        f"records, sorted multisets equal={same}, header lines equal={lines == ref_lines} "
+        f"({time.monotonic() - t0:.1f} s)")
+    check(same and len(got) > 0, "phase6a: the raw run's consensus records differ from 4a's")
+    check(lines == ref_lines, f"phase6a: headers differ beyond @PG: {lines} vs {ref_lines}")
+
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    with BamReader(target) as r:
+        kept = sum(1 for _ in r.raw_records())
+    log(f"phase6a filtered target {os.path.basename(target)}: {kept} records; "
+        f"FilterStats {json.dumps(fs)}")
+    check(target == os.path.join(outdir, "raw_consensus_duplex_filtered.bam"),
+          f"phase6a target {target}")
+    check(fs["records_in"] == len(got) and fs["kept_records"] == kept > 0
+          and fs["kept_records"] + fs["dropped_records"] == fs["records_in"],
+          "phase6a: the filter's counts do not reconcile")
+    return launches
+
+
+def phase6b(work: str, fasta: str, n_head: int) -> None:
+    """The raw head through `run` (grouped, filtered) on the card and on
+    the CPU: grouped intermediate, unfiltered and filtered targets
+    SHA-equal; `metrics --compact` on both grouped heads the same JSON;
+    `group` and `sort --order coordinate|name|template-coordinate` through
+    cli.main: the same records as the runs' grouping, SHA-equal sorts of
+    the card's and the CPU's grouped heads."""
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+
+    small = os.path.join(work, "raw_head.bam")
+    names = {"grouped": "raw_head_umigrouped.bam",
+             "unfiltered": "raw_head_consensus_duplex_unfiltered.bam",
+             "filtered": "raw_head_consensus_duplex_filtered.bam"}
+    outs = {}
+    for backend in ("cuda", "cpu"):
+        cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta),
+                              genome_fasta_file_name=os.path.basename(fasta),
+                              backend=backend, filter=RAW_FILTER)
+        outdir = os.path.join(work, f"raw_head_{backend}")
+        t0 = time.monotonic()
+        target, results, stats = run_pipeline(cfg, small, outdir=outdir)
+        outs[backend] = {k: os.path.join(outdir, v) for k, v in names.items()}
+        log(f"phase6b head run {backend}: {time.monotonic() - t0:.2f} s, rules "
+            f"{json.dumps([[r.name, round(r.seconds, 3)] for r in results])}, group "
+            f"{json.dumps(stats['group'].as_dict())}, filter {json.dumps(stats['filter'].as_dict())}")
+        check(tuple(r.name for r in results) == RAW_RULES and target == outs[backend]["filtered"],
+              f"phase6b {backend}: rules {[r.name for r in results]}, target {target}")
+        check(stats["group"].molecules == n_head, f"phase6b {backend}: molecules")
+    for key in names:
+        a, b = sha256(outs["cuda"][key]), sha256(outs["cpu"][key])
+        log(f"phase6b head {key}: card vs cpu byte-identical={a == b} (sha256 {a})")
+        check(a == b, f"phase6b: the card's {key} head BAM differs from the CPU's")
+
+    docs = [cli_io(["metrics", "-i", outs[b]["grouped"], "--compact"])[0] for b in outs]
+    doc = json.loads(docs[0])
+    log(f"phase6b metrics --compact: card-run and cpu-run heads print the same JSON="
+        f"{docs[0] == docs[1]}: {docs[0].strip()[:400]}")
+    check(docs[0] == docs[1] and doc["molecules"] == n_head == doc["duplexes"],
+          "phase6b: metrics differ or miscount")
+
+    grouped_cli = os.path.join(work, "raw_head_group_cli.bam")
+    _o, err = cli_io(["group", "-i", small, "-o", grouped_cli])
+    same, nbytes, h_cli, h_run = same_records(grouped_cli, outs["cuda"]["grouped"])
+    log(f"phase6b group: {err.strip()}; records identical to the runs' grouping={same} "
+        f"({nbytes} bytes), header lines apart from @PG that differ: "
+        f"{json.dumps(header_difference(h_cli, h_run))}")
+    check(same, "phase6b: `group` wrote other records than run's grouping rule")
+    for order in ("coordinate", "name", "template-coordinate"):
+        sorted_outs = {}
+        for src, path in (("cuda", outs["cuda"]["grouped"]), ("cpu", outs["cpu"]["grouped"]),
+                          ("group", grouped_cli)):
+            out = os.path.join(work, f"raw_head_sorted_{order}_{src}.bam")
+            _o, err = cli_io(["sort", "-i", path, "-o", out, "--order", order])
+            sorted_outs[src] = out
+        a, b = sha256(sorted_outs["cuda"]), sha256(sorted_outs["cpu"])
+        same = same_records(sorted_outs["group"], sorted_outs["cuda"])[0]
+        log(f"phase6b sort --order {order}: {err.strip()}; card-run vs cpu-run grouped head "
+            f"byte-identical={a == b}, the `group` output's sort the same records={same}")
+        check(a == b and same, f"phase6b: sort --order {order} differs")
+
+
+def phase6c(work: str, fasta: str) -> None:
+    """duplex --passthrough on the head's molecular BAM with leftover
+    records appended (utils.testing.passthrough_leftovers: flag 0 and 1
+    records, a duplicated 83, a softclipped 163, an indel read, a
+    hard-clipped read), coordinate-sorted, on the card and on the CPU:
+    SHA-equal BAMs, leftover_records printed."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader, BamWriter
+    from bsseqconsensusreads_tpu_torch.pipeline.record_ops import coordinate_sort
+    from bsseqconsensusreads_tpu_torch.utils.testing import passthrough_leftovers
+
+    with BamReader(os.path.join(work, "mol_head_cuda_native_unpacked.bam")) as r:
+        header = r.header
+        recs = list(r)
+    extra = passthrough_leftovers(recs)
+    check(len(extra) == 6, f"phase6c: {len(extra)} leftover records made")
+    src = os.path.join(work, "leftover_head.bam")
+    with BamWriter(src, header) as w:
+        w.write_all(coordinate_sort(recs + extra))
+    shas, lefts = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"passthrough_head_{dev}.bam")
+        t0 = time.monotonic()
+        _o, err = cli_io(["duplex", "-i", src, "-o", out, "--reference", fasta, "--mode", "self",
+                          "--passthrough", "--device", dev])
+        st = json.loads(err.strip().splitlines()[-1])
+        shas[dev], lefts[dev] = sha256(out), st["leftover_records"]
+        with BamReader(out) as r:
+            passed = sorted(q.rsplit(":", 1)[1] for q in (x.qname for x in r)
+                            if q.rsplit(":", 1)[-1] in ("flag0", "flag1", "dup83", "softclip163",
+                                                        "indel83", "hardclip163"))
+        log(f"phase6c duplex --passthrough {dev}: {time.monotonic() - t0:.2f} s, "
+            f"leftover_records {st['leftover_records']}, written through {passed}, "
+            f"sha256 {shas[dev]}")
+        check(passed == ["dup83", "flag0", "flag1", "softclip163"],
+              f"phase6c {dev}: passthrough wrote {passed}")
+    check(shas["cuda"] == shas["cpu"] and lefts["cuda"] == lefts["cpu"] == 5,
+          "phase6c: the card's passthrough BAM differs from the CPU's")
+
+
 # ---------------------------------------------------------------- bounds
 
 
@@ -1642,6 +1994,9 @@ def main() -> int:
     ap.add_argument("--bounds-check", metavar="WORKDIR", default="",
                     help="(run by the full run, under CUDA_LAUNCH_BLOCKING=1) the Phase 2 "
                     "cases and the head stages in WORKDIR on the bounds-checked build")
+    ap.add_argument("--write-raw", metavar="WORKDIR", default="",
+                    help="(run by the full run, beside Phase 3's input writing) Phase 6's "
+                    "raw inputs of --families and --cpu-families in WORKDIR")
     args = ap.parse_args()
 
     try:
@@ -1659,6 +2014,9 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not next to this script ({exc})", file=sys.stderr)
         return 2
+    if args.write_raw:
+        write_inputs(np, args.write_raw, args.families, args.cpu_families, raw=True)
+        return 0
 
     try:
         card = card_line()
@@ -1676,14 +2034,23 @@ def main() -> int:
             if not args.kernels_only:
                 case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
                 with tempfile.TemporaryDirectory(prefix="bsseq_smoke_") as work:
+                    marks = [("start", time.monotonic())]
                     launches, summaries, inputs = phase3(
                         np, torch, work, args.families, args.cpu_families, case_shapes)
+                    marks.append(("3", time.monotonic()))
                     phase_bounds(work)
-                    for k, v in phase4(np, torch, work, inputs, summaries[0],
-                                       case_shapes).items():
-                        launches[k] = launches.get(k, 0) + v
-                    for k, v in phase5(np, torch, work, inputs, summaries).items():
-                        launches[k] = launches.get(k, 0) + v
+                    marks.append(("2b", time.monotonic()))
+                    for tag, more in (
+                        ("4", lambda: phase4(np, torch, work, inputs, summaries[0], case_shapes)),
+                        ("5", lambda: phase5(np, torch, work, inputs, summaries)),
+                        ("6", lambda: phase6(np, torch, work, inputs, summaries[0],
+                                             args.families, args.cpu_families)),
+                    ):
+                        for k, v in more().items():
+                            launches[k] = launches.get(k, 0) + v
+                        marks.append((tag, time.monotonic()))
+                    log("phase seconds (3 with its inputs and the head): " + ", ".join(
+                        f"{tag} {t - prev:.1f}" for (_p, prev), (tag, t) in zip(marks, marks[1:])))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

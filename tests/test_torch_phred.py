@@ -120,7 +120,8 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 25, names
 host = {"io._nativelib", "io.native", "io.wirepack", "pipeline.ingest", "pipeline.stages",
-        "config", "pipeline.workflow", "pipeline.checkpoint"}
+        "config", "pipeline.workflow", "pipeline.checkpoint", "pipeline.group_umi",
+        "pipeline.filter", "pipeline.metrics", "utils.oracle"}
 assert host <= {n.split(".", 1)[1] for n in names}, names
 """
     out = subprocess.run(

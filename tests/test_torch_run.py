@@ -415,10 +415,7 @@ def test_config_from_yaml_matches_the_jax_reader(tmp_path, monkeypatch):
 
 
 REFUSED = {
-    "group_umis_always": ({"group_umis": "always"}, 8),
-    "filter": ({"filter": {"min_reads": [1]}}, 8),
-    "duplex_passthrough": ({"duplex_passthrough": True}, 8),
-    "sort_engine_bucket": ({"sort_engine": "bucket"}, 8),
+    "sort_engine_bucket": ({"sort_engine": "bucket"}, 5),
     "indel_policy_align": ({"indel_policy": "align"}, 7),
 }
 
@@ -432,16 +429,19 @@ def test_keys_the_port_lacks_raise_at_build_naming_their_item(env, key):
         builder.build()
 
 
-def test_auto_grouping_on_rx_only_input_raises_at_build(tmp_path):
+def test_auto_grouping_on_rx_only_input_prepends_the_group_rule(tmp_path):
     codes = np.random.default_rng(3).integers(0, 4, size=5000).astype(np.int8)
     bam = str(tmp_path / "raw.bam")
     header = pbam.BamHeader("@HD\tVN:1.6\tSO:coordinate\n", [("chr1", 5000)])
     with pbam.BamWriter(bam, header) as w:
         for rec in stream_duplex_families(codes, 4, raw_umis=True):
             w.write(rec)
-    builder = pstages.PipelineBuilder(pconfig.FrameworkConfig(backend="cpu"), bam)
-    with pytest.raises(pwf.WorkflowError, match=r"item 8\b.*group_umi"):
-        builder.build()
+    builder = pstages.PipelineBuilder(pconfig.FrameworkConfig(backend="cpu"), bam,
+                                      outdir=str(tmp_path / "o"))
+    wf, _target = builder.build()
+    assert [r.name for r in wf.rules][:2] == ["group_reads_by_umi",
+                                              "call_consensus_molecular_tpu"]
+    assert builder.molecular_grouping == "adjacent"
     # 'never' does not probe, and a grouped input never needs grouping
     assert not pstages.PipelineBuilder(
         pconfig.FrameworkConfig(backend="cpu", group_umis="never"), bam)._needs_grouping()
