@@ -46,6 +46,20 @@ stage and writes <output>.bedmethyl / <output>.CX_report.txt (or at
 molecular and duplex write their StageStats as one JSON line on stderr;
 run prints {target, stats} on stdout and one [ran|skip] line per rule on
 stderr.
+
+The batch engine of the JAX package's accelerator defaults: 2 overlap
+workers on the card (BSSEQ_TPU_OVERLAP_THREADS; 0 on the CPU), each on
+its own CUDA stream, and min(4, cores-1) host workers
+(BSSEQ_TPU_HOST_WORKERS) for encode, rawize and emit; the bytes are the
+same for any count. --failpoints on molecular, duplex and run (or
+BSSEQ_TPU_FAILPOINTS) arms a fault-injection schedule
+(faults.failpoints); faults are retried (BSSEQ_TPU_RETRY_MAX,
+BSSEQ_TPU_RETRY_BACKOFF_S) and a batch that keeps failing degrades to the
+plain PyTorch version on the CPU, counted and printed; a CUDA, kernel
+build or host library error is never retried. The input guard
+(BSSEQ_TPU_INPUT_POLICY strict|quarantine|lenient|off, default strict)
+runs on molecular, duplex and run: under strict, bad input exits 3 with
+one `input error [<reason>]: ...` line and no traceback.
 """
 
 from __future__ import annotations
@@ -100,6 +114,29 @@ def _add_params(p: argparse.ArgumentParser, min_reads_default: int) -> None:
         help="where the vote runs: the card (default) or the plain "
         "PyTorch versions on the host",
     )
+    _add_failpoints(p)
+
+
+def _add_failpoints(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--failpoints", default="",
+        help="fault-injection schedule, e.g. "
+        "'dispatch_kernel=raise:RuntimeError@batch=7;"
+        "extsort_spill=io_error:p=0.01:seed=42' (overrides BSSEQ_TPU_FAILPOINTS)",
+    )
+
+
+def _arm_failpoints(args) -> None:
+    """Arm --failpoints; a bad schedule prints its error and arms
+    nothing, as in the JAX CLI."""
+    if getattr(args, "failpoints", ""):
+        from bsseqconsensusreads_tpu_torch.faults import failpoints
+        from bsseqconsensusreads_tpu_torch.utils.observe import stderr_line
+
+        try:
+            failpoints.arm(args.failpoints)
+        except failpoints.FailpointError as exc:
+            stderr_line(f"--failpoints: {exc}")
 
 
 def _params(args) -> ConsensusParams:
@@ -114,48 +151,61 @@ def _params(args) -> ConsensusParams:
 
 
 def cmd_molecular(args) -> int:
-    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+    from bsseqconsensusreads_tpu_torch.faults import guard as _guard
     from bsseqconsensusreads_tpu_torch.pipeline.calling import (
         StageStats,
         call_molecular_batches,
     )
     from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
-    from bsseqconsensusreads_tpu_torch.pipeline.stages import molecular_ingest_stream
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import (
+        molecular_ingest_stream,
+        open_guarded_reader,
+    )
 
+    _arm_failpoints(args)
     stats = StageStats(stage="molecular")
-    with BamReader(args.input) as reader:
-        batches = call_molecular_batches(
-            molecular_ingest_stream(
-                args.input, reader, stats,
-                ingest_choice=args.ingest, grouping=args.grouping,
-            ),
-            params=_params(args),
-            mode=args.mode,
-            batch_families=args.batch_families,
-            max_window=args.max_window,
-            grouping=args.grouping,
-            stats=stats,
-            batching=args.batching,
-            device=args.device,
-            emit=args.emit,
-            transport=args.transport,
-        )
-        write_batch_stream(batches, args.output, reader.header, args.mode,
-                           metrics=stats.metrics)
+    g = _guard.Guard.from_env(stats)
+    try:
+        with open_guarded_reader(args.input, g) as reader:
+            batches = call_molecular_batches(
+                molecular_ingest_stream(
+                    args.input, reader, stats,
+                    ingest_choice=args.ingest, grouping=args.grouping, guard=g,
+                ),
+                params=_params(args),
+                mode=args.mode,
+                batch_families=args.batch_families,
+                max_window=args.max_window,
+                grouping=args.grouping,
+                stats=stats,
+                batching=args.batching,
+                device=args.device,
+                emit=args.emit,
+                transport=args.transport,
+                guard=g,
+            )
+            write_batch_stream(batches, args.output, reader.header, args.mode,
+                               metrics=stats.metrics)
+    finally:
+        g.close()
     print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 
 
 def cmd_duplex(args) -> int:
-    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+    from bsseqconsensusreads_tpu_torch.faults import guard as _guard
     from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
     from bsseqconsensusreads_tpu_torch.pipeline.calling import (
         StageStats,
         call_duplex_batches,
     )
     from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
-    from bsseqconsensusreads_tpu_torch.pipeline.stages import duplex_ingest_stream
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import (
+        duplex_ingest_stream,
+        open_guarded_reader,
+    )
 
+    _arm_failpoints(args)
     stats = StageStats(stage="duplex")
     methyl_acc = None
     store = args.reference  # the FASTA path; loaded only if the wire engages
@@ -170,13 +220,14 @@ def cmd_duplex(args) -> int:
             store, *methyl_paths(args.methyl, args.methyl_out or args.output),
             metrics=stats.metrics, engine=args.emit,
         )
-    with FastaFile(args.reference) as fasta, BamReader(args.input) as reader:
+    g = _guard.Guard.from_env(stats)
+    with FastaFile(args.reference) as fasta, open_guarded_reader(args.input, g) as reader:
         names = [n for n, _ in reader.header.references]
         batches = call_duplex_batches(
             duplex_ingest_stream(
                 args.input, reader, stats,
                 ingest_choice=args.ingest, grouping=args.grouping,
-                passthrough=args.passthrough,
+                passthrough=args.passthrough, guard=g,
             ),
             fasta.fetch,
             names,
@@ -195,9 +246,13 @@ def cmd_duplex(args) -> int:
             methyl=methyl_acc,
             methyl_engine=args.methyl_engine,
             passthrough=args.passthrough,
+            guard=g,
         )
-        write_batch_stream(batches, args.output, reader.header, args.mode,
-                           metrics=stats.metrics)
+        try:
+            write_batch_stream(batches, args.output, reader.header, args.mode,
+                               metrics=stats.metrics)
+        finally:
+            g.close()
     if methyl_acc is not None:
         report = methyl_acc.finalize()
         print(json.dumps({"methyl": report}), file=sys.stderr)
@@ -212,6 +267,7 @@ def cmd_run(args) -> int:
     from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
     from bsseqconsensusreads_tpu_torch.utils.observe import stderr_line
 
+    _arm_failpoints(args)
     cfg = FrameworkConfig.from_yaml(args.config) if args.config else FrameworkConfig()
     if args.device:
         cfg.backend = args.device
@@ -426,20 +482,24 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument(
         "--sort-engine", choices=("auto", "native", "python", "bucket"), default="",
         help="raw coordinate-sort engine for stage outputs (overrides "
-        "config; 'bucket' is not ported yet and is refused, ROADMAP item 5)",
+        "config; 'bucket' routes records into coordinate buckets and "
+        "concatenates them, no merge tail; same bytes)",
     )
     p.add_argument("--sort-buckets", type=int, default=0,
                    help="bucket count for --sort-engine bucket")
     p.add_argument(
         "--stream-interstage", action="store_true",
-        help="stream molecular records straight into the duplex stage "
-        "(needs the bucket engine: falls back loudly to the two-pass path)",
+        help="fuse the molecular and duplex stages into one rule that "
+        "streams the sorted molecular records straight into the duplex "
+        "stage (needs --sort-engine bucket; otherwise falls back loudly "
+        "to the two-pass path)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="",
         help="where the consensus stages run (overrides the config's "
         "backend; default: the card)",
     )
+    _add_failpoints(p)
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("molecular", help="molecular consensus stage only")
@@ -574,4 +634,14 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(fn=cmd_filter_mapped)
 
     args = ap.parse_args(argv)
-    return args.fn(args)
+    from bsseqconsensusreads_tpu_torch.faults.guard import GuardError
+
+    try:
+        return args.fn(args)
+    except GuardError as e:
+        # a typed input failure (strict policy, a refused checkpoint
+        # resume): its message already carries record #N / block @voffset,
+        # and a traceback would read as a crash
+        print(f"bsseqconsensusreads_tpu_torch: input error [{e.reason}]: {e}",
+              file=sys.stderr, flush=True)
+        return 3

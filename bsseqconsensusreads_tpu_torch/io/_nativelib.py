@@ -13,7 +13,11 @@ no process ever loads a half-written library.
 
 A library that does not build or load raises NativeLibraryError with the
 compiler's or loader's message. Nothing degrades to a Python engine
-behind the caller's back: the Python engines are chosen by name.
+behind the caller's back: the Python engines are chosen by name. The
+`native_load` failpoint fires before the first load of each library in
+a process and raises NativeLibraryError too (the JAX package falls back
+to its Python codec there; the port has no fallback). Loads are locked:
+the overlap and host pools' workers may race to the first use.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -59,6 +64,7 @@ LIBRARIES = {
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 class NativeLibraryError(OSError):
@@ -126,7 +132,22 @@ def load(name: str, required_symbols: tuple[str, ...]) -> ctypes.CDLL:
     cached = _LOADED.get(name)
     if cached is not None:
         return cached
+    with _LOAD_LOCK:
+        cached = _LOADED.get(name)
+        if cached is not None:
+            return cached
+        return _load_locked(name, required_symbols)
+
+
+def _load_locked(name: str, required_symbols: tuple[str, ...]) -> ctypes.CDLL:
+    from bsseqconsensusreads_tpu_torch.faults import failpoints
+
     lib = LIBRARIES[name]
+    if failpoints.ARMED:
+        try:
+            failpoints.fire("native_load", so=lib.library)
+        except Exception as exc:  # an injected load failure
+            raise NativeLibraryError(lib.library, f"failpoint injected: {exc}") from None
     for attempt in range(2):
         path = build(name, force=attempt > 0)
         try:

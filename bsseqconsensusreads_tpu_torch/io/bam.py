@@ -3,8 +3,11 @@
 The port's own copy of the JAX package's io/bam.py: streaming reader,
 writer, record field/tag access and mutation. The BGZF container under a
 reader or writer is the native C++ codec (io.native) or the pure-Python
-one (io.bgzf), chosen by `engine`. The guarded (quarantining) reader is
-a later slice of the port.
+one (io.bgzf), chosen by `engine`; the Python codec writes through
+io.pbgzf's parallel deflate when host workers are available (the same
+bytes). GuardedBamReader is the input guard's reader (faults.guard): BGZF
+resync, record framing re-found after a gap, records quarantined or
+repaired by the policy.
 
 BAM layout (SAM spec §4): BGZF-compressed stream of
   magic "BAM\\1" | l_text | text | n_ref | (l_name name l_ref)*
@@ -396,7 +399,29 @@ def _create_bgzf(path: str, engine: str, level: int, threads: int | None = None)
 
         return NativeBgzfWriter(path, level, threads=threads)
 
-    return _select_bgzf(engine, native_factory, lambda: BgzfWriter.open(path, level=level))
+    def python_factory():
+        # the Python codec tier shards deflate across threads when
+        # workers are available (io.pbgzf; BSSEQ_TPU_PBGZF overrides) —
+        # the serial BgzfWriter's bytes for any worker count
+        from bsseqconsensusreads_tpu_torch.io import pbgzf
+
+        workers = pbgzf.default_workers()
+        if workers >= 2:
+            return pbgzf.PBgzfWriter.open(path, level=level, workers=workers)
+        return BgzfWriter.open(path, level=level)
+
+    return _select_bgzf(engine, native_factory, python_factory)
+
+
+def attach_codec_metrics(writer: "BamWriter", metrics) -> None:
+    """Point a writer's parallel-deflate codec (io.pbgzf) at a stage's
+    metrics so its worker-busy seconds and block counts are booked
+    ('sort_write.deflate' and 'sort_write.deflate_span', pbgzf_*
+    counters). No-op for the serial Python codec and the native codec
+    (its threads account for themselves C-side)."""
+    codec = getattr(writer, "_bgzf", None)
+    if codec is not None and hasattr(codec, "workers") and hasattr(codec, "metrics"):
+        codec.metrics = metrics
 
 
 _REC_FIXED = struct.Struct("<iiBBHHHIiii")  # refID..tlen after block_size (32 bytes)
@@ -596,6 +621,240 @@ class BamReader:
         self._bgzf.close()
 
     def __enter__(self) -> "BamReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _FramingGap(Exception):
+    """Internal: the BGZF layer resynced past corrupt blocks; record
+    framing must be re-found before reading on."""
+
+
+class GuardedBamReader:
+    """The input guard's record reader: BamReader's surface (header + record
+    iteration) with the guard's policy applied per record.
+
+    * strict — every structural refusal is a typed BamError and every
+      semantic violation a RecordGuardError, both carrying `record #N`
+      (and the BGZF block offset on the python engine).
+    * quarantine/lenient — runs on the pure-python BGZF engine with
+      block resync armed: corrupt blocks are skipped (ledgered
+      `stream_gap`), record framing is re-found by scanning for the
+      next structurally-plausible record boundary, corrupt records go
+      to the sidecar, truncated tails end the stream cleanly
+      (`stream_truncated`). The iterator itself never raises for
+      anything past the header.
+
+    Records yielded are fully validated — the guard's
+    `records_prevalidated` flag tells the family-level pass
+    (faults.guard.guard_groups) not to re-check them.
+    """
+
+    #: decompressed bytes scanned for a plausible record boundary after
+    #: a framing gap before declaring the tail lost
+    FRAME_SCAN_LIMIT = 1 << 20
+
+    def __init__(self, path: str, guard, engine: str = "auto"):
+        self.guard = guard
+        if guard.resilient:
+            # resync needs the python block codec (seek + re-inflate)
+            self._bgzf = BgzfReader.open(
+                path, resync=True, on_event=self._stream_event
+            )
+        else:
+            self._bgzf = _open_bgzf(path, engine)
+        self.records_read = 0
+        self._pending = b""  # decompressed pushback from frame scans
+        try:
+            self.header = read_bam_header(self._bgzf, path)
+        except BaseException:
+            self._bgzf.close()
+            raise
+        guard.bind(path, self.header)
+        guard.records_prevalidated = True
+
+    # -- plumbing ---------------------------------------------------------
+
+    def _stream_event(self, kind: str, payload: dict) -> None:
+        self.guard.stream_event(kind, payload)
+
+    def _voffset(self) -> int | None:
+        return getattr(self._bgzf, "last_block_offset", None)
+
+    def _read(self, n: int) -> bytes:
+        if self._pending:
+            take, self._pending = self._pending[:n], self._pending[n:]
+            if len(take) == n:
+                return take
+            return take + self._bgzf.read(n - len(take))
+        return self._bgzf.read(n)
+
+    def _gap_pending(self) -> bool:
+        return bool(getattr(self._bgzf, "gap_pending", False))
+
+    def _next_blob(self) -> bytes | None:
+        """One structurally-valid record body, or None at clean EOF.
+        Raises BamError (typed) on refusal and _FramingGap when the
+        BGZF layer resynced mid-record."""
+        raw = self._read(4)
+        if not raw:
+            if self._gap_pending():
+                raise _FramingGap()
+            return None
+        if len(raw) < 4:
+            if self._gap_pending():
+                raise _FramingGap()
+            raise BamError(
+                "truncated record size", record_index=self.records_read,
+                voffset=self._voffset(),
+            )
+        (block_size,) = struct.unpack("<i", raw)
+        if block_size < MIN_RECORD_SIZE or block_size > MAX_RECORD_SIZE:
+            raise BamError(
+                "corrupt record size", record_index=self.records_read,
+                voffset=self._voffset(),
+            )
+        data = self._read(block_size)
+        if len(data) < block_size:
+            if self._gap_pending():
+                raise _FramingGap()
+            raise BamError(
+                "truncated record body", record_index=self.records_read,
+                voffset=self._voffset(),
+            )
+        reason = check_record_body(data)
+        if reason is not None:
+            exc = BamError(
+                reason, record_index=self.records_read,
+                voffset=self._voffset(),
+            )
+            exc.blob = data  # framing survives: the blob is quarantinable
+            raise exc
+        return data
+
+    def _find_frame(self) -> bool:
+        """Scan the post-gap decompressed stream for the next offset
+        where a structurally-valid record starts (its declared size
+        fits, its body checks out, and — when enough bytes are buffered
+        — the following record's size field is plausible too). Locks
+        the stream there; False when no boundary exists in
+        FRAME_SCAN_LIMIT bytes (tail lost)."""
+        if hasattr(self._bgzf, "ack_gap"):
+            self._bgzf.ack_gap()
+        buf = self._pending + self._bgzf.read(self.FRAME_SCAN_LIMIT)
+        self._pending = b""
+        for off in range(0, max(len(buf) - MIN_RECORD_SIZE - 4, 0)):
+            (bs,) = struct.unpack_from("<i", buf, off)
+            if bs < MIN_RECORD_SIZE or bs > MAX_RECORD_SIZE:
+                continue
+            end = off + 4 + bs
+            if end > len(buf):
+                continue
+            if check_record_body(buf[off + 4 : end]) is not None:
+                continue
+            if end + 4 <= len(buf):  # corroborate with the next size
+                (bs2,) = struct.unpack_from("<i", buf, end)
+                if bs2 != 0 and (
+                    bs2 < MIN_RECORD_SIZE or bs2 > MAX_RECORD_SIZE
+                ):
+                    continue
+            self.guard.stream_event("frame_resync", {
+                "discarded_bytes": off, "voffset": self._voffset(),
+            })
+            self._pending = buf[off:]
+            return True
+        self.guard.stream_event("stream_truncated", {
+            "error": "no record boundary after stream gap",
+            "scanned": len(buf),
+        })
+        return False
+
+    # -- iteration --------------------------------------------------------
+
+    def __iter__(self) -> Iterator[BamRecord]:
+        g = self.guard
+        while True:
+            try:
+                data = self._next_blob()
+            except _FramingGap:
+                if not self._find_frame():
+                    return
+                continue
+            except BamError as exc:
+                if not g.resilient:
+                    raise
+                blob = getattr(exc, "blob", None)
+                if blob is not None:
+                    # framing intact: quarantine this record, read on
+                    g.quarantine_blob(
+                        blob, self.records_read, exc.reason,
+                        voffset=self._voffset(),
+                    )
+                    self.records_read += 1
+                    g.count("records_seen")
+                    continue
+                if exc.reason == "record-truncated":
+                    g.stream_event(
+                        "stream_truncated", {"error": str(exc)}
+                    )
+                    return
+                # corrupt size field: framing lost, re-find a boundary
+                g.stream_event("frame_lost", {"error": str(exc)})
+                if not self._find_frame():
+                    return
+                continue
+            if data is None:
+                return
+            index = self.records_read
+            self.records_read += 1
+            g.count("records_seen")
+            try:
+                rec = decode_record(data)
+            except BamError as exc:
+                if not g.resilient:
+                    exc.record_index = index
+                    raise
+                g.quarantine_blob(
+                    data, index, exc.reason, voffset=self._voffset()
+                )
+                continue
+            rec = self._validate(rec, index)
+            if rec is not None:
+                yield rec
+
+    def _validate(self, rec: BamRecord, index: int) -> BamRecord | None:
+        from bsseqconsensusreads_tpu_torch.faults import guard as _guard
+
+        g = self.guard
+        if g.resilient and not rec.has_tag("MI"):
+            g.quarantine_record(rec, index, "missing-mi")
+            return None
+        v = _guard.record_violation(
+            rec, n_ref=g.n_ref, ref_lens=g.ref_lens,
+            max_read_len=g.max_read_len,
+        )
+        if v is None:
+            return rec
+        reason, repairable = v
+        if g.strict:
+            raise _guard.RecordGuardError(
+                f"record failed input validation: {reason}",
+                reason=reason, record_index=index, qname=rec.qname,
+            )
+        if g.lenient and repairable:
+            fixed = _guard.repair_record(rec)
+            if fixed:
+                g.repaired(rec, index, fixed)
+                return rec
+        g.quarantine_record(rec, index, reason)
+        return None
+
+    def close(self) -> None:
+        self._bgzf.close()
+
+    def __enter__(self) -> "GuardedBamReader":
         return self
 
     def __exit__(self, *exc) -> None:

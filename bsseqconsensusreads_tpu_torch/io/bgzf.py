@@ -1,8 +1,10 @@
 """BGZF (blocked gzip) codec — the container format of BAM.
 
 Pure-Python implementation over zlib: the port's own copy of the JAX
-package's python engine (io/bgzf.py there), without the stream-resync
-mode of its input guard. A native codec is a later slice of the port.
+package's python engine (io/bgzf.py there), with the stream-resync mode
+of the input guard (faults.guard) and the `bgzf_inflate` / `bgzf_write`
+failpoints. The native codec is io.native; io.pbgzf shards this
+module's block deflate across threads.
 
 Format: a BGZF file is a sequence of gzip members, each with an FEXTRA "BC"
 subfield carrying BSIZE (total member size - 1), uncompressed payload at most
@@ -15,6 +17,7 @@ import struct
 import zlib
 from typing import BinaryIO
 
+from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
 from bsseqconsensusreads_tpu_torch.faults.guard import StreamGuardError
 
 # Largest uncompressed payload per block (htslib convention: 64KiB minus slop).
@@ -29,8 +32,10 @@ _HEADER = struct.Struct("<4BI2BH")  # magic(2) CM FLG MTIME XFL OS XLEN — 12 b
 
 
 class BgzfError(StreamGuardError):
-    """BGZF framing/integrity error (a typed stream error, itself an
-    IOError)."""
+    """BGZF framing/integrity error. Subclasses the graftguard typed
+    stream error (which is an IOError, preserving the historical
+    ancestry) so every corruption an input stream can cause is a
+    faults.guard.GuardError — the fuzz contract's 'clean typed error'."""
 
 
 def _parse_block_size(extra: bytes) -> int:
@@ -47,20 +52,111 @@ def _parse_block_size(extra: bytes) -> int:
 
 
 class BgzfReader:
-    """Streaming BGZF decompressor with a file-like read() interface."""
+    """Streaming BGZF decompressor with a file-like read() interface.
 
-    def __init__(self, fileobj: BinaryIO):
+    resync=True arms the graftguard stream-resilience mode: a corrupt
+    or truncated block raises nothing — the reader scans forward for
+    the next block that parses AND inflates cleanly (CRC-checked),
+    resumes there, and flags the discontinuity via `gap_pending` (the
+    record layer must re-find a record boundary; io.bam's guarded
+    iterator does). A truncated tail (missing EOF marker / partial
+    final block with no later block) becomes a clean end-of-stream,
+    also flagged. `on_event(kind, payload)` receives one callback per
+    resync/truncation so the guard can ledger and count it.
+    """
+
+    #: bytes scanned forward for the next valid block before giving up
+    RESYNC_SCAN_LIMIT = 1 << 22
+
+    def __init__(self, fileobj: BinaryIO, resync: bool = False,
+                 on_event=None):
         self._fh = fileobj
         self._buf = b""
         self._buf_off = 0
         self._eof = False
         self._last_block_empty = False
+        self._resync = resync
+        self._on_event = on_event
+        #: file offset of the most recent block's first byte (None when
+        #: the underlying file object is not seekable)
+        self.last_block_offset: int | None = 0
+        #: a resync skipped bytes and record framing is lost; cleared
+        #: by the consumer via ack_gap()
+        self.gap_pending = False
+        self._gap_just = False
 
     @classmethod
-    def open(cls, path: str) -> "BgzfReader":
-        return cls(open(path, "rb"))
+    def open(cls, path: str, resync: bool = False,
+             on_event=None) -> "BgzfReader":
+        return cls(open(path, "rb"), resync=resync, on_event=on_event)
+
+    def _event(self, kind: str, payload: dict) -> None:
+        if self._on_event is not None:
+            self._on_event(kind, payload)
+
+    def _tell(self) -> int | None:
+        try:
+            return self._fh.tell()
+        except (OSError, AttributeError):
+            return None
 
     def _read_block(self) -> bytes | None:
+        if not self._resync:
+            return self._read_block_raw()
+        try:
+            return self._read_block_raw()
+        except BgzfError as exc:
+            return self._resync_block(exc)
+
+    def _resync_block(self, exc: BgzfError) -> bytes | None:
+        """Skip-to-next-block recovery: scan forward from just past the
+        corrupt block's start for the next gzip member that parses as
+        BGZF and inflates with a matching CRC. No candidate within
+        RESYNC_SCAN_LIMIT (or an unseekable stream) ends the stream as
+        a truncated tail instead."""
+        start = self.last_block_offset
+        if start is None or not self._fh.seekable():
+            self._event("stream_truncated", {"error": str(exc)})
+            # suppress the EOF-marker raise; reader state is confined to
+            # the one ingest thread that owns this reader
+            self._last_block_empty = True
+            return None
+        scan_from = start + 1
+        self._fh.seek(scan_from)
+        window = self._fh.read(self.RESYNC_SCAN_LIMIT)
+        off = 0
+        while True:
+            hit = window.find(b"\x1f\x8b\x08\x04", off)
+            if hit < 0:
+                self._event("stream_truncated", {
+                    "error": str(exc), "scanned": len(window),
+                })
+                self._fh.seek(0, 2)  # consume: later reads see EOF
+                self._last_block_empty = True
+                return None
+            self._fh.seek(scan_from + hit)
+            try:
+                data = self._read_block_raw()
+            except BgzfError:
+                off = hit + 1
+                continue
+            self._event("stream_gap", {
+                "error": str(exc),
+                "gap_start": start,
+                "resumed_at": scan_from + hit,
+                "skipped_bytes": scan_from + hit - start,
+            })
+            self._gap_just = True
+            self.gap_pending = True
+            return data
+
+    def ack_gap(self) -> None:
+        """Consumer acknowledges a framing gap (after re-finding a
+        record boundary in the post-gap bytes)."""
+        self.gap_pending = False
+
+    def _read_block_raw(self) -> bytes | None:
+        self.last_block_offset = self._tell()
         head = self._fh.read(12)
         if not head:
             # A well-formed BGZF stream ends with an empty block (the 28-byte
@@ -84,6 +180,8 @@ class BgzfReader:
         if len(cdata) < cdata_len or len(tail) < 8:
             raise BgzfError("truncated BGZF block")
         crc, isize = struct.unpack("<II", tail)
+        if _failpoints.ARMED:  # guarded: this runs once per 64K block
+            _failpoints.fire("bgzf_inflate")
         try:
             data = zlib.decompress(cdata, wbits=-15)
         except zlib.error as exc:  # corrupt deflate stream, typed
@@ -110,6 +208,13 @@ class BgzfReader:
                     break
                 self._buf = block
                 self._buf_off = 0
+                if self._gap_just:
+                    # a resync happened: never splice pre- and post-gap
+                    # bytes into one logical read — return short and
+                    # leave the post-gap block buffered for the record
+                    # layer's re-framing pass
+                    self._gap_just = False
+                    break
                 continue
             take = min(avail, need)
             parts.append(self._buf[self._buf_off : self._buf_off + take])
@@ -130,8 +235,15 @@ class BgzfReader:
 def deflate_block(data: bytes, level: int = 6) -> bytes:
     """Compress one <=MAX_BLOCK_SIZE payload into a complete framed BGZF
     block (gzip member with the BC/BSIZE FEXTRA subfield + CRC32/ISIZE
-    footer). Each block is an independent deflate stream, so the same
-    payload sequence always produces the same file bytes."""
+    footer). THE one block encoder — BgzfWriter and the parallel codec
+    (io.pbgzf) both call it, so the incompressible-payload retry and the
+    frame bytes cannot drift between the serial and sharded paths: the
+    same payload sequence always produces the same file bytes, whatever
+    codec or worker count wrote it. Each block is an independent deflate
+    stream, which is exactly what makes sharding deflate across threads
+    byte-identical to the serial writer."""
+    if _failpoints.ARMED:  # guarded: this runs once per 64K block
+        _failpoints.fire("bgzf_write")
     co = zlib.compressobj(level, zlib.DEFLATED, -15)
     cdata = co.compress(data) + co.flush()
     bsize = len(cdata) + 12 + 6 + 8  # header + xtra + footer
@@ -188,3 +300,4 @@ class BgzfWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
+

@@ -271,6 +271,9 @@ class ColumnarBatch:
         "cigar", "cigar_off", "qname", "mi", "rx",
         "ref_span", "left_clip", "right_clip", "cigar_flags",
         "aux", "aux_off", "aux_len",
+        # the input guard's per-batch violation cache
+        # (faults.guard.batch_violations, computed at most once)
+        "guard_bad",
     )
 
     def __init__(self, n, **arrays):

@@ -7,11 +7,11 @@ and packed-rows input packs, and the methylation tally merge. Each is
 byte-identical to the numpy twin that stays beside it (pipeline.calling,
 ops.hosttwin, models.molecular, ops.wire, methyl.tally). The library
 builds at first use (io._nativelib); a failed build or load raises
-NativeLibraryError.
+NativeLibraryError. bucket_split is the bucket sort engine's routing
+pass (pipeline.bucketemit).
 
-The b0 output unpack, the one-pass duplex retire and the bucket split of
-the same source are not bound: the port's wire returns the full output
-planes, and the bucket engine comes with a later slice.
+The b0 output unpack and the one-pass duplex retire of the same source
+are not bound: the port's wire returns the full output planes.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ REQUIRED_SYMBOLS = (
     "wirepack_pack_duplex",
     "wirepack_pack_rows",
     "wirepack_methyl_tally_merge",
+    "wirepack_bucket_assign",
+    "wirepack_bucket_scatter",
 )
 
 # Error codes from csrc/host/wirepack.cpp.
@@ -78,6 +80,14 @@ def lib() -> C.CDLL:
     lib.wirepack_pack_rows.argtypes = [vp, vp, C.c_int64, C.c_int64, C.c_int] + [vp] * 4
     lib.wirepack_methyl_tally_merge.restype = C.c_int64
     lib.wirepack_methyl_tally_merge.argtypes = [vp] * 4 + [C.c_int64] + [vp] * 4
+    lib.wirepack_bucket_assign.restype = C.c_int64
+    lib.wirepack_bucket_assign.argtypes = [
+        vp, C.c_int64, vp, C.c_int32, C.c_int64, vp, vp, vp,
+    ]
+    lib.wirepack_bucket_scatter.restype = C.c_int64
+    lib.wirepack_bucket_scatter.argtypes = [
+        vp, C.c_int64, vp, vp, vp, C.c_int32, vp, C.c_int64, vp,
+    ]
     _LIB = lib
     return lib
 
@@ -375,3 +385,48 @@ def methyl_tally_merge(sites, ctx, meth, unmeth):
         _p(sites), _p(ctx), _p(meth), _p(unmeth), n, *(_p(a) for a in out)
     )
     return tuple(a[:m].copy() for a in out)
+
+
+def bucket_split(blob, boundaries: np.ndarray) -> tuple[list[bytes], np.ndarray]:
+    """The bucket engine's routing pass over one chunk (pipeline.bucketemit).
+
+    blob: concatenated encoded record frames (4-byte block_size prefix
+    each). boundaries: int64 ascending combined-key lower bounds
+    (boundaries[0] == 0; combined key = mapped_ref * 2^31 + mapped_pos,
+    the (ref, pos) prefix of raw_coordinate_key). Returns (per-bucket byte
+    strings in input order, per-bucket record counts int64[nbuckets]):
+    one frame scan (wirepack_bucket_assign) and one gather
+    (wirepack_bucket_scatter), no per-record Python."""
+    h = lib()
+    src = np.frombuffer(blob, dtype=np.uint8)
+    bounds = np.ascontiguousarray(boundaries, dtype=np.int64)
+    nbuckets = int(bounds.size)
+    cap = src.size // 36 + 1  # min frame = 4-byte prefix + 32-byte record
+    offs = np.empty(cap, np.int64)
+    sizes = np.empty(cap, np.int32)
+    buckets = np.empty(cap, np.int32)
+    n = h.wirepack_bucket_assign(
+        _p(src), src.size, _p(bounds), nbuckets, cap, _p(offs), _p(sizes), _p(buckets),
+    )
+    if n < 0:
+        raise ValueError(
+            f"native bucket assign found a malformed record frame (rc={n}): "
+            "the emit stream is corrupt"
+        )
+    n = int(n)
+    offs, sizes, buckets = offs[:n], sizes[:n], buckets[:n]
+    byte_totals = np.bincount(buckets, weights=sizes, minlength=nbuckets).astype(np.int64)
+    counts = np.bincount(buckets, minlength=nbuckets).astype(np.int64)
+    starts = np.zeros(nbuckets, np.int64)
+    np.cumsum(byte_totals[:-1], out=starts[1:])
+    out = np.empty(src.size, np.uint8)
+    rc = h.wirepack_bucket_scatter(
+        _p(src), n, _p(offs), _p(sizes), _p(buckets), nbuckets, _p(starts),
+        out.size, _p(out),
+    )
+    if rc != 0:
+        raise ValueError(f"native bucket scatter failed (rc={rc})")
+    ends = starts + byte_totals
+    parts = [out[starts[b]:ends[b]].tobytes() if byte_totals[b] else b""
+             for b in range(nbuckets)]
+    return parts, counts

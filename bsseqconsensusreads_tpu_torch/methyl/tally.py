@@ -28,9 +28,11 @@ merge_tallies has a native engine (csrc/host/wirepack.cpp
 methyl_tally_merge, bound in io.wirepack) and the numpy argsort +
 reduceat twin below; both give the same arrays.
 
-Left for a later slice (ROADMAP queue 1, item 5): the JAX package fires
-the `extsort_spill` failpoint with stage="methyl" and retries the run
-write (faults.retry.guarded); here the run is written by a direct call.
+A run write fires the `extsort_spill` failpoint with stage="methyl" and
+runs under the bounded retrier (faults.retry.guarded), as in the JAX
+package. The duplex stage adds each batch's tallies on its ordered
+retire (pipeline.calling), so batches arrive here in batch order under
+any number of overlap and host workers.
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ import threading
 
 import numpy as np
 
+from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
 from bsseqconsensusreads_tpu_torch.faults import integrity as _integrity
+from bsseqconsensusreads_tpu_torch.faults import retry as _faultretry
 from bsseqconsensusreads_tpu_torch.utils import observe
 
 _RUN_MAGIC = b"BSMT"
@@ -239,7 +243,16 @@ class MethylAccumulator:
             return
         run_index = len(self._runs)
         path = f"{self._base}.methyl.run.{run_index:04d}"
-        n = _write_run_payload(path, [self._pending[bi] for bi in take], self.engine)
+        entries = [self._pending[bi] for bi in take]
+
+        def write_attempt() -> int:
+            # a failed attempt rewrites the same path whole
+            _failpoints.fire("extsort_spill", stage="methyl", run=run_index)
+            return _write_run_payload(path, entries, self.engine)
+
+        n = _faultretry.guarded(
+            write_attempt, metrics=self.metrics, stage="extsort_spill", batch=run_index,
+        )
         self._runs.append({
             "file": os.path.basename(path),
             "crc": _integrity.file_crc32(path),

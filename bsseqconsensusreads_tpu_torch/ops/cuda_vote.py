@@ -56,6 +56,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -83,6 +84,15 @@ SEG_VOTE_SHAPES: collections.Counter = collections.Counter()
 
 _libs: dict = {}
 _debug = False
+#: one build and load at a time, and exact launch counts, when the
+#: overlap workers launch from several threads
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """The vote kernels did not build, load or launch. Never retried or
+    degraded (faults.retry.fatal): the run fails."""
 
 
 def _nvcc() -> str:
@@ -92,7 +102,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the vote kernels build on a machine with the CUDA toolkit")
+    raise KernelError("nvcc not found: the vote kernels build on a machine with the CUDA toolkit")
 
 
 def build(verbose: bool = False, debug: bool = False) -> Path:
@@ -114,7 +124,7 @@ def build(verbose: bool = False, debug: bool = False) -> Path:
     cmd += ["-o", str(tmp), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     if verbose and proc.stderr:
         print(proc.stderr, end="")
     os.replace(tmp, library)
@@ -133,7 +143,12 @@ def _load():
     """The selected build with its C signatures declared (pointers and the
     stream as c_void_p), loaded once per process and build."""
     lib = _libs.get(_debug)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _libs.get(_debug)
+        if lib is not None:
+            return lib
         lib = ctypes.CDLL(str(build(debug=_debug)))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsseq_seg_vote.argtypes = [
@@ -166,7 +181,7 @@ def _check_aligned(**tensors) -> None:
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        raise KernelError(f"{name} launch failed: cudaError {rc}")
 
 
 def seg_vote(bases, quals, offsets, params: ConsensusParams,
@@ -217,8 +232,9 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bsseq_seg_vote")
-    LAUNCHES["seg_vote"] += 1
-    SEG_VOTE_SHAPES[(n, p, w, s)] += 1
+    with _COUNT_LOCK:
+        LAUNCHES["seg_vote"] += 1
+        SEG_VOTE_SHAPES[(n, p, w, s)] += 1
     return out
 
 
@@ -273,7 +289,8 @@ def vote_finalize(ll, depth, params: ConsensusParams):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bsseq_vote_finalize")
-    LAUNCHES["vote_finalize"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES["vote_finalize"] += 1
     return base, qual
 
 

@@ -58,17 +58,41 @@ computes the methylation planes of every batch (methyl.context): on the
 batch's device inside the duplex dispatch (on the wire its output wire
 carries them after the duplex planes) or with the numpy twin on the host
 (methyl_engine 'host'), and adds their tallies to the accumulator in
-retire.
+the ordered retire.
+
+The batch engine (the JAX package's accelerator defaults): every batch
+is one task — its dispatch + fetch unit under the bounded retrier
+(faults.retry.guarded), then its record emit against shadow stats — on
+the stage's one executor (_batch_executor): the overlap workers on the
+card (_overlap_workers, BSSEQ_TPU_OVERLAP_THREADS; each owns a CUDA
+stream and pinned staging buffers, _OverlapPool and _Staging), else the
+host workers (parallel.hostpool, BSSEQ_TPU_HOST_WORKERS, min(4,
+cores-1)), else the dispatch thread itself (_Inline). The host workers
+also encode one chunk ahead (_hp_prefetch). One retire joins each task
+in batch order (_pipelined), so the bytes are the same for any worker
+count; the shadow counts, the methyl tallies and checkpoint
+skip_batches all see batches in order. The failpoint sites are
+dispatch_kernel, fetch_out and retire_future; a batch that keeps
+failing degrades to its unit once more on the stage's own device with
+the failpoints bypassed (counted 'batches_degraded' and printed on
+stderr; a card run's batch is never voted on the CPU), a CUDA, card
+memory or kernel build error is never retried, and the stall watchdog
+(BSSEQ_TPU_STALL_TIMEOUT_S) re-runs a wedged batch inline. The input guard's family admission (faults.guard.guard_groups)
+runs on the group stream.
 
 Left for later slices of the port (each raises or is absent here): mesh
 sharding with its round-robin wire and the deep route's template-axis
-split over devices, the overlap and host pools, retry/degrade and
-failpoints.
+split over devices.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Iterable, Iterator, Sequence
@@ -77,6 +101,9 @@ import numpy as np
 import torch
 
 from bsseqconsensusreads_tpu_torch.alphabet import NBASE
+from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
+from bsseqconsensusreads_tpu_torch.faults import guard as _guard_mod
+from bsseqconsensusreads_tpu_torch.faults import retry as _faultretry
 from bsseqconsensusreads_tpu_torch.faults.guard import MissingTagError
 from bsseqconsensusreads_tpu_torch.io.bam import (
     CDEL,
@@ -138,6 +165,8 @@ from bsseqconsensusreads_tpu_torch.ops.encode import (
     scan_matches,
     trim_softclips,
 )
+from bsseqconsensusreads_tpu_torch.parallel import hostpool as _hostpool
+from bsseqconsensusreads_tpu_torch.utils import observe
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
 from bsseqconsensusreads_tpu_torch.utils.oracle import oracle_convert_read
@@ -186,12 +215,39 @@ class StageStats:
     def families_per_second(self) -> float:
         return self.families / self.wall_seconds if self.wall_seconds else 0.0
 
+    #: first-class stage fields read from the locked metrics counters
+    #: (worker threads increment them): the retry executor's recovery
+    #: accounting (faults.retry) and the input guard's (faults.guard) —
+    #: a run summary can never hide that batches were retried,
+    #: re-dispatched after a stall or degraded to the CPU, or that input
+    #: was dropped or altered. Reconciliation: records_seen = records_in
+    #: + records_quarantined.
+    _COUNTER_FIELDS = (
+        ("records_seen", "records_seen"),
+        ("records_quarantined", "records_quarantined"),
+        ("records_repaired", "records_repaired"),
+        ("families_quarantined", "families_quarantined"),
+        ("family_records_quarantined", "family_records_quarantined"),
+        ("stream_gaps", "stream_gap"),
+        ("stream_truncations", "stream_truncated"),
+        ("frame_resyncs", "frame_resync"),
+        ("frames_lost", "frame_lost"),
+        ("batches_retried", "batches_retried"),
+        ("batches_recovered", "batches_recovered"),
+        ("batches_degraded", "batches_degraded"),
+        ("batches_stalled", "batches_stalled"),
+    )
+
+    def counter(self, name: str) -> int:
+        return self.metrics.counters.get(name, 0)
+
     def as_dict(self) -> dict:
         device_s = sum(
             v for k, v in self.metrics.seconds.items() if k in DEVICE_PHASES
         )
         return {
             "records_in": self.records_in,
+            **{field: self.counter(name) for field, name in self._COUNTER_FIELDS},
             "families": self.families,
             "consensus_out": self.consensus_out,
             "skipped_families": self.skipped_families,
@@ -451,25 +507,249 @@ def _bucket_deep(deep):
             yield group[i:i + max_k]
 
 
-def _pipelined(events):
+def _pipelined(events, depth: int = 1):
     """Dispatch/retire software pipeline shared by the batch callers.
 
     `events` yields one ("now", records) or ("deferred", retire_fn) item per
     input chunk. A "deferred" retire (event sync + D2H copy + record emit
-    of an already-dispatched batch) is held until the next batch has been
-    dispatched; "now" results first drain the held retire. Exactly one
-    yield per event, in event order."""
+    of an already-dispatched batch, or the join of a pool's future) is
+    held until `depth` newer dispatches are in flight; "now" results
+    first drain the held retires. Exactly one yield per event, in event
+    order — the invariant checkpoint resume's skip_batches counting
+    depends on, so the bytes are the same for any depth. The held
+    retires are dropped at once when the consumer abandons the
+    generator, so a failing stage leaks no in-flight batch."""
+    depth = max(depth, 1)
+    pending: deque = deque()
+    try:
+        for kind, payload in events:
+            if kind == "deferred":
+                while len(pending) >= depth:
+                    yield pending.popleft()()
+                pending.append(payload)
+            else:
+                while pending:
+                    yield pending.popleft()()
+                yield payload
+        while pending:
+            yield pending.popleft()()
+    finally:
+        pending.clear()
+
+
+def _overlap_workers(device: torch.device) -> int:
+    """Worker threads of the dispatch/fetch overlap pipeline: the JAX
+    package's rule — 2 on an accelerator (the card), 0 on the CPU, where
+    the kernels run on the cores the pipeline needs.
+    BSSEQ_TPU_OVERLAP_THREADS overrides (0 disables)."""
+    env = os.environ.get("BSSEQ_TPU_OVERLAP_THREADS")
+    if env is not None:
+        try:
+            return max(0, int(env))
+        except ValueError:
+            pass
+    return 2 if device.type == "cuda" else 0
+
+
+class _Staging:
+    """One overlap worker's pinned host staging: each upload copies its
+    array into a region of a reused pinned buffer and leaves it with a
+    non_blocking copy. reset() starts a task, after the worker's stream
+    has drained (a task that failed may have left copies in flight)."""
+
+    _ALIGN = 256
+
+    def __init__(self):
+        self._buf = None
+        self._held: list = []  # outgrown buffers still read by this task
+        self._off = 0
+
+    def reset(self) -> None:
+        self._held.clear()
+        self._off = 0
+
+    def upload(self, arr: np.ndarray, device: torch.device) -> torch.Tensor:
+        nbytes = arr.nbytes
+        if self._buf is None or self._off + nbytes > self._buf.numel():
+            if self._buf is not None:
+                self._held.append(self._buf)
+            size = max(1 << 20, 2 * (self._off + nbytes))
+            self._buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            self._off = 0
+        region = self._buf[self._off:self._off + nbytes]
+        self._off += -(-nbytes // self._ALIGN) * self._ALIGN
+        region.numpy()[:] = arr.reshape(-1).view(np.uint8)
+        host = region.view(torch.from_numpy(arr[:0].reshape(-1)).dtype).view(arr.shape)
+        return host.to(device, non_blocking=True)
+
+
+_WORKER = threading.local()
+
+
+class _OverlapPool:
+    """The overlap workers: a thread pool whose threads each own one CUDA
+    stream and one pinned _Staging on a card (the torch form of the JAX
+    package's dispatch-on-a-worker). A task runs under its worker's
+    stream, so its uploads, launches (ops.cuda_vote launches on the
+    current stream), output event and D2H copy all sit on that stream;
+    every stream first waits on `ready`, an event recorded on the
+    dispatching thread's stream when the pool opens — after the genome
+    upload and the cached device tables. On the CPU the tasks just run."""
+
+    def __init__(self, workers: int, device: torch.device):
+        self.workers = workers
+        self.device = device
+        self._ready = None
+        if device.type == "cuda":
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(device))
+        self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="bsseq-ovl")
+
+    def _run(self, fn, args):
+        if self._ready is None:
+            return fn(*args)
+        stream = getattr(_WORKER, "stream", None)
+        if stream is None:
+            stream = _WORKER.stream = torch.cuda.Stream(self.device)
+            _WORKER.staging = _Staging()
+            stream.wait_event(self._ready)
+        stream.synchronize()
+        _WORKER.staging.reset()
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            return fn(*args)
+
+    def submit(self, fn, *args, batch=None):
+        return self._pool.submit(self._run, fn, args)
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+class _Inline:
+    """The batch executor with no workers: a task runs when it is
+    submitted, on the dispatch thread, and its future is already done
+    (an error it raised surfaces at the retire's join)."""
+
+    workers = 0
+
+    def submit(self, fn, *args, batch=None):
+        fut = Future()
+        try:
+            fut.set_result(fn(*args))
+        except Exception as exc:
+            fut.set_exception(exc)
+        return fut
+
+    def shutdown(self) -> None:
+        pass
+
+
+def _make_overlap_pool(device: torch.device, stats: "StageStats") -> "_OverlapPool | None":
+    """The overlap workers, or None when the stage has none (the CPU, or
+    an explicit disable). A disabled pool is loud: the stage counts
+    'overlap_pool_disabled'; an enabled one counts
+    'overlap_pool_workers'."""
+    n = _overlap_workers(device)
+    if n <= 0:
+        stats.metrics.count("overlap_pool_disabled")
+        return None
+    stats.metrics.count("overlap_pool_workers", n)
+    return _OverlapPool(n, device)
+
+
+def _batch_executor(device: torch.device, stats: "StageStats", hpool):
+    """The one executor a stage's batch tasks run on: the overlap
+    workers when there are any, else the host pool `hpool`, else the
+    dispatch thread (_Inline). The retire pipeline's depth is its
+    workers + 1: every worker holds one batch, one more sits queued."""
+    return _make_overlap_pool(device, stats) or hpool or _Inline()
+
+
+def _join_with_watchdog(fut, batch, bi, redispatch, stats: "StageStats", stage: str):
+    """Join one batch task, with the stall watchdog when
+    BSSEQ_TPU_STALL_TIMEOUT_S is set: a worker that has not produced the
+    batch by the deadline is abandoned (a thread wedged in a CUDA call
+    cannot be cancelled) and the batch re-run inline
+    (`redispatch(batch, bi)`); the abandoned future's result, if it ever
+    comes, is discarded, so the batch retires exactly once. Counted
+    'batches_stalled' and printed on stderr."""
+    timeout = _faultretry.stall_timeout()
+    if timeout <= 0:
+        return fut.result()
+    try:
+        return fut.result(timeout=timeout)
+    except FutureTimeout:
+        fut.cancel()
+        stats.metrics.count("batches_stalled")
+        observe.event("batch_stall_redispatch", {"stage": stage, "batch": bi,
+                                                 "timeout_s": timeout})
+        return redispatch(batch, bi)
+
+
+#: StageStats integer fields the shadow/merge protocol carries
+#: (everything a task-side emit may increment; metrics is shared and
+#: locked, so it is not shadowed)
+_HP_MERGE_FIELDS = ("families", "consensus_out", "skipped_families", "leftover_records",
+                    "pad_cells", "used_cells")
+
+
+def _hp_stats_shadow(stats: "StageStats") -> "StageStats":
+    """A per-task StageStats for a batch task: shares the stage's locked
+    Metrics but has private integer fields, which merge at the ordered
+    retire (_hp_stats_merge) — every count is the same for any
+    executor."""
+    return StageStats(stage=stats.stage, metrics=stats.metrics)
+
+
+def _hp_stats_merge(dst: "StageStats", src: "StageStats") -> None:
+    """Fold one retired task's shadow counts into the stage stats
+    (dispatch thread, batch order)."""
+    for name in _HP_MERGE_FIELDS:
+        setattr(dst, name, getattr(dst, name) + getattr(src, name))
+
+
+def _hp_prefetch(items, pool, task_fn):
+    """Double-buffered host-pool map: task_fn(item N+1) runs on a worker
+    while the caller consumes task_fn(item N)'s result. Results yield in
+    input order, and at most one task is in flight: task N+1 is submitted
+    only after task N has finished, so `ref_fetch` (a FASTA handle's
+    seek + read) never has two callers. The JAX package's _hp_prefetch
+    submits task N+1 before it joins task N, so two encodes can overlap
+    there (ROADMAP queue 3). `items` is pulled on the caller's thread, so
+    record ingest stays on the dispatch thread."""
     pending = None
-    for kind, payload in events:
+    try:
+        for item in items:
+            if pending is None:
+                pending = pool.submit(task_fn, item)
+                continue
+            done = pending.result()
+            pending = pool.submit(task_fn, item)
+            yield done
         if pending is not None:
-            held, pending = pending, None
-            yield held()
-        if kind == "deferred":
-            pending = payload
-        else:
-            yield payload
-    if pending is not None:
-        yield pending()
+            fut, pending = pending, None
+            yield fut.result()
+    finally:
+        if pending is not None:
+            pending.cancel()
+
+
+def _warm_device(params: ConsensusParams, device: torch.device, singleton: bool) -> None:
+    """Build, before any worker starts, what the workers would otherwise
+    race to build: the vote kernels' load (ops.cuda_vote), the cached
+    log-likelihood table and (for the singleton host vote) the qual
+    tables on the card. The pool's ready event then orders every worker
+    stream after these uploads."""
+    if device.type != "cuda":
+        return
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, phred
+
+    cuda_vote._load()
+    phred.log_table(params.error_rate_post_umi, device)
+    if singleton:
+        from bsseqconsensusreads_tpu_torch.ops.reconstruct import qual_tables
+
+        qual_tables(params, device)
 
 
 class _Inflight:
@@ -499,9 +779,14 @@ class _Inflight:
 
 
 def _to_device(arr: np.ndarray, device: torch.device, metrics: Metrics) -> torch.Tensor:
-    """One H2D copy, its bytes counted as 'h2d_bytes'."""
+    """One H2D copy, its bytes counted as 'h2d_bytes'. On an overlap
+    worker the copy leaves the worker's pinned staging non_blocking on
+    its stream (_Staging); elsewhere it is a plain pageable copy."""
     arr = np.ascontiguousarray(arr)
     metrics.count("h2d_bytes", arr.nbytes)
+    staging = getattr(_WORKER, "staging", None)
+    if staging is not None and device.type == "cuda" and arr.nbytes:
+        return staging.upload(arr, device)
     return torch.from_numpy(arr).to(device)
 
 
@@ -839,6 +1124,7 @@ def call_molecular_batches(
     transport: str = "auto",
     base_counts: bool = True,
     deep_threshold: int | None = None,
+    guard=None,
 ) -> Iterator[list]:
     """Molecular (single-strand) consensus over MI families, one list of
     consensus records per batch — the checkpoint/resume granularity
@@ -901,19 +1187,8 @@ def call_molecular_batches(
     stats = stats if stats is not None else StageStats(stage="molecular")
     stats.metrics.count("deep_skipped_families", 0)  # reported even when 0
     t0 = time.monotonic()
-    groups = _timed_groups(
-        stream_mi_groups(records, grouping=grouping, stats=stats), stats.metrics
-    )
-    if batching == "bucketed":
-        chunks = _group_batches_bucketed(groups, batch_families, indel_policy)
-    elif batching == "sequential":
-        chunks = _group_batches(groups, batch_families)
-    else:
-        raise ValueError(
-            f"unknown batching {batching!r} (want 'bucketed'|'sequential')"
-        )
-
     metrics = stats.metrics
+    stage_label = stats.stage or "molecular"
 
     def dispatch_wire(batch):
         """The input wire packed (the C sweep on the native engine), one
@@ -944,9 +1219,10 @@ def call_molecular_batches(
         metrics.count(f"wire_qual_{qmode}")
         return _Inflight(wire), pf
 
-    def dispatch(batch):
-        """H2D copies + the vote launch; returns (in-flight wire, padded f)."""
-        if use_wire:
+    def dispatch(batch, wire):
+        """H2D copies + the vote launch; returns (in-flight wire, padded
+        f)."""
+        if wire:
             return dispatch_wire(batch)
         pk = batch.packed
         if pk is not None:
@@ -963,28 +1239,108 @@ def call_molecular_batches(
             pf = batch.bases.shape[0]
         return _Inflight(pack_molecular_outputs(out)), pf
 
-    def emit_out(out, batch, deep_emitted=()):
-        with stats.metrics.timed("emit"):
-            recs = emit_fn(batch, out, params, mode, stats)
-        recs = [recs] if isinstance(recs, RawRecords) else recs
-        return recs + list(deep_emitted)
+    def singleton_vote(batch):
+        # the Python emit reuses this pass's cB tally; the native emit
+        # builds the sparse histogram in one C sweep
+        return singleton_consensus_host(
+            batch.bases, batch.quals, params, device,
+            with_histogram=base_counts and not native_emit,
+        )
 
-    def retire(inflight, pf, batch, deep_emitted):
+    def dispatch_fetch(batch, bi=None, armed=True) -> dict:
+        """The recovery unit: dispatch and the blocking fetch of one batch
+        (a T == 1 batch votes on the host), host arrays out. A retry, a
+        stall re-run and the degrade re-run exactly this, never a
+        half-retired batch; `armed=False` (the degrade) passes the
+        failpoint sites by."""
+        singleton = batch.bases.shape[1] == 1
+        with metrics.timed("host_vote" if singleton else "kernel"):
+            if armed:
+                _failpoints.fire("dispatch_kernel", stage=stage_label, batch=bi)
+            if singleton:
+                inflight, out = None, singleton_vote(batch)
+            else:
+                inflight, pf = dispatch(batch, use_wire)
+        if armed:
+            _failpoints.fire("fetch_out", stage=stage_label, batch=bi)
+        if inflight is None:
+            return out
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
         host = inflight.fetch(metrics)
         with metrics.timed("fetch"):
             out = unpack_molecular_outputs(host, f=pf, w=w)
-        return emit_out({k: v[:f] for k, v in out.items()}, batch, deep_emitted)
+        return {k: v[:f] for k, v in out.items()}
+
+    def degrade_fetch(batch) -> dict:
+        """A batch whose retries ran out: its unit once more on the
+        stage's own device with the failpoints bypassed — the card's
+        kernels on a card run (never the CPU), the plain PyTorch version
+        on a CPU run; an error here propagates. Counted
+        ('batches_degraded') and printed by faults.retry; timed as
+        'degrade'."""
+        with metrics.timed("degrade"):
+            return dispatch_fetch(batch, armed=False)
+
+    def dispatch_fetch_guarded(batch, bi):
+        """dispatch_fetch under the bounded retrier with the degrade."""
+        return _faultretry.guarded(
+            partial(dispatch_fetch, batch, bi), degrade=partial(degrade_fetch, batch),
+            metrics=metrics, stage=stage_label, batch=bi,
+        )
+
+    def recover_fetch(batch, bi, exc):
+        """Re-run the whole dispatch+fetch unit under the retrier after
+        `exc` — the retire's recovery."""
+        return _faultretry.guarded(
+            partial(dispatch_fetch, batch, bi), degrade=partial(degrade_fetch, batch),
+            metrics=metrics, stage=stage_label, batch=bi, failed=exc,
+        )
+
+    def emit_out(out, batch, deep_emitted, st=None):
+        """Record emit for one retired batch against `st`: the stage stats
+        by default, a task's shadow (_hp_stats_shadow) in a batch task."""
+        st = stats if st is None else st
+        with metrics.timed("emit"):
+            recs = emit_fn(batch, out, params, mode, st)
+        recs = [recs] if isinstance(recs, RawRecords) else recs
+        return recs + list(deep_emitted)
+
+    def batch_task(batch, bi, deep_emitted):
+        """One batch on the stage's executor: the guarded unit, then the
+        record emit against a shadow stats."""
+        shadow = _hp_stats_shadow(stats)
+        out = dispatch_fetch_guarded(batch, bi)
+        return emit_out(out, batch, deep_emitted, shadow), shadow
+
+    def retire(fut, batch, bi, deep_emitted):
+        """The ordered retire of one batch task on the dispatch thread:
+        'stall' is the seconds it blocked on the task; the watchdog
+        abandons a wedged task and re-runs the batch inline; a task that
+        failed re-runs its unit under the retrier; the shadow counts
+        merge here, in batch order."""
+        try:
+            _failpoints.fire("retire_future", stage=stage_label, batch=bi)
+            with metrics.timed("stall"):
+                emitted, shadow = _join_with_watchdog(
+                    fut, batch, bi, lambda b, i: batch_task(b, i, deep_emitted), stats,
+                    stage_label,
+                )
+        except _faultretry.RETRYABLE as exc:
+            shadow = _hp_stats_shadow(stats)
+            emitted = emit_out(recover_fetch(batch, bi, exc), batch, deep_emitted, shadow)
+        _hp_stats_merge(stats, shadow)
+        return emitted
 
     def deep_records(deep) -> list:
-        """Vote and emit one chunk's deep families: one padded dispatch
-        per _bucket_deep group, retired at once (deep families are rare)."""
+        """Vote and emit one chunk's deep families on the dispatch thread:
+        one padded dispatch per _bucket_deep group, retired at once (deep
+        families are rare)."""
         emitted: list = []
         n_over = sum(1 for _g, depth in deep if depth > DEEP_TEMPLATE_CAP)
-        stats.metrics.count("deep_routed_families", len(deep))
-        stats.metrics.count("deep_skipped_families", n_over)
+        metrics.count("deep_routed_families", len(deep))
+        metrics.count("deep_skipped_families", n_over)
         for group in _bucket_deep(deep):
-            with stats.metrics.timed("encode"):
+            with metrics.timed("encode"):
                 dbatch, dskipped = encode_molecular_families(
                     group, max_window=max_window, max_templates=DEEP_TEMPLATE_CAP
                 )
@@ -995,61 +1351,87 @@ def call_molecular_batches(
             used = int((dbatch.bases != NBASE).sum())
             stats.pad_cells += dbatch.bases.size - used
             stats.used_cells += used
-            with stats.metrics.timed("kernel"):
-                out = molecular_consensus(
-                    _to_device(dbatch.bases, device, metrics),
-                    _to_device(dbatch.quals, device, metrics), params,
-                )
-                inflight = _Inflight(pack_molecular_outputs(out))
+            with metrics.timed("kernel"):
+                inflight, _pf = dispatch(dbatch, False)
             f, w = dbatch.bases.shape[0], dbatch.bases.shape[-1]
             host = inflight.fetch(metrics)
             with metrics.timed("fetch"):
                 out = unpack_molecular_outputs(host, f=f, w=w)
-            emitted.extend(emit_out(out, dbatch))
+            emitted.extend(emit_out(out, dbatch, ()))
         return emitted
 
-    def events():
+    groups = _timed_groups(
+        _guard_mod.guard_groups(
+            stream_mi_groups(records, grouping=grouping, stats=stats), guard
+        ),
+        metrics,
+    )
+    if batching == "bucketed":
+        chunks = _group_batches_bucketed(groups, batch_families, indel_policy)
+    elif batching == "sequential":
+        chunks = _group_batches(groups, batch_families)
+    else:
+        raise ValueError(
+            f"unknown batching {batching!r} (want 'bucketed'|'sequential')"
+        )
+
+    def encode_chunk(item):
+        """Pure-host encode (and segment pack) of one chunk — a host-pool
+        task when the pool is on (double-buffered by _hp_prefetch, so
+        chunk N+1 encodes while batch N dispatches and retires). All
+        stat counts apply on the dispatch thread, in batch order."""
+        bi, chunk = item
+        normal, deep = _split_deep(chunk, deep_threshold, indel_policy)
+        with metrics.timed("encode"):
+            # the cap tracks the routing threshold: a family the splitter
+            # called normal must never hit encode's cap
+            batch, skipped = encode_molecular_families(
+                normal, max_window=max_window,
+                max_templates=min(deep_threshold, DEEP_TEMPLATE_CAP),
+            )
+            if layout == "packed" and batch.meta and batch.bases.shape[1] != 1:
+                batch.packed = pack_molecular_rows(batch)
+        return bi, batch, skipped, deep
+
+    def numbered_chunks():
         for batch_index, chunk in enumerate(chunks, start=1):
             if batch_index <= skip_batches:
                 # resume replay: skipped batches never encode at all
                 continue
-            normal, deep = _split_deep(chunk, deep_threshold, indel_policy)
-            with stats.metrics.timed("encode"):
-                # the cap tracks the routing threshold: a family the
-                # splitter called normal must never hit encode's cap
-                batch, skipped = encode_molecular_families(
-                    normal, max_window=max_window,
-                    max_templates=min(deep_threshold, DEEP_TEMPLATE_CAP),
-                )
-                singleton = batch.bases.shape[1] == 1
-                if layout == "packed" and batch.meta and not singleton:
-                    batch.packed = pack_molecular_rows(batch)
+            yield batch_index, chunk
+
+    def events():
+        encoded = (
+            _hp_prefetch(numbered_chunks(), hpool, encode_chunk)
+            if hpool is not None else map(encode_chunk, numbered_chunks())
+        )
+        for batch_index, batch, skipped, deep in encoded:
             stats.skipped_families += len(skipped)
             deep_emitted = deep_records(deep) if deep else []
             if not batch.meta:
                 yield "now", deep_emitted
                 continue
             stats.batches += 1
-            if singleton:
-                with stats.metrics.timed("host_vote"):
-                    # the Python emit reuses this pass's cB tally; the native
-                    # emit builds the sparse histogram in one C sweep
-                    out = singleton_consensus_host(
-                        batch.bases, batch.quals, params, device,
-                        with_histogram=base_counts and not native_emit,
-                    )
-                yield "deferred", partial(emit_out, out, batch, deep_emitted)
-                continue
-            issued = batch.packed.bases if batch.packed is not None else batch.bases
-            used = int((issued != NBASE).sum())
-            stats.pad_cells += issued.size - used
-            stats.used_cells += used
-            metrics.count("route_batches_wire" if use_wire else "route_batches_single")
-            with stats.metrics.timed("kernel"):
-                inflight, pf = dispatch(batch)
-            yield "deferred", partial(retire, inflight, pf, batch, deep_emitted)
+            singleton = batch.bases.shape[1] == 1
+            if not singleton:
+                issued = batch.packed.bases if batch.packed is not None else batch.bases
+                used = int((issued != NBASE).sum())
+                stats.pad_cells += issued.size - used
+                stats.used_cells += used
+                metrics.count("route_batches_wire" if use_wire else "route_batches_single")
+            fut = executor.submit(batch_task, batch, batch_index, deep_emitted,
+                                  batch=batch_index)
+            yield "deferred", partial(retire, fut, batch, batch_index, deep_emitted)
 
-    yield from _pipelined(events())
+    _warm_device(params, device, singleton=True)
+    hpool = _hostpool.make_pool(metrics, stage_label)
+    executor = _batch_executor(device, stats, hpool)
+    try:
+        yield from _pipelined(events(), depth=executor.workers + 1)
+    finally:
+        executor.shutdown()
+        if hpool is not None:
+            hpool.shutdown()
     stats.wall_seconds += time.monotonic() - t0
 
 
@@ -1598,6 +1980,7 @@ def call_duplex_batches(
     methyl=None,
     methyl_engine: str = "auto",
     passthrough: bool = False,
+    guard=None,
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
     group on the device, one list of consensus records per batch (the
@@ -1718,12 +2101,8 @@ def call_duplex_batches(
             with stats.metrics.timed("genome_load.upload"):
                 genome = refstore.device_codes(device)
         rid_map = refstore.contig_indices(ref_names)
-    groups = _timed_groups(
-        stream_mi_groups(records, strip_suffix=True, grouping=grouping, stats=stats),
-        stats.metrics,
-    )
-
     metrics = stats.metrics
+    stage_label = stats.stage or "duplex"
 
     def mapped_rids(batch, rmap):
         """Store contig index per family (-1 when unknown) through `rmap`
@@ -1758,10 +2137,10 @@ def call_duplex_batches(
             return batch.ref
         return refstore.host_windows(*windows, batch.bases.shape[-1] + 1)
 
-    def dispatch(batch):
-        """H2D copies + the fused convert/extend/merge; returns (the
-        in-flight output wire, the wire's (starts, limits) or None)."""
-        if use_wire:
+    def dispatch(batch, wire, methyl_dev):
+        """H2D copies + the fused convert/extend/merge; returns
+        (the in-flight output wire, the wire's (starts, limits) or None)."""
+        if wire:
             f, w = batch.bases.shape[0], batch.bases.shape[-1]
             windows = wire_window_offsets(batch)
             win = pack_duplex_inputs(
@@ -1771,44 +2150,47 @@ def call_duplex_batches(
             )
             metrics.count(f"wire_qual_{win.qual_mode}")
             words = win.to_words()
-            if methyl_device:
+            if methyl_dev:
                 # the methyl input appendix: each family's contig origin
                 # (the extension gather's lower bound) after the base wire
                 los = refstore.window_origins(mapped_rids(batch, rid_map))
-                wire = duplex_call_wire_fused_methyl(
+                out = duplex_call_wire_fused_methyl(
                     _wire_to_device(np.concatenate([words, los]), device, metrics),
                     genome, f, w, params=params, qual_mode=win.qual_mode,
                 )
             else:
-                wire = duplex_call_wire_fused(
+                out = duplex_call_wire_fused(
                     _wire_to_device(words, device, metrics),
                     genome, f, w, params=params, qual_mode=win.qual_mode,
                 )
-            return _Inflight(wire), windows
+            return _Inflight(out), windows
+        # off the wire the rawize reads the encode-fetched plane
         arrays = [
             _to_device(a, device, metrics) for a in (
-                batch.bases, batch.quals.astype(np.int16), batch.cover, batch.ref,
-                batch.convert_mask, batch.extend_eligible,
+                batch.bases, batch.quals.astype(np.int16), batch.cover,
+                batch.ref, batch.convert_mask, batch.extend_eligible,
             )
         ]
-        if methyl_device:
-            wire, _la, _rd, planes = duplex_call_pipeline_packed_methyl(
+        if methyl_dev:
+            out, _la, _rd, planes = duplex_call_pipeline_packed_methyl(
                 *arrays, _to_device(methyl_ref_ext(batch), device, metrics), params=params,
             )
             # the planes ride the same fetch, after the duplex planes
-            wire = torch.cat([wire, planes.reshape(-1)])
+            out = torch.cat([out, planes.reshape(-1)])
         else:
-            wire, _la, _rd = duplex_call_pipeline_packed(*arrays, params=params)
-        return _Inflight(wire), None
+            out, _la, _rd = duplex_call_pipeline_packed(*arrays, params=params)
+        return _Inflight(out), None
 
-    def retire(inflight, windows, batch, sidecar, bi, passed):
+    def rawize(host, windows, batch, sidecar, methyl_dev):
+        """Unpack + the methyl planes + the rawize of one fetched wire;
+        returns (rawized outputs, methyl planes or None)."""
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
-        host = inflight.fetch(metrics)
         with metrics.timed("fetch"):
             out = unpack_duplex_outputs(host, f=f, w=w)
+        planes = None
         if methyl is not None:
             with metrics.timed("methyl"):
-                if methyl_device:  # the planes ride the fetched wire's tail
+                if methyl_dev:  # the planes ride the fetched wire's tail
                     planes = unpack_methyl_planes(host[f * 4 * w:], f, w)
                 else:
                     planes = methyl_epilogue_host(
@@ -1821,34 +2203,127 @@ def call_duplex_batches(
                 host_ref(batch, windows) if (strand_tags or sidecar) else None,
                 native=native_emit, strand_tags=strand_tags,
             )
+        return out, planes
+
+    def dispatch_fetch(batch, sidecar, bi=None, armed=True):
+        """The recovery unit: dispatch + blocking fetch + rawize of one
+        batch (see the molecular stage's; `armed=False` passes the
+        failpoint sites by). The methyl tallies are NOT added here: they
+        land on the ordered retire (land), in batch order."""
+        with metrics.timed("kernel"):
+            if armed:
+                _failpoints.fire("dispatch_kernel", stage=stage_label, batch=bi)
+            inflight, windows = dispatch(batch, use_wire, methyl_device)
+        if armed:
+            _failpoints.fire("fetch_out", stage=stage_label, batch=bi)
+        return rawize(inflight.fetch(metrics), windows, batch, sidecar, methyl_device)
+
+    def degrade_fetch(batch, sidecar):
+        """A batch whose retries ran out: its unit once more on the
+        stage's own device with the failpoints bypassed (the card's
+        kernels on a card run, never the CPU); timed as 'degrade'."""
+        with metrics.timed("degrade"):
+            return dispatch_fetch(batch, sidecar, armed=False)
+
+    def dispatch_fetch_guarded(batch, sidecar, bi):
+        return _faultretry.guarded(
+            partial(dispatch_fetch, batch, sidecar, bi),
+            degrade=partial(degrade_fetch, batch, sidecar),
+            metrics=metrics, stage=stage_label, batch=bi,
+        )
+
+    def recover_fetch(batch, sidecar, bi, exc):
+        """Re-run the whole dispatch+fetch+rawize unit under the retrier
+        after `exc` — the retire's recovery."""
+        return _faultretry.guarded(
+            partial(dispatch_fetch, batch, sidecar, bi),
+            degrade=partial(degrade_fetch, batch, sidecar),
+            metrics=metrics, stage=stage_label, batch=bi, failed=exc,
+        )
+
+    def emit_out(done, batch, passed, st):
+        """Record emit for one batch against `st` (a task's shadow
+        stats); returns (records, planes) so the ordered retire adds the
+        methyl tallies."""
+        out, planes = done
+        with metrics.timed("emit"):
+            recs = emit_fn(batch, out, params, mode, st)
+        return ([recs] if isinstance(recs, RawRecords) else recs) + passed, planes
+
+    def batch_task(batch, sidecar, bi, passed):
+        """One batch on the stage's executor: the guarded unit, then the
+        record emit against a shadow stats."""
+        shadow = _hp_stats_shadow(stats)
+        done = dispatch_fetch_guarded(batch, sidecar, bi)
+        return emit_out(done, batch, passed, shadow), shadow
+
+    def retire(fut, batch, sidecar, bi, passed):
+        """The ordered retire of one batch task (see the molecular
+        stage's), then the batch's methyl tallies, in batch order, and
+        its records."""
+        try:
+            _failpoints.fire("retire_future", stage=stage_label, batch=bi)
+            with metrics.timed("stall"):
+                (recs, planes), shadow = _join_with_watchdog(
+                    fut, batch, bi, lambda b, i: batch_task(b, sidecar, i, passed), stats,
+                    stage_label,
+                )
+        except _faultretry.RETRYABLE as exc:
+            shadow = _hp_stats_shadow(stats)
+            recs, planes = emit_out(recover_fetch(batch, sidecar, bi, exc), batch, passed,
+                                    shadow)
+        _hp_stats_merge(stats, shadow)
         if methyl is not None:
             with metrics.timed("methyl"):
                 methyl.add_planes(bi, planes, batch.meta)
-        with metrics.timed("emit"):
-            recs = emit_fn(batch, out, params, mode, stats)
-        return ([recs] if isinstance(recs, RawRecords) else recs) + passed
+        return recs
 
-    def events():
+    groups = _timed_groups(
+        _guard_mod.guard_groups(
+            stream_mi_groups(records, strip_suffix=True, grouping=grouping, stats=stats),
+            guard,
+        ),
+        metrics,
+    )
+
+    def encode_chunk(item):
+        """Pure-host encode of one duplex chunk — the encode, the sidecar
+        capture and the passthrough records run as ONE host-pool task
+        (double-buffered by _hp_prefetch), so `ref_fetch` is only ever
+        called from one thread at a time. Stat counts apply on the
+        dispatch thread, in batch order."""
+        bi, chunk = item
+        with metrics.timed("encode"):
+            # on the wire the device gathers the reference windows, so
+            # the per-family host fetch is skipped (batch.ref stays N)
+            batch, leftovers, skipped = encode_duplex_families(
+                chunk, ref_fetch, ref_names, max_window=max_window,
+                fetch_ref=not use_wire, pos0=pos0,
+            )
+            if unconverted:
+                # an unconverted library: clearing the flag-derived mask
+                # disables the convert transform wholesale
+                batch.convert_mask = np.zeros_like(batch.convert_mask)
+            sidecar = _duplex_sidecar(chunk, pos0=pos0) if batch.meta else None
+        passed = (_passthrough_records(leftovers, ref_fetch, ref_names, pos0=pos0)
+                  if passthrough and leftovers else [])
+        return bi, batch, leftovers, skipped, passed, sidecar
+
+    def numbered_chunks():
         for batch_index, chunk in enumerate(_group_batches(groups, batch_families), start=1):
             if batch_index <= skip_batches:
                 # resume replay: skipped batches never encode at all
                 continue
-            with stats.metrics.timed("encode"):
-                # on the wire the device gathers the reference windows, so
-                # the per-family host fetch is skipped (batch.ref stays N)
-                batch, leftovers, skipped = encode_duplex_families(
-                    chunk, ref_fetch, ref_names, max_window=max_window,
-                    fetch_ref=not use_wire, pos0=pos0,
-                )
-                if unconverted:
-                    # an unconverted library: clearing the flag-derived
-                    # mask disables the convert transform wholesale
-                    batch.convert_mask = np.zeros_like(batch.convert_mask)
-                sidecar = _duplex_sidecar(chunk, pos0=pos0) if batch.meta else None
+            yield batch_index, chunk
+
+    def events():
+        encoded = (
+            _hp_prefetch(numbered_chunks(), hpool, encode_chunk)
+            if hpool is not None else map(encode_chunk, numbered_chunks())
+        )
+        for batch_index, batch, leftovers, skipped, passed, sidecar in encoded:
             stats.skipped_families += len(skipped)
             stats.leftover_records += len(leftovers)
-            passed = (_passthrough_records(leftovers, ref_fetch, ref_names, pos0=pos0)
-                      if passthrough and leftovers else [])
             if not batch.meta:
                 yield "now", passed
                 continue
@@ -1857,10 +2332,17 @@ def call_duplex_batches(
             stats.pad_cells += batch.cover.size - used
             stats.used_cells += used
             metrics.count("route_batches_wire" if use_wire else "route_batches_single")
-            with stats.metrics.timed("kernel"):
-                inflight, windows = dispatch(batch)
-            yield "deferred", partial(retire, inflight, windows, batch, sidecar, batch_index,
-                                      passed)
+            fut = executor.submit(batch_task, batch, sidecar, batch_index, passed,
+                                  batch=batch_index)
+            yield "deferred", partial(retire, fut, batch, sidecar, batch_index, passed)
 
-    yield from _pipelined(events())
+    _warm_device(params, device, singleton=False)
+    hpool = _hostpool.make_pool(metrics, stage_label)
+    executor = _batch_executor(device, stats, hpool)
+    try:
+        yield from _pipelined(events(), depth=executor.workers + 1)
+    finally:
+        executor.shutdown()
+        if hpool is not None:
+            hpool.shutdown()
     stats.wall_seconds += time.monotonic() - t0

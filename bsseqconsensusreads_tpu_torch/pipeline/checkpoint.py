@@ -31,10 +31,12 @@ loudly; an input that changed since the manifest was written refuses
 stderr line each (utils.observe.event; the JAX package ledgers the same
 event names).
 
-Left for later slices of the port: the failpoint sites and the retry
-(faults.retry.guarded) around the shard write — the shard is written
-directly here (ROADMAP queue 1, item 5); the elastic write and batch
-gates, install_write_gate / install_batch_gate (item 9).
+Faults: the `ckpt_shard_write`, `ckpt_manifest_rename` and
+`ckpt_finalize` failpoints fire where the JAX package fires them, and
+the shard write runs under the bounded retrier (faults.retry.guarded) —
+a failed attempt rewrites the whole shard from the batch items still in
+memory. Left for a later slice: the elastic write and batch gates,
+install_write_gate / install_batch_gate (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ import dataclasses
 import glob
 import json
 import os
+from functools import partial
 from typing import Iterable, Iterator
 
+from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
 from bsseqconsensusreads_tpu_torch.faults import integrity as _integrity
+from bsseqconsensusreads_tpu_torch.faults import retry as _faultretry
 from bsseqconsensusreads_tpu_torch.faults.guard import InputChangedError
 from bsseqconsensusreads_tpu_torch.io.bam import (
     BamHeader,
@@ -95,6 +100,7 @@ class _Manifest:
         )
 
     def save(self, path: str) -> None:
+        _failpoints.fire("ckpt_manifest_rename")
         tmp = path + ".tmp"
         with open(tmp, "w") as fh:
             json.dump(dataclasses.asdict(self), fh)
@@ -270,6 +276,9 @@ class BatchCheckpoint:
             self._flush(buf, pending)
 
     def _write_shard(self, path: str, items: list) -> int:
+        """One shard write attempt — the retry unit for transient I/O
+        errors."""
+        _failpoints.fire("ckpt_shard_write", shard=os.path.basename(path))
         # shards are scratch (re-read once at finalize, then deleted):
         # always deflate fast, like the external-sort spills
         with BamWriter(path, self.header, level=1) as w:
@@ -281,7 +290,10 @@ class BatchCheckpoint:
 
     def _flush(self, items: list, n_batches: int) -> None:
         path = self._shard_path(len(self.manifest.shards))
-        n = self._write_shard(path, items)
+        n = _faultretry.guarded(
+            partial(self._write_shard, path, items),
+            stage="checkpoint", batch=len(self.manifest.shards),
+        )
         if self.on_flush is not None:
             self.on_flush(self.manifest.batches_done + n_batches)
         self.manifest.batches_done += n_batches
@@ -317,6 +329,7 @@ class BatchCheckpoint:
         for a completed rule — the manifest survives and the rerun
         re-finalizes from the durable shards.
         """
+        _failpoints.fire("ckpt_finalize", target=self.target)
         n = 0
         tmp = self.target + ".finalize.tmp"
         with BamWriter(tmp, self.header, level=self.level) as w:

@@ -21,8 +21,19 @@ the JAX package's. external_sort runs the same spill/merge machinery over
 BamRecord objects under a pipeline.record_ops key (the zipper's and
 sam-to-fastq's name and coordinate sorts, and sorted_write, the `sort`
 subcommand's); raw_name_key is name_key over blobs (UMI grouping's and
-the consensus filter's name sorts). Spill CRCs, the background spill
-writer and the bucketed engine are later slices of the port.
+the consensus filter's name sorts).
+
+Faults and threads, as in the JAX package: every spill run and merged
+run carries a CRC32 verified before its merge opens it
+(BSSEQ_TPU_VERIFY_SPILLS, default on); a run write fires the
+`extsort_spill` failpoint and runs under the bounded retrier, a merge
+fires `extsort_merge`; and with BSSEQ_TPU_HOST_WORKERS >= 1 a
+double-buffered background thread writes run N while run N+1
+accumulates (at most one write in flight; run order, and so the output,
+is fixed on the caller's thread). resolve_sort_engine also resolves
+'bucket', the third engine (pipeline.bucketemit): records route to
+coordinate-range buckets as they arrive and the output is the buckets'
+concatenation, with no merge tail.
 """
 
 from __future__ import annotations
@@ -33,10 +44,16 @@ import os
 import struct
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator
+
+from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
+from bsseqconsensusreads_tpu_torch.faults import integrity as _integrity
+from bsseqconsensusreads_tpu_torch.faults import retry as _faultretry
 
 from bsseqconsensusreads_tpu_torch.io.bam import (
     FREAD2,
+    attach_codec_metrics,
     BamHeader,
     BamReader,
     BamRecord,
@@ -98,6 +115,78 @@ def _timer(metrics, name: str = "sort_write"):
     return metrics.timed(name) if metrics is not None else contextlib.nullcontext()
 
 
+def _verify_spills() -> bool:
+    """Whether spill runs carry a CRC32 verified before every merge open
+    (BSSEQ_TPU_VERIFY_SPILLS, default on): a run corrupted between spill
+    and merge is a hard IntegrityError, never merged garbage."""
+    return os.environ.get("BSSEQ_TPU_VERIFY_SPILLS", "1") != "0"
+
+
+class _Spiller:
+    """The run writes of one external sort. Each write fires the
+    `extsort_spill` failpoint and runs under the bounded retrier (a
+    failed attempt rewrites the same path whole: the sorted run is still
+    in memory), then records the run's CRC. With host workers
+    (parallel.hostpool.host_workers() >= 1) the write runs on one
+    background thread, double-buffered: the next spill first joins the
+    previous write. `write_file(path, payload)` writes one run."""
+
+    def __init__(self, write_file, metrics=None):
+        from bsseqconsensusreads_tpu_torch.parallel import hostpool
+
+        self._write_file = write_file
+        self._metrics = metrics
+        self.crcs: dict[str, int] = {}
+        self._verify = _verify_spills()
+        self._use_bg = hostpool.host_workers() >= 1
+        self._pool = None
+        self._pending = None
+
+    def _write(self, path: str, payload, n: int, run_index: int) -> None:
+        def attempt() -> None:
+            _failpoints.fire("extsort_spill", run=run_index)
+            self._write_file(path, payload)
+
+        with _timer(self._metrics, "spill_write"):
+            _faultretry.guarded(attempt, metrics=self._metrics, stage="extsort_spill",
+                                batch=run_index)
+        self.record(path)
+        if self._metrics is not None:
+            self._metrics.count("spill_runs")
+            self._metrics.count("spill_records", n)
+
+    def spill(self, path: str, payload, n: int, run_index: int) -> None:
+        if not self._use_bg:
+            self._write(path, payload, n, run_index)
+            return
+        self.drain()  # double buffer: write N-1 lands before N detaches
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="bsseq-spill")
+        self._pending = self._pool.submit(self._write, path, payload, n, run_index)
+
+    def drain(self) -> None:
+        """Join the in-flight write: its CRC must be recorded before any
+        merge opens the run, and its error must surface here."""
+        if self._pending is not None:
+            fut, self._pending = self._pending, None
+            fut.result()
+
+    def record(self, path: str) -> None:
+        if self._verify:
+            self.crcs[path] = _integrity.file_crc32(path)
+
+    def check(self, path: str) -> None:
+        """A corrupt run fails here, before one record of it merges."""
+        want = self.crcs.pop(path, None)
+        if want is not None:
+            _integrity.verify_file_crc32(path, want, what=f"spill run {path}")
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+
 def _external_sort_core(
     items: Iterable,
     key,
@@ -111,14 +200,15 @@ def _external_sort_core(
     """The spill/merge machinery behind external_sort (BamRecord objects)
     and external_sort_raw (encoded blobs): runs of `buffer_records` are
     sorted in RAM (stable) and spilled as level-1 BGZF BAM shards under
-    `workdir` (a private temp dir when None); merges hold one item per run
-    and break ties by run order, collapsing runs in MERGE_FANIN groups
-    first. If the input fits one buffer no file is ever written; shards
-    are deleted as the merge finishes, even if the consumer abandons the
-    iterator. write_items_fn(writer, items) appends a run's items;
-    read_run(reader) yields them back in order. metrics: the spills, and
-    everything after the input ends (the final sort or merge and the
-    consumer's work), accrue under 'sort_write'."""
+    `workdir` (a private temp dir when None) by a _Spiller; merges hold
+    one item per run and break ties by run order, collapsing runs in
+    MERGE_FANIN groups first. If the input fits one buffer no file is
+    ever written; shards are deleted as the merge finishes, even if the
+    consumer abandons the iterator. write_items_fn(writer, items) appends
+    a run's items; read_run(reader) yields them back in order. metrics:
+    the in-stream sorts, and everything after the input ends (the final
+    sort or merge and the consumer's work), accrue under 'sort_write';
+    the run writes under 'spill_write'."""
     if buffer_records < 1:
         raise ValueError(f"buffer_records must be >= 1, got {buffer_records}")
     buf: list = []
@@ -130,29 +220,37 @@ def _external_sort_core(
         with BamWriter(path, header, level=1) as w:
             write_items_fn(w, run_items)
 
+    spiller = _Spiller(write_run, metrics)
+
     def spill() -> None:
         nonlocal tmpdir, buf
         with _timer(metrics):
             buf.sort(key=key)
             if tmpdir is None:
                 tmpdir = tempfile.TemporaryDirectory(prefix="bsseq_extsort_", dir=workdir)
-            path = os.path.join(tmpdir.name, f"run{len(run_paths):05d}.bam")
+            run_index = len(run_paths)
+            path = os.path.join(tmpdir.name, f"run{run_index:05d}.bam")
             run_paths.append(path)
-            write_run(path, buf)
-            buf = []
+            run_items, buf = buf, []
+        spiller.spill(path, run_items, len(run_items), run_index)
 
     def merged(paths: list[str], readers: list):
         for p in paths:
+            spiller.check(p)
             readers.append(BamReader(p, threads=1))
         return heapq.merge(*(read_run(r) for r in readers), key=key)
 
     try:
-        for item in items:
-            buf.append(item)
-            if len(buf) >= buffer_records:
+        try:
+            for item in items:
+                buf.append(item)
+                if len(buf) >= buffer_records:
+                    spill()
+            if run_paths and buf:
                 spill()
-        if run_paths and buf:
-            spill()
+            spiller.drain()  # every run durable + CRC'd before a merge opens it
+        finally:
+            spiller.close()
         with _timer(metrics):
             if not run_paths:  # everything fit in one buffer: no disk round-trip
                 buf.sort(key=key)
@@ -160,6 +258,7 @@ def _external_sort_core(
                 return
             pass_index = 0
             while len(run_paths) > MERGE_FANIN:
+                _failpoints.fire("extsort_merge", runs=len(run_paths))
                 merged_paths: list[str] = []
                 for gi in range(0, len(run_paths), MERGE_FANIN):
                     group = run_paths[gi : gi + MERGE_FANIN]
@@ -174,9 +273,11 @@ def _external_sort_core(
                             r.close()
                     for p in group:
                         os.remove(p)
+                    spiller.record(out)  # merged runs are durable state too
                     merged_paths.append(out)
                 run_paths = merged_paths
                 pass_index += 1
+            _failpoints.fire("extsort_merge", runs=len(run_paths))
             readers = []
             try:
                 yield from merged(run_paths, readers)
@@ -248,16 +349,23 @@ def sorted_write(
 def resolve_sort_engine(engine: str = "auto") -> str:
     """The raw coordinate sort's engine: 'auto' and 'native' take the C
     engine (both host libraries are loaded here, so a broken build fails
-    before any record is sorted), 'python' the heapq twin."""
-    if engine not in ("auto", "native", "python"):
-        raise ValueError(f"unknown sort engine {engine!r}; use auto|native|python")
+    before any record is sorted), 'python' the heapq twin, 'bucket' the
+    bucketed engine (pipeline.bucketemit: records route to coordinate
+    buckets as they arrive, each bucket sorts on its own, the output is
+    their concatenation; its in-bucket sorts are the C sort). The JAX
+    package's BSSEQ_TPU_SORT_ENGINE overrides the passed value, and
+    'auto' never resolves to 'bucket' there either. Every engine writes
+    the same bytes."""
+    engine = os.environ.get("BSSEQ_TPU_SORT_ENGINE", engine)
+    if engine not in ("auto", "native", "python", "bucket"):
+        raise ValueError(f"unknown sort engine {engine!r}; use auto|native|python|bucket")
     if engine == "python":
         return "python"
     from bsseqconsensusreads_tpu_torch.io import native, wirepack
 
     native.lib()
     wirepack.lib()
-    return "native"
+    return "bucket" if engine == "bucket" else "native"
 
 
 def _append_item(buf: bytearray, item) -> int:
@@ -284,12 +392,21 @@ def external_sort_raw_to_writer(
     buffer_records: int = DEFAULT_BUFFER_RECORDS,
     metrics=None,
     engine: str = "auto",
+    sort_buckets: int = 0,
 ) -> int:
     """Coordinate-sort a mixed item stream (RawRecords blocks / encoded
     blobs / BamRecords) into an open BamWriter whose header is already
     written; returns the records written. The bytes are the same under
-    either engine."""
-    if resolve_sort_engine(engine) == "python":
+    every engine (`sort_buckets` sizes the bucket engine's plan)."""
+    resolved = resolve_sort_engine(engine)
+    if resolved == "bucket":
+        from bsseqconsensusreads_tpu_torch.pipeline import bucketemit
+
+        return bucketemit.bucket_sort_to_writer(
+            items, writer, header, workdir=workdir, buffer_records=buffer_records,
+            metrics=metrics, buckets=sort_buckets,
+        )
+    if resolved == "python":
         return writer.write_raw_many(
             external_sort_raw(
                 iter_record_blobs(items), header, workdir=workdir,
@@ -347,6 +464,17 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
         sub("sort_write.merge_bgzf", write_s)
         return n
 
+    def write_file(path: str, payload: bytes) -> None:
+        with BamWriter(path, header, level=1, engine="native") as w:
+            w.write_raw(payload)
+
+    spiller = _Spiller(write_file, metrics)
+
+    def merge_checked(paths: list[str], out_writer: NativeBgzfWriter) -> int:
+        for p in paths:
+            spiller.check(p)
+        return merge_into(paths, out_writer)
+
     buf = bytearray()
     buf_n = 0
     run_paths: list[str] = []
@@ -355,22 +483,26 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
     def spill() -> None:
         nonlocal tmpdir, buf, buf_n
         with _timer(metrics):
-            data, _n = sort_buf(buf)
+            data, n = sort_buf(buf)
             buf, buf_n = bytearray(), 0
             if tmpdir is None:
                 tmpdir = tempfile.TemporaryDirectory(prefix="bsseq_extsort_", dir=workdir)
-            path = os.path.join(tmpdir.name, f"run{len(run_paths):05d}.bam")
+            run_index = len(run_paths)
+            path = os.path.join(tmpdir.name, f"run{run_index:05d}.bam")
             run_paths.append(path)
-            with BamWriter(path, header, level=1, engine="native") as w:
-                w.write_raw(data)
+        spiller.spill(path, data, n, run_index)
 
     try:
-        for item in items:
-            buf_n += _append_item(buf, item)
-            if buf_n >= buffer_records:
+        try:
+            for item in items:
+                buf_n += _append_item(buf, item)
+                if buf_n >= buffer_records:
+                    spill()
+            if run_paths and buf_n:
                 spill()
-        if run_paths and buf_n:
-            spill()
+            spiller.drain()  # every run durable + CRC'd before a merge opens it
+        finally:
+            spiller.close()
         with _timer(metrics):
             if not run_paths:  # fits one buffer: straight to the writer
                 data, total = sort_buf(buf)
@@ -379,6 +511,7 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
                 return total
             pass_index = 0
             while len(run_paths) > MERGE_FANIN:
+                _failpoints.fire("extsort_merge", runs=len(run_paths))
                 merged_paths: list[str] = []
                 for gi in range(0, len(run_paths), MERGE_FANIN):
                     group = run_paths[gi : gi + MERGE_FANIN]
@@ -386,13 +519,15 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
                         tmpdir.name, f"pass{pass_index:02d}_{len(merged_paths):05d}.bam"
                     )
                     with BamWriter(out, header, level=1, engine="native") as w:
-                        merge_into(group, w._bgzf)
+                        merge_checked(group, w._bgzf)
                     for p in group:
                         os.remove(p)
+                    spiller.record(out)
                     merged_paths.append(out)
                 run_paths = merged_paths
                 pass_index += 1
-            return merge_into(run_paths, writer._bgzf)
+            _failpoints.fire("extsort_merge", runs=len(run_paths))
+            return merge_checked(run_paths, writer._bgzf)
     finally:
         if tmpdir is not None:
             tmpdir.cleanup()
@@ -408,6 +543,7 @@ def write_batch_stream(
     level: int = 6,
     sort_engine: str = "auto",
     metrics=None,
+    sort_buckets: int = 0,
 ) -> None:
     """Write a consensus batch stream (lists of BamRecord / RawRecords) to
     a BAM: straight through in 'unaligned' mode, via the external
@@ -420,12 +556,15 @@ def write_batch_stream(
     engine = resolve_sort_engine(sort_engine) if mode == "self" else None
     with _timer(metrics):
         writer = BamWriter(out_path, header, level=level)
+    if metrics is not None:
+        attach_codec_metrics(writer, metrics)
     try:
         if mode == "self":
             external_sort_raw_to_writer(
                 (item for batch in batches for item in batch),
                 writer, header, workdir=workdir,
                 buffer_records=buffer_records, metrics=metrics, engine=engine,
+                sort_buckets=sort_buckets,
             )
         else:
             for batch in batches:

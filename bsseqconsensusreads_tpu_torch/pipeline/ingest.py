@@ -228,13 +228,21 @@ class GroupedColumnarStream:
 
     scan_policy 'drop' runs the C molecular-encode scan once per batch and
     yields FamilyRuns; 'duplex' runs the duplex-shaped scan; None yields
-    (mi, [ColumnarRecordView]) pairs."""
+    (mi, [ColumnarRecordView]) pairs.
+
+    `guard` (faults.guard.Guard, strict policy): every batch runs the
+    vectorized semantic check (faults.guard.batch_violations) once as it
+    arrives, so a bad record fails fast with its qname before any family
+    is encoded; the result is cached on the batch (`guard_bad`) for the
+    family-level pass. The resilient policies never see this stream:
+    pipeline.stages routes them through the guarded Python reader."""
 
     def __init__(self, path: str, flush_margin: int = 10_000,
                  strip_suffix: bool = False,
                  scan_policy: str | None = None,
                  grouping: str = "coordinate",
-                 threads: int | None = None):
+                 threads: int | None = None,
+                 guard=None):
         if scan_policy not in (None, "drop", "duplex"):
             raise ValueError(f"unknown scan_policy {scan_policy!r}")
         if grouping not in ("coordinate", "adjacent"):
@@ -245,6 +253,27 @@ class GroupedColumnarStream:
         self.scan_policy = scan_policy
         self.grouping = grouping
         self.threads = threads
+        self.guard = guard
+
+    def _guard_batch(self, batch) -> None:
+        """Strict-policy vectorized validation of one columnar batch;
+        populates the batch's guard_bad cache either way."""
+        from bsseqconsensusreads_tpu_torch.faults import guard as _guard
+
+        g = self.guard
+        bad = _guard.batch_violations(
+            batch, n_ref=g.n_ref, ref_lens=g.ref_lens, max_read_len=g.max_read_len,
+        )
+        batch.guard_bad = bad
+        g.count("records_seen", batch.n)
+        if bad and g.strict:
+            idx = min(bad)
+            reason, _ = bad[idx]
+            raise _guard.RecordGuardError(
+                f"record failed input validation: {reason}",
+                reason=reason, record_index=idx,
+                qname=_decode_fixed(batch.qname[idx]),
+            )
 
     def iter_groups(self, stats=None):
         # a margin < 0 selects the C grouper's adjacent (MI-change) mode
@@ -255,6 +284,8 @@ class GroupedColumnarStream:
             if stats is not None:
                 stats.records_in += batch.n
                 stats.refragmented_families += refrag
+            if self.guard is not None and self.guard.active:
+                self._guard_batch(batch)
             fam_start = np.zeros(len(fam_nrec), np.int64)
             fam_start[1:] = np.cumsum(fam_nrec[:-1], dtype=np.int64)
             if self.scan_policy is None:

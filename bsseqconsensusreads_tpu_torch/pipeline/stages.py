@@ -52,17 +52,28 @@ checkpoints the tally spills at the checkpoint's watermarks and resumes
 with it. It refuses chemistry 'none' and single_strand, as the JAX
 package does.
 
+sort_engine 'bucket' (pipeline.bucketemit) routes the 'self' outputs
+into coordinate buckets; with stream_interstage it also fuses the two
+consensus stages into one rule, `call_consensus_molecular_duplex_fused`
+(run_fused): the molecular batches route into buckets, and as each
+sorted bucket is written to the molecular BAM its records go straight on
+into the duplex grouping — the intermediate file is still written (same
+bytes), but never re-read. Where fusion cannot engage
+(_interstage_blocked: another sort engine, checkpoints, methyl,
+passthrough) the JAX package's loud fallback to the two-pass path runs.
+
+Each consensus stage builds its input guard from the environment
+(faults.guard.Guard.from_env: BSSEQ_TPU_INPUT_POLICY, default strict)
+and reads through open_guarded_reader.
+
 Config keys the port does not honour yet raise a WorkflowError in
 PipelineBuilder.build(), before any stage runs, naming the ROADMAP item
-(queue 1) that brings them: sort_engine 'bucket' (item 5, with the
-failpoints, retry and host pool the bucket engine runs on), indel_policy
-'align' (item 7). stream_interstage takes the JAX package's loud fallback
-to the two-pass path: the fused rule needs the bucket engine.
+(queue 1) that brings them: indel_policy 'align' (item 7).
 
 Left for later slices: the run ledger (observe.open_ledger,
-emit_stage_stats, BSSEQ_TPU_STATS) and the traces (item 9), the input
-guard's policies (item 5). The JAX package's compilecache has no
-counterpart: the port compiles its kernels once per build directory.
+emit_stage_stats, BSSEQ_TPU_STATS) and the traces (item 9). The JAX
+package's compilecache has no counterpart: the port compiles its
+kernels once per build directory.
 """
 
 from __future__ import annotations
@@ -72,7 +83,13 @@ import shlex
 import subprocess
 
 from bsseqconsensusreads_tpu_torch.config import FrameworkConfig, check_backend
-from bsseqconsensusreads_tpu_torch.io.bam import BamHeader, BamReader, BamWriter
+from bsseqconsensusreads_tpu_torch.faults import guard as _guard
+from bsseqconsensusreads_tpu_torch.io.bam import (
+    BamHeader,
+    BamReader,
+    BamWriter,
+    GuardedBamReader,
+)
 from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
 from bsseqconsensusreads_tpu_torch.pipeline.calling import (
     StageStats,
@@ -88,22 +105,51 @@ from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 INGEST_CHOICES = ("auto", "native", "python")
 
 
+def open_guarded_reader(path: str, guard):
+    """The policy's record reader for one consensus stage's input: the
+    resilient policies (quarantine, lenient) read through
+    io.bam.GuardedBamReader — BGZF resync, record quarantine, per-record
+    validation — while strict and off keep the plain BamReader (strict's
+    structural checks are always on in BamReader itself; its semantic
+    checks run vectorized in the native grouped stream or per family in
+    faults.guard.guard_groups). Binds the guard to the input either way,
+    so the sidecar path and `record #N` diagnostics are anchored."""
+    if guard is not None and guard.resilient:
+        return GuardedBamReader(path, guard)
+    reader = BamReader(path)
+    if guard is not None:
+        guard.bind(path, reader.header)
+    return reader
+
+
 def ingest_records(path: str, reader, stats: StageStats,
                    ingest_choice: str = "auto",
                    grouping: str = "coordinate",
                    strip_suffix: bool = False,
                    scan_policy: str | None = None,
                    threads: int | None = None,
-                   native_block_reason: str | None = None):
+                   native_block_reason: str | None = None,
+                   guard=None):
     """The record stream for one consensus stage: a
     pipeline.ingest.GroupedColumnarStream over `path` (records decoded and
     grouped in C, with the stage's encode scan) or `reader`, the open
     BamReader on the same file. native_block_reason: why this stage
     needs the Python records ('auto' then takes them; 'native' raises a
     WorkflowError naming it). The chosen engine lands in stats.metrics
-    as the 'ingest_native' / 'group_native' counters."""
+    as the 'ingest_native' / 'group_native' counters.
+
+    `guard` (faults.guard.Guard) routes by policy: the resilient policies
+    need the Python records of io.bam.GuardedBamReader (which `reader`
+    must then be), so they take the Python engine ('native' raises); the
+    strict policy keeps the native engine and hands the guard to the
+    grouped stream for its vectorized per-batch validation."""
     if ingest_choice not in INGEST_CHOICES:
         raise ValueError(f"unknown ingest {ingest_choice!r}; use auto|native|python")
+    if guard is not None and guard.resilient and native_block_reason is None:
+        native_block_reason = (
+            f"the {guard.policy!r} input policy (stream resync and record "
+            "quarantine need the Python decode engine)"
+        )
     native_ok = grouping in ("coordinate", "adjacent")
     if ingest_choice == "native" and not native_ok:
         raise ValueError(
@@ -128,25 +174,28 @@ def ingest_records(path: str, reader, stats: StageStats,
     native.lib()  # build or load now: a broken library fails the stage here
     return ingest.GroupedColumnarStream(
         path, strip_suffix=strip_suffix, scan_policy=scan_policy,
-        grouping=grouping, threads=threads,
+        grouping=grouping, threads=threads, guard=guard,
     )
 
 
 def molecular_ingest_stream(path: str, reader, stats: StageStats,
                             ingest_choice: str = "auto",
                             grouping: str = "coordinate",
-                            threads: int | None = None):
+                            threads: int | None = None,
+                            guard=None):
     """The molecular stage's ingest: full-MI grouping, the C encode digest
     under the stage's indel policy ('drop')."""
     return ingest_records(path, reader, stats, ingest_choice=ingest_choice,
-                          grouping=grouping, scan_policy="drop", threads=threads)
+                          grouping=grouping, scan_policy="drop", threads=threads,
+                          guard=guard)
 
 
 def duplex_ingest_stream(path: str, reader, stats: StageStats,
                          ingest_choice: str = "auto",
                          grouping: str = "coordinate",
                          threads: int | None = None,
-                         passthrough: bool = False):
+                         passthrough: bool = False,
+                         guard=None):
     """The duplex stage's ingest: strand-suffix-stripped grouping (base
     MI) and the duplex-shaped C scan. The duplex stage reads only MI, RX
     and the cd/ce/cB consensus arrays off its records, all of which the
@@ -159,6 +208,7 @@ def duplex_ingest_stream(path: str, reader, stats: StageStats,
             "duplex passthrough needs full-tag Python records "
             "(native views carry only MI/RX)"
         ) if passthrough else None,
+        guard=guard,
     )
 
 
@@ -196,12 +246,6 @@ def methyl_paths(choice: str, base: str) -> tuple[str | None, str | None]:
     return (
         base + ".bedmethyl" if choice in ("bedmethyl", "both") else None,
         base + ".CX_report.txt" if choice in ("cx", "both") else None,
-    )
-
-
-def _not_ported(key: str, item: int, what: str) -> WorkflowError:
-    return WorkflowError(
-        f"config {key} is not ported yet (ROADMAP queue 1, item {item}: {what})"
     )
 
 
@@ -260,14 +304,27 @@ class PipelineBuilder:
         if ck is None:
             write_batch_stream(
                 batches, out_path, header, mode, level=self._out_level(out_path),
-                sort_engine=self.cfg.sort_engine, metrics=stats.metrics, **sort_kw,
+                sort_engine=self.cfg.sort_engine, metrics=stats.metrics,
+                sort_buckets=self.cfg.sort_buckets, **sort_kw,
             )
             return
         ck.write_batches(batches)
+        engine = resolve_sort_engine(self.cfg.sort_engine) if mode == "self" else None
+        if engine == "bucket":
+            # the two-phase bucketed finalize: per-bucket sorted runs
+            # behind their own manifest, only damaged buckets replayed
+            # on resume (pipeline.bucketemit); it books its own seconds
+            from bsseqconsensusreads_tpu_torch.pipeline import bucketemit
+
+            bucketemit.finalize_checkpoint(
+                ck, header, metrics=stats.metrics, buckets=self.cfg.sort_buckets,
+                **sort_kw,
+            )
+            return
         with stats.metrics.timed("sort_write"):
             if mode != "self":
                 ck.finalize(None)  # raw shard concatenation
-            elif resolve_sort_engine(self.cfg.sort_engine) == "native":
+            elif engine == "native":
                 ck.finalize(writer_fn=lambda w: external_sort_raw_to_writer(
                     ck.iter_raw_records(), w, header, engine="native", **sort_kw,
                 ))
@@ -403,31 +460,43 @@ class PipelineBuilder:
                     engine=self.cfg.sort_engine, **sort_kw,
                 )
 
-    def run_molecular(self, rule, mode: str) -> None:
+    def _molecular_batches(self, src: str, reader, stats: StageStats, guard, mode: str,
+                           skip_batches: int = 0):
+        """The molecular stage's batch stream over an open guarded reader."""
         cfg = self.cfg
+        return call_molecular_batches(
+            molecular_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
+                                    grouping=self.molecular_grouping, guard=guard),
+            params=cfg.molecular,
+            mode=mode,
+            batch_families=cfg.batch_families,
+            max_window=cfg.max_window,
+            grouping=self.molecular_grouping,
+            stats=stats,
+            batching=cfg.batching,
+            device=self.device,
+            emit=cfg.emit,
+            skip_batches=skip_batches,
+            indel_policy=cfg.indel_policy,
+            transport=cfg.transport,
+            base_counts=cfg.base_count_tags,
+            guard=guard,
+        )
+
+    def run_molecular(self, rule, mode: str) -> None:
         stats = self.stats.setdefault("molecular", StageStats(stage="molecular"))
         src = rule.inputs[0]
-        with BamReader(src) as reader:
-            header = self._pg(reader.header, "molecular")
-            ck = self._checkpointed("molecular", rule, header)
-            batches = call_molecular_batches(
-                molecular_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
-                                        grouping=self.molecular_grouping),
-                params=cfg.molecular,
-                mode=mode,
-                batch_families=cfg.batch_families,
-                max_window=cfg.max_window,
-                grouping=self.molecular_grouping,
-                stats=stats,
-                batching=cfg.batching,
-                device=self.device,
-                emit=cfg.emit,
-                skip_batches=ck.batches_done if ck else 0,
-                indel_policy=cfg.indel_policy,
-                transport=cfg.transport,
-                base_counts=cfg.base_count_tags,
-            )
-            self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
+        g = _guard.Guard.from_env(stats)
+        try:
+            with open_guarded_reader(src, g) as reader:
+                header = self._pg(reader.header, "molecular")
+                ck = self._checkpointed("molecular", rule, header)
+                batches = self._molecular_batches(
+                    src, reader, stats, g, mode, skip_batches=ck.batches_done if ck else 0,
+                )
+                self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
+        finally:
+            g.close()
 
     def _methyl_accumulator(self, rule, stats: StageStats):
         """The tally sink of the duplex stage's methyl epilogue
@@ -451,57 +520,141 @@ class PipelineBuilder:
         cfg = self.cfg
         stats = self.stats.setdefault("duplex", StageStats(stage="duplex"))
         src = rule.inputs[0]
-        with FastaFile(cfg.genome_fasta) as fasta, BamReader(src) as reader:
-            names = [n for n, _ in reader.header.references]
-            header = self._pg(reader.header, "duplex")
-            if mode == "self":  # output leaves coordinate-sorted
-                header = header.with_sort_order("coordinate")
-            ck = self._checkpointed("duplex", rule, header)
-            methyl_acc = None
-            # the FASTA path: loaded into a device-resident genome only
-            # when the wire transport engages (call_duplex_batches decides)
-            # — or the methyl accumulator's store when extraction is on
-            store = cfg.genome_fasta
-            if cfg.methyl != "off":
-                methyl_acc = self._methyl_accumulator(rule, stats)
-                store = methyl_acc.refstore
-                if ck is not None:
-                    # spill at the checkpoint's committed watermarks, and
-                    # restore the run chain on resume
-                    methyl_acc.attach_checkpoint(ck)
-            batches = call_duplex_batches(
-                duplex_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
-                                     grouping=cfg.grouping,
-                                     passthrough=cfg.duplex_passthrough),
-                fasta.fetch,
-                names,
-                params=cfg.duplex,
-                mode=mode,
-                batch_families=cfg.batch_families,
-                max_window=cfg.max_window,
-                grouping=cfg.grouping,
-                stats=stats,
-                pos0=cfg.pos0,
-                device=self.device,
-                emit=cfg.emit,
-                skip_batches=ck.batches_done if ck else 0,
-                transport=cfg.transport,
-                refstore=store,
-                strand_tags=cfg.duplex_strand_tags,
-                chemistry=cfg.chemistry,
-                methyl=methyl_acc,
-                passthrough=cfg.duplex_passthrough,
-            )
-            self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
-            if methyl_acc is not None:
-                methyl_acc.finalize()
+        g = _guard.Guard.from_env(stats)
+        try:
+            with FastaFile(cfg.genome_fasta) as fasta, open_guarded_reader(src, g) as reader:
+                names = [n for n, _ in reader.header.references]
+                header = self._pg(reader.header, "duplex")
+                if mode == "self":  # output leaves coordinate-sorted
+                    header = header.with_sort_order("coordinate")
+                ck = self._checkpointed("duplex", rule, header)
+                methyl_acc = None
+                # the FASTA path: loaded into a device-resident genome only
+                # when the wire transport engages (call_duplex_batches
+                # decides) — or the methyl accumulator's store when
+                # extraction is on
+                store = cfg.genome_fasta
+                if cfg.methyl != "off":
+                    methyl_acc = self._methyl_accumulator(rule, stats)
+                    store = methyl_acc.refstore
+                    if ck is not None:
+                        # spill at the checkpoint's committed watermarks,
+                        # and restore the run chain on resume
+                        methyl_acc.attach_checkpoint(ck)
+                batches = self._duplex_batches(
+                    duplex_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
+                                         grouping=cfg.grouping,
+                                         passthrough=cfg.duplex_passthrough, guard=g),
+                    fasta, names, stats, mode, store,
+                    skip_batches=ck.batches_done if ck else 0,
+                    methyl=methyl_acc, guard=g,
+                )
+                self._write_stage_output(batches, rule.outputs[0], header, mode, ck, stats)
+                if methyl_acc is not None:
+                    methyl_acc.finalize()
+        finally:
+            g.close()
+
+    def _duplex_batches(self, records, fasta, names, stats: StageStats, mode: str, store,
+                        skip_batches: int = 0, methyl=None, guard=None):
+        """The duplex stage's batch stream over a record stream."""
+        cfg = self.cfg
+        return call_duplex_batches(
+            records,
+            fasta.fetch,
+            names,
+            params=cfg.duplex,
+            mode=mode,
+            batch_families=cfg.batch_families,
+            max_window=cfg.max_window,
+            grouping=cfg.grouping,
+            stats=stats,
+            pos0=cfg.pos0,
+            device=self.device,
+            emit=cfg.emit,
+            skip_batches=skip_batches,
+            transport=cfg.transport,
+            refstore=store,
+            strand_tags=cfg.duplex_strand_tags,
+            chemistry=cfg.chemistry,
+            methyl=methyl,
+            passthrough=cfg.duplex_passthrough,
+            guard=guard,
+        )
 
     def _interstage_blocked(self) -> str:
-        """Why the fused molecular->duplex streaming path cannot engage:
-        it needs the bucket sort engine's in-plan-order bucket emit, which
-        the port does not have yet (ROADMAP queue 1, item 5; the fused rule
-        itself waits for it too)."""
-        return "sort_engine must resolve to 'bucket'"
+        """Why the fused molecular->duplex rule cannot engage ('' when it
+        can): it needs the bucket engine's in-plan-order bucket emit (the
+        tee rides BucketRouter.stream_to) and no mid-stage checkpoint
+        (shard replay would re-enter the tee); methyl and passthrough ride
+        the two-pass path, as in the JAX package."""
+        from bsseqconsensusreads_tpu_torch.pipeline.extsort import resolve_sort_engine
+
+        if resolve_sort_engine(self.cfg.sort_engine) != "bucket":
+            return "sort_engine must resolve to 'bucket'"
+        if self.cfg.checkpoint_every > 0:
+            return "checkpoint_every > 0 (batch shards cannot tee)"
+        if self.cfg.methyl != "off":
+            return "methyl extraction rides the duplex checkpoint protocol"
+        if self.cfg.duplex_passthrough:
+            return "duplex_passthrough is validated on the two-pass path"
+        return ""
+
+    def run_fused(self, rule) -> None:
+        """The fused molecular->duplex rule (stream_interstage): the
+        molecular batch stream routes into coordinate buckets, and as each
+        sorted bucket is written to the molecular BAM its records also
+        decode straight into the duplex grouping — the intermediate file
+        is still written (the same bytes: one continuous writer in plan
+        order), but the duplex stage never re-reads it. The duplex stage
+        then takes Python records, as in the JAX package."""
+        from bsseqconsensusreads_tpu_torch.io.bam import attach_codec_metrics, decode_record
+        from bsseqconsensusreads_tpu_torch.pipeline import bucketemit
+
+        cfg = self.cfg
+        mol_out, duplex_out = rule.outputs
+        mol_stats = self.stats.setdefault("molecular", StageStats(stage="molecular"))
+        dstats = self.stats.setdefault("duplex", StageStats(stage="duplex"))
+        src = rule.inputs[0]
+        g = _guard.Guard.from_env(mol_stats)
+        try:
+            with FastaFile(cfg.genome_fasta) as fasta, open_guarded_reader(src, g) as reader:
+                mol_header = self._pg(reader.header, "molecular")
+                batches = self._molecular_batches(src, reader, mol_stats, g, "self")
+                plan = bucketemit.BucketPlan.from_header(mol_header, cfg.sort_buckets)
+                mol_stats.metrics.count("bucket_count", plan.nbuckets)
+                router = bucketemit.BucketRouter(
+                    plan, mol_header, workdir=cfg.tmp or None,
+                    buffer_records=cfg.sort_buffer_records, metrics=mol_stats.metrics,
+                )
+
+                def fused_records():
+                    """Pull-driven tee: consuming this generator runs the
+                    molecular stage, writes its BAM, and hands every sorted
+                    record on as a decoded object."""
+                    try:
+                        for batch in batches:
+                            for item in batch:
+                                router.route(item)
+                        with BamWriter(mol_out, mol_header,
+                                       level=self._out_level(mol_out)) as w:
+                            attach_codec_metrics(w, mol_stats.metrics)
+                            for blob in router.stream_to(w):
+                                # stream_to yields the prefixed frame
+                                yield decode_record(blob[4:])
+                    finally:
+                        router.close()
+
+                names = [n for n, _ in mol_header.references]
+                dheader = self._pg(mol_header, "duplex").with_sort_order("coordinate")
+                dstats.metrics.count("ingest_native", 0)
+                dstats.metrics.count("group_native", 0)
+                dbatches = self._duplex_batches(
+                    fused_records(), fasta, names, dstats, "self", cfg.genome_fasta,
+                )
+                self._write_stage_output(dbatches, duplex_out, dheader, "self", None, dstats)
+        finally:
+            g.close()
 
     def run_sam_to_fastq(self, rule) -> None:
         from bsseqconsensusreads_tpu_torch.io.fastq import sam_to_fastq
@@ -628,10 +781,6 @@ class PipelineBuilder:
                 "methyl extraction is a duplex-stage epilogue; "
                 "single_strand stops after the molecular stage"
             )
-        if cfg.sort_engine == "bucket":
-            raise _not_ported("sort_engine: bucket", 5,
-                              "bucketemit and the bucket engine, on failpoints, "
-                              "retry and the host pool")
         try:  # an unknown transport; indel_policy 'align' (item 7)
             check_route(cfg.transport, cfg.indel_policy)
         except ValueError as exc:
@@ -672,24 +821,35 @@ class PipelineBuilder:
         if cfg.aligner == "self":
             aligned = self.out("_consensus_unfiltered_aunamerged_aligned.bam")
             target = self.out("_consensus_duplex_unfiltered.bam")
+            fused = False
             if cfg.stream_interstage:
-                # the fallback must be loud: an operator who asked for
-                # fusion and got the two-pass path should see why
-                observe.stderr_line(
-                    f"stream_interstage disabled: {self._interstage_blocked()}"
+                blocked = self._interstage_blocked()
+                if blocked:
+                    # the fallback must be loud: an operator who asked for
+                    # fusion and got the two-pass path should see why
+                    observe.stderr_line(f"stream_interstage disabled: {blocked}")
+                else:
+                    fused = True
+            if fused:
+                wf.rule(
+                    "call_consensus_molecular_duplex_fused",
+                    [consensus_input],
+                    [aligned, target],
+                    self.run_fused,
                 )
-            wf.rule(
-                "call_consensus_molecular_tpu",
-                [consensus_input],
-                [aligned],
-                lambda r: self.run_molecular(r, mode="self"),
-            )
-            wf.rule(
-                "call_duplex_tpu",
-                [aligned],
-                [target],
-                lambda r: self.run_duplex(r, mode="self"),
-            )
+            else:
+                wf.rule(
+                    "call_consensus_molecular_tpu",
+                    [consensus_input],
+                    [aligned],
+                    lambda r: self.run_molecular(r, mode="self"),
+                )
+                wf.rule(
+                    "call_duplex_tpu",
+                    [aligned],
+                    [target],
+                    lambda r: self.run_duplex(r, mode="self"),
+                )
             if cfg.filter is not None:
                 ftarget = self.out("_consensus_duplex_filtered.bam")
                 wf.rule("filter_consensus_duplex", [target], [ftarget], self.run_filter_duplex)

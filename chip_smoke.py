@@ -101,7 +101,8 @@ Phases:
         equal.
   5. methylation, fused into the duplex stage:
      a. cli.main(["duplex", ..., "--methyl", "both"]) on Phase 3's
-        200,000-family molecular BAM and the human-scale genome, transport
+        molecular families below half of --families (a depth cut for the
+        run's time limit) and the human-scale genome, transport
         'auto' (the wire): its BAM equal to Phase 3w's; counts set to 0
         just before and read just after (a main path);
      b. the same over 'unpacked': its BAM equal to Phase 3's, its
@@ -148,8 +149,36 @@ Phases:
         163, an indel read, a hard-clipped read) on the card and the CPU:
         SHA-equal, leftover_records 5, the four kinds written through.
 
+  7. the batch engine (every phase runs at the port's
+     defaults: 2 overlap workers on their own CUDA streams and
+     min(4, cores-1) host workers; every stage summary carries them, and
+     every unarmed path must count 0 retried, recovered, degraded and
+     stalled batches):
+     a. run_pipeline with sort_engine 'bucket' and stream_interstage on
+        Phase 3's families below half of --families (a depth cut for the
+        run's time limit): the one fused rule, its target and molecular
+        intermediate equal to 4a's records (@PG aside); bucket_count, the
+        rule seconds beside 4a's, peak host RSS; a main path;
+     b. the same default `run` in a child process with
+        BSSEQ_TPU_HOST_WORKERS=0 and BSSEQ_TPU_OVERLAP_THREADS=0: the
+        target equal to 4a's, per-stage families/s beside 4a's (the pools'
+        measured effect on this card);
+     c. the failpoint drill at the head's normal families: each schedule
+        of DRILL armed
+        alone (a dispatch raise, a 3 s fetch stall under a 1 s watchdog,
+        a host-pool raise, spill / shard / bucket-spill I/O errors, a
+        dispatch raise past BSSEQ_TPU_RETRY_MAX that degrades one batch:
+        its unit once more on the card, so the run's kernel launches
+        equal the unarmed run's), each target SHA-equal to the unarmed
+        run with the predicted counters and fires; then bucket_finalize=exit:9
+        in a checkpointed child process and a resume;
+     d. the input guard: `molecular` on 400 normal head families with
+        out-of-range quals — strict exits 3 with the same reason on the
+        card and the CPU; under quarantine the output, the sidecar and
+        the counters are equal card vs CPU and reconcile.
+
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a, 5b and 6a together), the nvidia-smi line, and last
+Phases 3, 3w, 4a, 5a, 5b, 6a and 7a together), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 """
 
@@ -736,11 +765,32 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                 write_batch_stream(batches, out, reader.header, "self",
                                    sort_engine=engine, metrics=stats.metrics)
     wall = time.monotonic() - t0
+    check_unarmed(stats.metrics.counters, f"{stage} on {device}")
     return stats, dict(cuda_vote.LAUNCHES), wall
 
 
 HOST_PHASES = ("ingest", "encode", "host_vote", "rawize", "emit", "sort_write")
 DEVICE_PHASES = ("kernel", "device_wait", "fetch")
+RECOVERY = ("batches_retried", "batches_recovered", "batches_degraded", "batches_stalled")
+
+
+def check_unarmed(counters: dict, tag: str) -> None:
+    """An unarmed path retries, recovers, degrades and stalls nothing."""
+    bad = {k: counters.get(k, 0) for k in RECOVERY if counters.get(k, 0)}
+    check(not bad, f"{tag}: recovery counters on an unarmed path: {bad}")
+
+
+def check_unarmed_stats(stats: dict, tag: str) -> None:
+    for stage, st in stats.items():
+        if hasattr(st, "metrics"):
+            check_unarmed(st.metrics.counters, f"{tag} {stage}")
+
+
+def pool_fields(counters: dict) -> dict:
+    """The batch engine a stage ran with, and its recovery counters."""
+    return {"overlap_pool_workers": counters.get("overlap_pool_workers", 0),
+            "host_pool_workers": counters.get("host_pool_workers", 0),
+            **{k: counters.get(k, 0) for k in RECOVERY}}
 
 
 def stage_summary(stage: str, stats, wall: float) -> dict:
@@ -750,6 +800,7 @@ def stage_summary(stage: str, stats, wall: float) -> dict:
     m = stats.metrics.seconds
     c = stats.metrics.counters
     device_batches = c.get("route_batches_wire", 0) + c.get("route_batches_single", 0)
+    check_unarmed(c, f"{stage} stage")
     return {
         "stage": stage, "families": stats.families,
         "families_per_s": stats.families / wall, "wall_s": wall,
@@ -765,6 +816,8 @@ def stage_summary(stage: str, stats, wall: float) -> dict:
         "h2d_bytes_per_batch": c.get("h2d_bytes", 0) / device_batches if device_batches else 0,
         "d2h_bytes_per_batch": c.get("d2h_bytes", 0) / device_batches if device_batches else 0,
         "wire_qual": {k[len("wire_qual_"):]: v for k, v in c.items() if k.startswith("wire_qual_")},
+        **pool_fields(c),
+        "stall_s": m.get("stall", 0.0), "spill_write_s": m.get("spill_write", 0.0),
     }
 
 
@@ -1038,6 +1091,48 @@ def same_records(a_path: str, b_path: str) -> tuple[bool, int, list, list]:
             n += len(ca)
 
 
+def family_of(blob: bytes) -> int:
+    """The generator family of an encoded record: its qname is the
+    family's `f<family>:<strand>:<template>` in the inputs, `<family>/<strand>`
+    or `<family>` in the consensus outputs."""
+    q = blob[36:36 + blob[12] - 1]
+    if q[:1] == b"f":
+        return int(q[1:q.index(b":")])
+    return int(q.split(b"/")[0])
+
+
+def family_subset(src: str, dst: str, limit: int) -> str:
+    """The records of `src` whose family is below `limit`, in order,
+    written to `dst` under `src`'s header (a depth cut of a path: the
+    generator places families independently, so a family's records are
+    the same in the cut as in the whole)."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader, BamWriter
+
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with BamReader(src) as r, BamWriter(dst, r.header, level=1) as w:
+        w.write_raw_many(b for b in r.raw_records() if family_of(b) < limit)
+    return dst
+
+
+def same_family_records(path: str, ref: str, limit: int) -> tuple[bool, int, dict]:
+    """(path's records equal, in order, to ref's records of the families
+    below `limit`; records compared; header lines that differ apart from
+    @PG)."""
+    import itertools
+
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    n = 0
+    with BamReader(path) as a, BamReader(ref) as b:
+        hdiff = header_difference(a.header.text.splitlines(), b.header.text.splitlines())
+        want = (x for x in b.raw_records() if family_of(x) < limit)
+        for x, y in itertools.zip_longest(a.raw_records(), want):
+            if x != y:
+                return False, n, hdiff
+            n += 1
+    return n > 0, n, hdiff
+
+
 def header_difference(a: list, b: list) -> dict:
     """Header lines of a and b apart from @PG: the ones only one side has."""
     a = [ln for ln in a if not ln.startswith("@PG")]
@@ -1056,7 +1151,11 @@ def run_cli(argv: list[str]) -> tuple[dict, list[str]]:
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     check(rc == 0, f"run exited {rc}")
-    return json.loads(out.getvalue().strip().splitlines()[-1]), err.getvalue().splitlines()
+    doc = json.loads(out.getvalue().strip().splitlines()[-1])
+    for stage, st in doc.get("stats", {}).items():
+        if "batches_retried" in st:
+            check_unarmed(st, f"{argv[0]} {stage}")
+    return doc, err.getvalue().splitlines()
 
 
 def phase4(np, torch, work: str, inputs, phase3_summaries: dict, case_shapes=frozenset()) -> dict:
@@ -1120,6 +1219,7 @@ def phase4a(torch, work: str, fasta: str, big: str, phase3_summaries: dict,
     launches = dict(cuda_vote.LAUNCHES)
     rules = [ln for ln in err if ln.startswith(("[ran]", "[skip]"))]
     log(f"phase4a run: {run_wall:.3f} s; rules: {json.dumps(rules)}")
+    RUN4A.update(doc=doc, rules=rules, wall=run_wall, outdir=outdir)
     log(f"phase4a stdout stats: {json.dumps(doc['stats'])}")
     for stage, (stats, wall, prof, mem, counts) in per_stage.items():
         busy = device_busy_s(torch, prof)
@@ -1174,6 +1274,11 @@ def phase4a(torch, work: str, fasta: str, big: str, phase3_summaries: dict,
     check((sha256(target), os.path.getmtime(target)) == before and doc2["target"] == target,
           "second run changed the target")
     return launches
+
+
+#: Phase 4a's run (its stdout document, rule lines, wall and outdir):
+#: Phase 7 compares against it
+RUN4A: dict = {}
 
 
 RESUME_CHILD = r"""
@@ -1243,6 +1348,7 @@ def phase4b(work: str, fasta: str, small: str, batch_families: int = 16) -> None
                           checkpoint_every=1, batch_families=batch_families)
     t0 = time.monotonic()
     whole, _results, whole_stats = run_pipeline(cfg, small, outdir=os.path.join(work, "ck_whole"))
+    check_unarmed_stats(whole_stats, "phase4b")
     log(f"phase4b uninterrupted: {time.monotonic() - t0:.2f} s, batches "
         f"{ {k: s.batches for k, s in whole_stats.items()} }, sha256 {sha256(whole)}")
 
@@ -1278,6 +1384,7 @@ def phase4c(work: str, fasta: str, small: str) -> None:
                               genome_fasta_file_name=os.path.basename(fasta),
                               aligner="none", backend=backend)
         fq1, _results, _stats = run_pipeline(cfg, small, outdir=os.path.join(work, f"none_{backend}"))
+        check_unarmed_stats(_stats, f"phase4c {backend}")
         fqs[backend] = [fq1, fq1.replace("_1.fq.gz", "_2.fq.gz")]
     for mate in (0, 1):
         with gzip.open(fqs["cuda"][mate], "rt") as fa, gzip.open(fqs["cpu"][mate], "rt") as fb:
@@ -1317,6 +1424,7 @@ def run_duplex_cli(argv: list[str]) -> tuple[dict, dict, float]:
     lines = [json.loads(ln) for ln in err.getvalue().splitlines() if ln.startswith("{")]
     reports = [ln["methyl"] for ln in lines if "methyl" in ln]
     check(len(reports) == 1, "duplex --methyl printed no methyl report")
+    check_unarmed(lines[-1], "duplex --methyl")
     return reports[0], lines[-1], wall
 
 
@@ -1329,24 +1437,29 @@ def methyl_argv(inp: str, out: str, fasta: str, device: str, transport: str,
             "--transport", transport, "--methyl", "both", "--methyl-engine", engine]
 
 
-def phase5(np, torch, work: str, inputs, phase3_summaries) -> dict:
-    """Methylation, fused into the duplex stage: 5a/5b at full size over
-    the wire and unpacked (the main paths), 5c the head on the card and
-    the CPU with both methyl engines and one batch's planes against the
-    numpy twin, 5d a SIGKILLed checkpointed `run` with methyl resumed.
-    Returns the kernels' launches on 5a and 5b."""
+def phase5(np, torch, work: str, inputs, phase3_summaries, cut: int) -> dict:
+    """Methylation, fused into the duplex stage: 5a/5b over the wire and
+    unpacked (the main paths) on Phase 3's molecular families below `cut`
+    (half of --families: the run's time limit), 5c the head on
+    the card and the CPU with both methyl engines and one batch's planes
+    against the numpy twin, 5d a SIGKILLed checkpointed `run` with methyl
+    resumed. Returns the kernels' launches on 5a and 5b."""
     fasta, _big, small, genome = inputs
-    launches = phase5ab(torch, work, genome, phase3_summaries)
+    launches = phase5ab(torch, work, genome, phase3_summaries, cut)
     phase5c(np, torch, work, fasta)
     phase5d(work, fasta, small)
     return launches
 
 
-def phase5ab(torch, work: str, genome: str, phase3_summaries) -> dict:
+def phase5ab(torch, work: str, genome: str, phase3_summaries, cut: int) -> dict:
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote
 
     p3, p3w = phase3_summaries
-    mol = os.path.join(work, "molecular.bam")
+    t0 = time.monotonic()
+    mol = family_subset(os.path.join(work, "molecular.bam"),
+                        os.path.join(work, "cut", "molecular.bam"), cut)
+    log(f"phase5 input: phase 3's molecular families below {cut} "
+        f"({time.monotonic() - t0:.1f} s)")
     launches: dict = {}
     rows = {}
     for tag, transport, ref_bam in (("5a", "auto", "duplex_wire.bam"),
@@ -1383,9 +1496,11 @@ def phase5ab(torch, work: str, genome: str, phase3_summaries) -> dict:
         }
         log(f"phase{tag} methyl {json.dumps(row)}")
         rows[tag] = row
-        same = row["sha256"]["bam"] == sha256(os.path.join(work, ref_bam))
-        log(f"phase{tag} duplex BAM vs phase 3's {ref_bam}: byte-identical={same}")
-        check(same, f"phase{tag}: methyl changed the consensus BAM")
+        same, n, hdiff = same_family_records(out, os.path.join(work, ref_bam), cut)
+        log(f"phase{tag} duplex BAM vs phase 3's {ref_bam} (its families below {cut}): "
+            f"{n} records identical={same}, header lines that differ: {json.dumps(hdiff)}")
+        check(same and not hdiff["only_run"] and not hdiff["only_phase3"],
+              f"phase{tag}: methyl changed the consensus BAM")
         check(report["sites"] > 0, f"phase{tag}: no methylation sites")
         check(counts["seg_vote"] > 0, f"phase{tag}: seg_vote never launched")
         route = "route_batches_wire" if transport == "auto" else "route_batches_single"
@@ -1539,6 +1654,7 @@ def phase5d(work: str, fasta: str, small: str, batch_families: int = 64) -> None
                           checkpoint_every=1, batch_families=batch_families, methyl="both")
     t0 = time.monotonic()
     whole, _results, whole_stats = run_pipeline(cfg, small, outdir=os.path.join(work, "mck_whole"))
+    check_unarmed_stats(whole_stats, "phase5d")
     want = {k: sha256(whole + k) for k in ("", ".bedmethyl", ".CX_report.txt")}
     log(f"phase5d uninterrupted: {time.monotonic() - t0:.2f} s, duplex batches "
         f"{whole_stats['duplex'].batches}, spill runs "
@@ -1645,7 +1761,7 @@ def cli_io(argv: list[str]) -> tuple[str, str]:
 
 def phase6(np, torch, work: str, inputs, phase3_summaries: dict, families: int,
            cpu_families: int) -> dict:
-    """The raw-BAM entry: 6a `run` on the 200,000-family raw BAM (the main
+    """The raw-BAM entry: 6a `run` on the --families raw BAM (the main
     path: grouping, both consensus stages, the consensus filter), 6b the
     raw head through `run` on the card and the CPU with the `group`,
     `sort` and `metrics` subcommands, 6c `duplex --passthrough` on the
@@ -1699,6 +1815,7 @@ def phase6a(torch, work: str, genome: str, phase3_summaries: dict, families: int
         t0 = time.monotonic()
         target, results, stats = stages.run_pipeline(cfg, raw, outdir=outdir)
         run_wall = time.monotonic() - t0
+        check_unarmed_stats(stats, "phase6a")
     finally:
         for name, fn in originals.items():
             setattr(stages.PipelineBuilder, name, fn)
@@ -1745,8 +1862,8 @@ def phase6a(torch, work: str, genome: str, phase3_summaries: dict, families: int
           "phase6a: the MIs do not partition the records by family and strand")
 
     unfiltered = os.path.join(outdir, "raw_consensus_duplex_unfiltered.bam")
-    ref = os.path.join(work, "run", "grouped_consensus_duplex_unfiltered.bam")
     t0 = time.monotonic()
+    ref = os.path.join(work, "run", "grouped_consensus_duplex_unfiltered.bam")
     lines, got = record_multiset(unfiltered, b"RX")
     ref_lines, want = record_multiset(ref, b"RX")
     same = got == want
@@ -1792,6 +1909,7 @@ def phase6b(work: str, fasta: str, n_head: int) -> None:
         outdir = os.path.join(work, f"raw_head_{backend}")
         t0 = time.monotonic()
         target, results, stats = run_pipeline(cfg, small, outdir=outdir)
+        check_unarmed_stats(stats, "phase6b")
         outs[backend] = {k: os.path.join(outdir, v) for k, v in names.items()}
         log(f"phase6b head run {backend}: {time.monotonic() - t0:.2f} s, rules "
             f"{json.dumps([[r.name, round(r.seconds, 3)] for r in results])}, group "
@@ -1869,6 +1987,325 @@ def phase6c(work: str, fasta: str) -> None:
               f"phase6c {dev}: passthrough wrote {passed}")
     check(shas["cuda"] == shas["cpu"] and lefts["cuda"] == lefts["cpu"] == 5,
           "phase6c: the card's passthrough BAM differs from the CPU's")
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+INLINE_CHILD = r"""
+import json, os, sys, time
+from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+fasta, bam, outdir = sys.argv[1:4]
+cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta), genome_fasta_file_name=os.path.basename(fasta))
+t0 = time.monotonic()
+target, results, stats = run_pipeline(cfg, bam, outdir=outdir)
+print(json.dumps({"target": target, "wall": time.monotonic() - t0,
+                  "rules": {r.name: r.seconds for r in results},
+                  "stats": {k: s.as_dict() for k, s in stats.items()}}))
+"""
+
+FAILPOINT_CHILD = r"""
+import json, os, sys
+from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+fasta, bam, outdir, over = sys.argv[1:5]
+cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta), genome_fasta_file_name=os.path.basename(fasta),
+                      **json.loads(over))
+target, results, stats = run_pipeline(cfg, bam, outdir=outdir)
+print(json.dumps({"target": target}))
+"""
+
+#: Phase 7c's schedules: (name, schedule, env, config overrides, predicted
+#: (retried, recovered, degraded, stalled) summed over the stages, fires).
+#: Every drill run (and its unarmed reference) votes 64 families per batch,
+#: so batches 2 and 3 are device batches in both stages at any head size.
+DRILL_BATCH = 64
+DRILL_SPILL = 200  # sort buffer records: both stages spill at any head size
+DRILL = (
+    ("dispatch_raise", "dispatch_kernel=raise:RuntimeError:times=1@batch=2", {}, {},
+     (1, 1, 0, 0), 1),
+    # the stall fires twice per stage: on the abandoned worker and again
+    # on the inline re-dispatch (the schedule has no times=)
+    ("fetch_stall", "fetch_out=stall:3s@batch=3", {"BSSEQ_TPU_STALL_TIMEOUT_S": "1"}, {},
+     (0, 0, 0, 2), 4),
+    ("hostpool_raise", "hostpool_task=raise:times=1", {}, {}, (1, 1, 0, 0), 1),
+    ("extsort_spill", "extsort_spill=io_error:times=1", {},
+     {"sort_buffer_records": DRILL_SPILL}, (1, 1, 0, 0), 1),
+    ("ckpt_shard_write", "ckpt_shard_write=io_error:times=1", {}, {"checkpoint_every": 1},
+     (0, 0, 0, 0), 1),
+    ("bucket_spill", "bucket_spill=io_error:times=1", {},
+     {"sort_engine": "bucket", "sort_buffer_records": DRILL_SPILL}, (1, 1, 0, 0), 1),
+    ("dispatch_degrade", "dispatch_kernel=raise:times=3@batch=2", {"BSSEQ_TPU_RETRY_MAX": "3"},
+     {}, (1, 0, 1, 0), 3),
+)
+
+
+def phase7(np, torch, work: str, inputs, cpu_families: int, cut: int) -> dict:
+    """The batch engine: 7a the fused rule at Phase 3's families below
+    `cut` (half of --families: the run's time limit), 7b the
+    inline path in a child process, 7c the failpoint drill and 7d the
+    input guard at the head's families (its deep families set aside, so
+    the drill's batch indices are device batches at any --cpu-families).
+    Returns the kernels' launches on 7a's main path."""
+    fasta, big, small, genome = inputs
+    launches = phase7a(torch, work, genome, big, cut)
+    phase7b(work, genome, big)
+    n_head = cpu_families + len(DEEP_HEAD)
+    deep = {n_head * (i + 1) // (len(DEEP_HEAD) + 1) for i in range(len(DEEP_HEAD))}
+    drill = os.path.join(work, "drill_head.bam")
+    n = head_subset(small, drill, lambda fam: fam not in deep)
+    log(f"phase7 drill head: {n} records of the head's {n_head - len(deep)} normal families")
+    phase7c(work, fasta, drill)
+    bad = os.path.join(work, "bad_head.bam")
+    n = head_subset(small, bad, lambda fam: fam < 400 and fam not in deep, corrupt_every=211)
+    phase7d(work, fasta, bad, n)
+    return launches
+
+
+def phase7a(torch, work: str, genome: str, big: str, cut: int) -> dict:
+    """`run` with sort_engine 'bucket' and stream_interstage on Phase 3's
+    families below `cut`: one fused rule whose target and molecular
+    intermediate must equal 4a's records of those families (@PG aside),
+    under torch.profiler and the memory sampler, the kernels' counts set
+    to 0 just before and read just after (a main path)."""
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
+    from bsseqconsensusreads_tpu_torch.pipeline import stages
+
+    t0 = time.monotonic()
+    big = family_subset(big, os.path.join(work, "cut", "grouped.bam"), cut)
+    log(f"phase7a input: phase 3's families below {cut} ({time.monotonic() - t0:.1f} s)")
+    outdir = os.path.join(work, "run_fused")
+    cfg = FrameworkConfig(genome_dir=os.path.dirname(genome),
+                          genome_fasta_file_name=os.path.basename(genome),
+                          sort_engine="bucket", stream_interstage=True)
+    reconstruct._CACHE.clear()
+    for k in cuda_vote.LAUNCHES:
+        cuda_vote.LAUNCHES[k] = 0
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.monotonic()
+    with PeakMemory(torch) as mem, prof:
+        target, results, stats = stages.run_pipeline(cfg, big, outdir=outdir)
+    wall = time.monotonic() - t0
+    launches = dict(cuda_vote.LAUNCHES)
+    busy = device_busy_s(torch, prof)
+    check_unarmed_stats(stats, "phase7a")
+    rules = {r.name: r.seconds for r in results}
+    check(list(rules) == ["call_consensus_molecular_duplex_fused"],
+          f"phase7a: run drove {list(rules)}, not the fused rule")
+    run4a = {ln.split()[1]: float(ln.split("(")[1].split("s)")[0]) for ln in RUN4A["rules"]}
+    mol, dup = stats["molecular"], stats["duplex"]
+    log(f"phase7a fused run on {cut} families: {wall:.3f} s (4a's run {RUN4A['wall']:.3f} s "
+        f"on all); rule seconds "
+        f"{json.dumps(rules)} beside 4a's {json.dumps(run4a)} (sum "
+        f"{sum(run4a.values()):.3f}); bucket_count "
+        f"{mol.metrics.counters.get('bucket_count', 0)}; peak host RSS {mem.host_gib:.3f} GiB "
+        f"(at start {mem.host_start_gib:.3f}), peak device {mem.device_gib:.4f} GiB; device "
+        f"busy {busy:.4f} s, idle share "
+        f"{1.0 - busy / wall if busy > 0 else 'not measured'}; launches {json.dumps(launches)}")
+    for stage, st in stats.items():
+        log(f"phase7a stage {stage}: families {st.families}, families/s "
+            f"{st.families / wall:.1f} over the fused rule, "
+            f"{json.dumps(pool_fields(st.metrics.counters))}, sort_write "
+            f"{st.metrics.seconds.get('sort_write', 0.0):.3f} s, bucket parts "
+            f"{json.dumps({k: round(v, 3) for k, v in st.metrics.seconds.items() if 'bucket' in k})}")
+    check(mol.metrics.counters.get("bucket_count", 0) > 1, "phase7a: no bucket plan")
+    check(launches["seg_vote"] > 0, "phase7a: seg_vote never launched")
+    inter = os.path.join(outdir, "grouped_consensus_unfiltered_aunamerged_aligned.bam")
+    for name, path, ref in (("intermediate", inter, os.path.join(
+            RUN4A["outdir"], "grouped_consensus_unfiltered_aunamerged_aligned.bam")),
+                            ("target", target, RUN4A["doc"]["target"])):
+        same, n, hdiff = same_family_records(path, ref, cut)
+        log(f"phase7a {name} vs 4a's (its families below {cut}): {n} records "
+            f"identical={same}, header lines that differ apart from @PG: {json.dumps(hdiff)}")
+        check(same and not hdiff["only_run"] and not hdiff["only_phase3"],
+              f"phase7a {name}: differs from 4a's")
+    return launches
+
+
+def phase7b(work: str, genome: str, big: str) -> None:
+    """The same default `run` inline (BSSEQ_TPU_HOST_WORKERS=0,
+    BSSEQ_TPU_OVERLAP_THREADS=0) in a child process: its target must
+    equal 4a's; its per-stage families/s beside 4a's are the pools'
+    measured effect on this card."""
+    outdir = os.path.join(work, "run_inline")
+    env = {**os.environ, "PYTHONPATH": REPO, "BSSEQ_TPU_HOST_WORKERS": "0",
+           "BSSEQ_TPU_OVERLAP_THREADS": "0"}
+    res = subprocess.run([sys.executable, "-c", INLINE_CHILD, genome, big, outdir], env=env,
+                         capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"phase7b: the inline run failed: {res.stderr[-2000:]}")
+    doc = json.loads(res.stdout.strip().splitlines()[-1])
+    same, nbytes, h_a, h_b = same_records(doc["target"], RUN4A["doc"]["target"])
+    log(f"phase7b inline run: {doc['wall']:.3f} s (4a {RUN4A['wall']:.3f} s), rule seconds "
+        f"{json.dumps(doc['rules'])}; target records identical to 4a's={same} ({nbytes} bytes)")
+    check(same, "phase7b: the inline target differs from 4a's")
+    for stage, st in doc["stats"].items():
+        check_unarmed(st, f"phase7b {stage}")
+        pooled = RUN4A["doc"]["stats"][stage]
+        log(f"phase7b {stage}: families/s inline {st['families_per_second']} vs pools "
+            f"{pooled['families_per_second']} (x{pooled['families_per_second'] / st['families_per_second']:.3f}); "
+            f"inline {json.dumps(pool_fields(st))}, pools {json.dumps(pool_fields(pooled))}; "
+            f"phase seconds inline / pools: " + json.dumps({
+                k: [round(st.get(f'{k}_seconds', 0.0), 3), round(pooled.get(f'{k}_seconds', 0.0), 3)]
+                for k in HOST_PHASES + DEVICE_PHASES + ("stall",)}))
+
+
+def phase7c(work: str, fasta: str, small: str) -> None:
+    """The failpoint drill on the card at the head: each schedule armed
+    alone; every run's target SHA-equal to the unarmed run's, with the
+    recovery counters and fires the schedule predicts; then
+    bucket_finalize=exit:9 in a checkpointed child process, resumed."""
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.faults import failpoints
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+    from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
+
+    def cfg(**over):
+        return FrameworkConfig(genome_dir=os.path.dirname(fasta),
+                               genome_fasta_file_name=os.path.basename(fasta),
+                               batch_families=DRILL_BATCH, **over)
+
+    t0 = time.monotonic()
+    before = cuda_vote.LAUNCHES["seg_vote"]
+    plain, _r, stats = run_pipeline(cfg(), small, outdir=os.path.join(work, "drill_plain"))
+    plain_launches = cuda_vote.LAUNCHES["seg_vote"] - before
+    check_unarmed_stats(stats, "phase7c unarmed")
+    want = sha256(plain)
+    log(f"phase7c unarmed head run: {time.monotonic() - t0:.2f} s, sha256 {want}, batches "
+        f"{ {k: s.batches for k, s in stats.items()} }, seg_vote launches {plain_launches}")
+    for name, spec, env, over, predicted, fires in DRILL:
+        saved = {k: os.environ.get(k) for k in (*env, "BSSEQ_TPU_RETRY_BACKOFF_S")}
+        os.environ.update(env)
+        failpoints.arm(spec)
+        t0 = time.monotonic()
+        before = cuda_vote.LAUNCHES["seg_vote"]
+        try:
+            target, _r, stats = run_pipeline(cfg(**over), small,
+                                             outdir=os.path.join(work, f"drill_{name}"))
+            fired = failpoints.fired_counts()
+            launched = cuda_vote.LAUNCHES["seg_vote"] - before
+        finally:
+            failpoints.disarm()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        got = tuple(sum(s.counter(k) for s in stats.values()) for k in RECOVERY)
+        site = spec.split("=")[0]
+        log(f"phase7c {name} [{spec}] {json.dumps(env)} {json.dumps(over)}: "
+            f"{time.monotonic() - t0:.2f} s, batches "
+            f"{ {k: s.batches for k, s in stats.items()} }, sha256 equal {sha256(target) == want}, "
+            f"counters {dict(zip(RECOVERY, got))} (predicted {dict(zip(RECOVERY, predicted))}), "
+            f"fires {fired.get(site, 0)} (predicted {fires}), seg_vote launches {launched}")
+        check(sha256(target) == want, f"phase7c {name}: the target differs from the unarmed run")
+        check(got == predicted and fired.get(site, 0) == fires,
+              f"phase7c {name}: counters {got} / fires {fired} not as predicted")
+        if got[2]:
+            # the failed attempts raised before their launch, and the
+            # degraded batch voted on the card: the unarmed run's launches
+            check(launched == plain_launches, f"phase7c {name}: {launched} seg_vote launches, "
+                  f"the unarmed run {plain_launches}: the degraded batch left the card")
+    # a bucket finalize killed mid-stream, then resumed
+    outdir = os.path.join(work, "drill_bucket_kill")
+    over = json.dumps({"sort_engine": "bucket", "checkpoint_every": 1,
+                       "batch_families": DRILL_BATCH})
+    env = {**os.environ, "PYTHONPATH": REPO, "BSSEQ_TPU_FAILPOINTS": "bucket_finalize=exit:9@hit=2"}
+    cmd = [sys.executable, "-c", FAILPOINT_CHILD, fasta, small, outdir, over]
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    runs = [d for d in os.listdir(outdir) if d.endswith(".bucketruns")]
+    log(f"phase7c bucket_finalize=exit:9: child rc {res.returncode}, bucket run dirs left {runs}")
+    check(res.returncode == 9 and runs, f"phase7c: the bucket finalize kill did not land: "
+          f"{res.stderr[-2000:]}")
+    env.pop("BSSEQ_TPU_FAILPOINTS")
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"phase7c: the resumed run failed: {res.stderr[-2000:]}")
+    target = json.loads(res.stdout.strip().splitlines()[-1])["target"]
+    log(f"phase7c bucket_finalize resume: sha256 equal {sha256(target) == want}")
+    check(sha256(target) == want, "phase7c: the resumed bucket run differs from the unarmed run")
+
+
+def head_subset(src: str, out: str, keep, corrupt_every: int = 0) -> int:
+    """The records of `src` whose family (MI `<family>/<strand>`) `keep`
+    accepts, written to `out`; with `corrupt_every`, a qual of 120 in
+    every corrupt_every-th record (the input guard's drill). Returns the
+    records written."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader, BamWriter
+
+    n = 0
+    with BamReader(src) as r, BamWriter(out, r.header) as w:
+        for rec in r:
+            if not keep(int(rec.get_tag("MI").split("/")[0])):
+                continue
+            if corrupt_every and n % corrupt_every == 5:
+                q = bytearray(rec.qual)
+                q[len(q) // 2] = 120
+                rec.qual = bytes(q)
+            w.write(rec)
+            n += 1
+    return n
+
+
+def phase7d(work: str, fasta: str, bad: str, n: int) -> None:
+    """The input guard on the card and the CPU: `molecular` on `bad`, n
+    head records with out-of-range quals — strict exits 3 with the same
+    reason on both; under quarantine the output and the sidecar are
+    SHA-equal card vs CPU, and the counters reconcile with the sidecar's
+    records."""
+    import contextlib
+    import io
+
+    from bsseqconsensusreads_tpu_torch import cli
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    saved = os.environ.get("BSSEQ_TPU_INPUT_POLICY")
+    outs = {}
+    try:
+        for policy in ("strict", "quarantine"):
+            for device in ("cuda", "cpu"):
+                os.environ["BSSEQ_TPU_INPUT_POLICY"] = policy
+                out = os.path.join(work, f"guard_{policy}_{device}.bam")
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    rc = cli.main(["molecular", "-i", bad, "-o", out, "--mode", "self",
+                                   "--device", device])
+                lines = err.getvalue().splitlines()
+                sidecar = bad + ".quarantined.bam"
+                doc = {"rc": rc, "lines": [ln for ln in lines if "input error" in ln]}
+                if rc == 0:
+                    st = json.loads(lines[-1])
+                    with BamReader(sidecar) as r:
+                        quarantined = sum(1 for _ in r)
+                    doc.update(out=sha256(out), sidecar=sha256(sidecar), stats={
+                        k: st.get(k, 0) for k in ("records_seen", "records_in",
+                                                  "records_quarantined",
+                                                  "families_quarantined",
+                                                  "family_records_quarantined",
+                                                  "consensus_out")},
+                        sidecar_records=quarantined)
+                    os.remove(sidecar)
+                outs[(policy, device)] = doc
+                log(f"phase7d {policy} {device}: {json.dumps(doc)}")
+    finally:
+        if saved is None:
+            os.environ.pop("BSSEQ_TPU_INPUT_POLICY", None)
+        else:
+            os.environ["BSSEQ_TPU_INPUT_POLICY"] = saved
+    s_card, s_cpu = outs[("strict", "cuda")], outs[("strict", "cpu")]
+    check(s_card["rc"] == s_cpu["rc"] == 3 and len(s_card["lines"]) == 1
+          and s_card["lines"] == s_cpu["lines"]
+          and "input error [qual-out-of-range]" in s_card["lines"][0],
+          "phase7d: strict did not exit 3 with the same reason on the card and the CPU")
+    q_card, q_cpu = outs[("quarantine", "cuda")], outs[("quarantine", "cpu")]
+    check(q_card["rc"] == q_cpu["rc"] == 0, "phase7d: quarantine failed")
+    check(q_card == q_cpu, "phase7d: quarantine differs between the card and the CPU")
+    st = q_card["stats"]
+    check(st["records_seen"] == n == st["records_in"] + st["records_quarantined"]
+          and st["records_quarantined"] > 0
+          and q_card["sidecar_records"] == st["records_quarantined"]
+          + st["family_records_quarantined"],
+          f"phase7d: the counters do not reconcile with the sidecar ({n} records in)")
 
 
 # ---------------------------------------------------------------- bounds
@@ -2042,9 +2479,12 @@ def main() -> int:
                     marks.append(("2b", time.monotonic()))
                     for tag, more in (
                         ("4", lambda: phase4(np, torch, work, inputs, summaries[0], case_shapes)),
-                        ("5", lambda: phase5(np, torch, work, inputs, summaries)),
+                        ("5", lambda: phase5(np, torch, work, inputs, summaries,
+                                             args.families // 2)),
                         ("6", lambda: phase6(np, torch, work, inputs, summaries[0],
                                              args.families, args.cpu_families)),
+                        ("7", lambda: phase7(np, torch, work, inputs, args.cpu_families,
+                                             args.families // 2)),
                     ):
                         for k, v in more().items():
                             launches[k] = launches.get(k, 0) + v

@@ -415,7 +415,6 @@ def test_config_from_yaml_matches_the_jax_reader(tmp_path, monkeypatch):
 
 
 REFUSED = {
-    "sort_engine_bucket": ({"sort_engine": "bucket"}, 5),
     "indel_policy_align": ({"indel_policy": "align"}, 7),
 }
 
