@@ -171,6 +171,7 @@ def cmd_molecular(args) -> int:
                 molecular_ingest_stream(
                     args.input, reader, stats,
                     ingest_choice=args.ingest, grouping=args.grouping, guard=g,
+                    indel_policy=args.indel_policy,
                 ),
                 params=_params(args),
                 mode=args.mode,
@@ -182,6 +183,7 @@ def cmd_molecular(args) -> int:
                 device=args.device,
                 emit=args.emit,
                 transport=args.transport,
+                indel_policy=args.indel_policy,
                 guard=g,
             )
             write_batch_stream(batches, args.output, reader.header, args.mode,
@@ -512,6 +514,12 @@ def main(argv: list[str] | None = None) -> int:
         default="bucketed",
         help="molecular chunk composition: depth-homogeneous buckets "
         "(bounded pad waste) vs input order",
+    )
+    p.add_argument(
+        "--indel-policy", choices=("drop", "align"), default="drop",
+        help="indel reads: 'drop' = reference parity "
+        "(tools/1.convert_AG_to_CT.py:79-80), 'align' = recover them via "
+        "the banded intra-family aligner (above-parity)",
     )
     _add_params(p, min_reads_default=1)
     p.set_defaults(fn=cmd_molecular)

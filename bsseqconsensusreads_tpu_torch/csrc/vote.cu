@@ -81,6 +81,12 @@
 //     instructions — the per-cell work of the sum and of the finalize
 //     takes longer to execute than the bytes take to stream, and a block's first unit
 //     waits for its first stage with nothing to overlap.
+//   * The partials mode (cnt_out set: the deep route's template-axis
+//     split over a mesh, parallel/deep_family.py) writes each cell's four
+//     float sums, its four per-base counts (as float32, exact) and its
+//     depth (int32) and skips the finalize: the sums of every reads shard
+//     are added in rank order on one device and finalized there by
+//     bsseq_vote_finalize. Same sums, same bits as the fused mode's.
 // One launch covers every layout: molecular packed (ragged row offsets,
 // 2 planes = R1/R2), duplex packed (2-row segments, 1 plane) and padded
 // (offsets k*T). The wrapper guarantees W % 16 == 0 and 16-byte aligned
@@ -386,6 +392,8 @@ struct Out {
   int16_t* depth;
   int16_t* err;
   float* ll;  // nullptr: not asked for
+  float* cnt;       // the partials mode: per-base counts, nullptr otherwise
+  int32_t* depth32; // the partials mode: depth
   int min_in;
   float min_cons, p2;
 };
@@ -400,6 +408,20 @@ __device__ __forceinline__ void store_cells(const Out& out, size_t o,
                                             const unsigned long long* cnt) {
   static_assert(C == 8 || C == 2, "8 cells (the groups) or 2 (deep units)");
   BOUNDS(o + C <= out.cells && o % C == 0);
+  if (out.cnt != nullptr) {  // the partials mode: sums, counts, depth
+    float4* dl = reinterpret_cast<float4*>(out.ll) + o;
+    float4* dc = reinterpret_cast<float4*>(out.cnt) + o;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const unsigned long long n = cnt[c * kStride];
+      const int n0 = (int)(n & 0xFFFFull), n1 = (int)((n >> 16) & 0xFFFFull);
+      const int n2 = (int)((n >> 32) & 0xFFFFull), n3 = (int)(n >> 48);
+      dl[c] = make_float4(ll[c][0], ll[c][1], ll[c][2], ll[c][3]);
+      dc[c] = make_float4((float)n0, (float)n1, (float)n2, (float)n3);
+      out.depth32[o + c] = n0 + n1 + n2 + n3;
+    }
+    return;
+  }
   uint32_t bo[(C + 3) / 4] = {}, qo[(C + 3) / 4] = {};
   uint32_t dp[C / 2] = {}, ep[C / 2] = {};
 #pragma unroll
@@ -537,7 +559,8 @@ seg_vote_kernel(const int8_t* __restrict__ bases,
                 float min_cons, float p2, int8_t* __restrict__ base_out,
                 uint8_t* __restrict__ qual_out,
                 int16_t* __restrict__ depth_out,
-                int16_t* __restrict__ err_out, float* __restrict__ ll_out) {
+                int16_t* __restrict__ err_out, float* __restrict__ ll_out,
+                float* __restrict__ cnt_out, int32_t* __restrict__ depth32_out) {
   extern __shared__ __align__(128) unsigned char ring[];
   float4* terms = reinterpret_cast<float4*>(ring + kStages * kStageBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(terms + kTermRows);
@@ -589,7 +612,7 @@ seg_vote_kernel(const int8_t* __restrict__ bases,
   const int cell = (tid - j * g.groups) * kCells;  // first cell in the tile
   int consumed = 0;
   const Out out = {(size_t)g.S * g.R, base_out, qual_out, depth_out, err_out, ll_out,
-                   min_in, min_cons, p2};
+                   cnt_out, depth32_out, min_in, min_cons, p2};
   for (int u = blockIdx.x; u < g.units; u += gridDim.x) {
     const Unit un = unit_at(g, offsets, u);
     if (g.tiles == 1 && g.R <= 2 * kThreads && un.rb - un.ra > kDeepRows) {
@@ -688,12 +711,15 @@ int seg_vote_slots[64];
 // Plain C entry points (bound with ctypes), called with at least one
 // output column, W % 16 == 0 and 16-byte aligned tensors. Each launches on
 // `stream` and returns a cudaError_t: 0 when the launch was accepted.
+// bsseq_seg_vote with cnt_out set is the partials mode: ll_out, cnt_out
+// and depth32_out are written, base_out .. err_out are not touched.
 extern "C" int bsseq_seg_vote(const int8_t* bases, const int16_t* quals,
                               const int32_t* offsets, const float* table,
                               int N, int S, int P, int W, int min_in, float min_cons,
                               float p2, int8_t* base_out, uint8_t* qual_out,
                               int16_t* depth_out, int16_t* err_out,
-                              float* ll_out, void* stream) {
+                              float* ll_out, float* cnt_out, int32_t* depth32_out,
+                              void* stream) {
   Geo g;
   g.N = N;
   g.S = S;
@@ -719,7 +745,7 @@ extern "C" int bsseq_seg_vote(const int8_t* bases, const int16_t* quals,
   seg_vote_kernel<<<min(g.units, slots), kBlock, kSegVoteSmem,
                     (cudaStream_t)stream>>>(
       bases, quals, offsets, table, g, min_in, min_cons, p2, base_out,
-      qual_out, depth_out, err_out, ll_out);
+      qual_out, depth_out, err_out, ll_out, cnt_out, depth32_out);
   return (int)cudaGetLastError();
 }
 

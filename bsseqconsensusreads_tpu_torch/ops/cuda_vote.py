@@ -22,6 +22,12 @@ sources in this checkout alone, and bound with ctypes.
   offsets, 2 planes), duplex packed (2-row segments, 1 plane) and padded
   (offsets k * T). It takes W % 16 == 0 and 16-byte aligned tensors and
   raises on anything else (the path's windows are multiples of 32).
+* seg_vote_partials — seg_vote's partials mode: the same launch writes
+  the in-order sums, the per-base counts and the depth and skips the
+  finalize (the deep route's template-axis split over a mesh,
+  parallel.deep_family, adds the shards' partials in rank order and
+  finalizes the sums with vote_finalize). Plain twin:
+  models.molecular.vote_partials_segments.
 * vote_finalize — the finalize alone over summed log-likelihoods
   (_finalize_kernel's counterpart): one column per thread, one
   128-thread block per 128 columns. Bound: device memory (20 B read, 2 B
@@ -51,6 +57,7 @@ its tensor; the release build compiles those checks to nothing.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -78,9 +85,12 @@ DEBUG_FLAGS = ("-DBSSEQ_VOTE_BOUNDS_CHECK", "-lineinfo")
 
 #: launches of each kernel — one added where the wrapper launches, nowhere
 #: else; callers reset entries to 0 around the run they measure
-LAUNCHES = {"seg_vote": 0, "vote_finalize": 0}
+LAUNCHES = {"seg_vote": 0, "seg_vote_partials": 0, "vote_finalize": 0}
 #: seg_vote launches by (N, P, W, S) — counted with LAUNCHES, reset with it
 SEG_VOTE_SHAPES: collections.Counter = collections.Counter()
+#: launches by (kernel, tag) for launches made under launch_tag — counted
+#: with LAUNCHES, reset with it
+TAGGED_LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict = {}
 _debug = False
@@ -88,6 +98,7 @@ _debug = False
 #: overlap workers launch from several threads
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_TAG = threading.local()
 
 
 class KernelError(RuntimeError):
@@ -152,7 +163,7 @@ def _load():
         lib = ctypes.CDLL(str(build(debug=_debug)))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsseq_seg_vote.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp,
         ]
         lib.bsseq_seg_vote.restype = ci
         lib.bsseq_vote_finalize.argtypes = [vp, vp, ci, cf, cf, vp, vp, vp]
@@ -184,6 +195,23 @@ def _raise_on(rc: int, name: str) -> None:
         raise KernelError(f"{name} launch failed: cudaError {rc}")
 
 
+def _check_seg_vote(bases, quals, offsets) -> tuple[int, int, int, int]:
+    """seg_vote's refusals on CUDA tensors; returns (N, P, W, S)."""
+    _check_cuda(bases, quals, offsets)
+    if bases.dtype != torch.int8 or quals.dtype != torch.int16:
+        raise ValueError(f"seg_vote takes int8 bases / int16 quals, got {bases.dtype}/{quals.dtype}")
+    if offsets.dtype != torch.int32 or bases.dim() != 3 or quals.shape != bases.shape:
+        raise ValueError("seg_vote takes [N, P, W] planes and int32 offsets")
+    n, p, w = bases.shape
+    s = offsets.numel() - 1
+    if w % 16:
+        raise ValueError(f"seg_vote takes W % 16 == 0, got W = {w}")
+    if n * p * w >= 2**31 or s * p * w >= 2**31:
+        raise ValueError(f"seg_vote takes < 2**31 cells, got [{n}, {p}, {w}] x {s}")
+    _check_aligned(bases=bases, quals=quals)
+    return n, p, w, s
+
+
 def seg_vote(bases, quals, offsets, params: ConsensusParams,
              with_ll: bool = False) -> dict:
     """The segmented vote: rows offsets[s]:offsets[s+1] of every plane vote
@@ -197,18 +225,7 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
     bsseq_seg_vote."""
     if bases.device.type == "cpu":
         return seg_vote_plain(bases, quals, offsets, params, with_ll)
-    _check_cuda(bases, quals, offsets)
-    if bases.dtype != torch.int8 or quals.dtype != torch.int16:
-        raise ValueError(f"seg_vote takes int8 bases / int16 quals, got {bases.dtype}/{quals.dtype}")
-    if offsets.dtype != torch.int32 or bases.dim() != 3 or quals.shape != bases.shape:
-        raise ValueError("seg_vote takes [N, P, W] planes and int32 offsets")
-    n, p, w = bases.shape
-    s = offsets.numel() - 1
-    if w % 16:
-        raise ValueError(f"seg_vote takes W % 16 == 0, got W = {w}")
-    if n * p * w >= 2**31 or s * p * w >= 2**31:
-        raise ValueError(f"seg_vote takes < 2**31 cells, got [{n}, {p}, {w}] x {s}")
-    _check_aligned(bases=bases, quals=quals)
+    n, p, w, s = _check_seg_vote(bases, quals, offsets)
     dev = bases.device
     table = phred.log_table(params.error_rate_post_umi, dev)
     out = {
@@ -228,14 +245,69 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
         phred.pre_umi_prob(params.error_rate_pre_umi),
         out["base"].data_ptr(), out["qual"].data_ptr(),
         out["depth"].data_ptr(), out["errors"].data_ptr(),
-        out["ll"].data_ptr() if with_ll else None,
+        out["ll"].data_ptr() if with_ll else None, None, None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bsseq_seg_vote")
-    with _COUNT_LOCK:
-        LAUNCHES["seg_vote"] += 1
-        SEG_VOTE_SHAPES[(n, p, w, s)] += 1
+    _count("seg_vote", (n, p, w, s))
     return out
+
+
+def seg_vote_partials(bases, quals, offsets, params: ConsensusParams):
+    """seg_vote's partials mode: the in-order segment sums without the
+    finalize — (ll float32 [S, P, W, 4], cnt float32 [S, P, W, 4] per-base
+    counts, depth int32 [S, P, W]), what a reads shard of the deep route's
+    template-axis split contributes (parallel.deep_family). Same inputs and
+    refusals as seg_vote. CPU tensors take the plain twin
+    (models.molecular.vote_partials_segments); CUDA tensors launch
+    bsseq_seg_vote with its partials outputs."""
+    from bsseqconsensusreads_tpu_torch.models.molecular import vote_partials_segments
+
+    if bases.device.type == "cpu":
+        return vote_partials_segments(bases, quals, offsets, params)
+    n, p, w, s = _check_seg_vote(bases, quals, offsets)
+    dev = bases.device
+    table = phred.log_table(params.error_rate_post_umi, dev)
+    ll = torch.empty((s, p, w, 4), dtype=torch.float32, device=dev)
+    cnt = torch.empty((s, p, w, 4), dtype=torch.float32, device=dev)
+    depth = torch.empty((s, p, w), dtype=torch.int32, device=dev)
+    if s * p * w == 0:
+        return ll, cnt, depth
+    rc = _load().bsseq_seg_vote(
+        bases.data_ptr(), quals.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+        n, s, p, w, int(params.min_input_base_quality),
+        float(params.min_consensus_base_quality),
+        phred.pre_umi_prob(params.error_rate_pre_umi),
+        None, None, None, None, ll.data_ptr(), cnt.data_ptr(), depth.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "bsseq_seg_vote (partials)")
+    _count("seg_vote_partials", (n, p, w, s))
+    return ll, cnt, depth
+
+
+def _count(kernel: str, shape=None) -> None:
+    """One launch of `kernel` (and of its shape for seg_vote), and one
+    under the calling thread's launch tag when one is set."""
+    tag = getattr(_TAG, "name", None)
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
+        if kernel == "seg_vote":
+            SEG_VOTE_SHAPES[shape] += 1
+        if tag is not None:
+            TAGGED_LAUNCHES[(kernel, tag)] += 1
+
+
+@contextlib.contextmanager
+def launch_tag(name: str):
+    """Count this thread's launches inside the block also under `name` in
+    TAGGED_LAUNCHES (the mesh's per-shard launches: parallel.sharding)."""
+    prev = getattr(_TAG, "name", None)
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = prev
 
 
 def seg_vote_plain(bases, quals, offsets, params: ConsensusParams,
@@ -289,8 +361,7 @@ def vote_finalize(ll, depth, params: ConsensusParams):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "bsseq_vote_finalize")
-    with _COUNT_LOCK:
-        LAUNCHES["vote_finalize"] += 1
+    _count("vote_finalize")
     return base, qual
 
 

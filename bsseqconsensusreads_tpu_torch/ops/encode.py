@@ -1,7 +1,7 @@
 """Tensorization: UMI-family records -> padded family tensors.
 
-The port's own copy of the JAX package's ops/encode.py (indel_policy
-'align' is a later slice of the port). Two engines fill the same arrays:
+The port's own copy of the JAX package's ops/encode.py. Two engines fill
+the same arrays:
 the Python pass over (mi, records) groups, and the native fill over
 pipeline.ingest.FamilyRun groups, whose per-record pass already ran in C
 at ingest (io.native.encode_scan / duplex_scan). Each MI family packs
@@ -13,6 +13,11 @@ duplex merge) is a dense per-column tensor op on the device.
 Bucketed padding bounds pad waste across the 1-2-read cfDNA tail and deep
 families: template counts round up to powers of two and window lengths to
 multiples of WINDOW_GRAN.
+
+indel_policy 'align' keeps the reads the reference drops for an
+insertion or deletion: they are banded-aligned into their family's window
+(_align_pending, the DP of ops.banded on the caller's device) against the
+per-column majority of the directly placed reads of their role.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from bsseqconsensusreads_tpu_torch.io.bam import (
     FREVERSE,
 )
 
-from bsseqconsensusreads_tpu_torch.alphabet import BASE_CHAR, BASE_CODE, NBASE
+from bsseqconsensusreads_tpu_torch.alphabet import BASE_CHAR, BASE_CODE, NBASE, NUM_BASES
 from bsseqconsensusreads_tpu_torch.utils.flags import CONVERT_FLAGS, GROUP_ORDER
 
 # Padding granularities. Template counts bucket to powers of two, window
@@ -57,18 +62,32 @@ def trim_softclips(rec: BamRecord) -> tuple[np.ndarray, np.ndarray, int] | None:
     read must be dropped (indel or hardclip CIGAR ops — the reference drops
     these too: tools/1.convert_AG_to_CT.py:79-80, tools/2.extend_gap.py:160).
     """
+    trimmed = trim_softclips_keep_indels(rec)
+    if trimmed is None or trimmed[3]:
+        return None
+    return trimmed[:3]
+
+
+def trim_softclips_keep_indels(
+    rec: BamRecord,
+) -> tuple[np.ndarray, np.ndarray, int, bool] | None:
+    """Like trim_softclips but indel reads survive: returns (codes, quals,
+    pos, has_indel). Hardclipped reads still return None (their bases are
+    physically absent from the record). Used by indel_policy 'align'."""
     # columnar views (pipeline.ingest.ColumnarRecordView): the C parser
     # digested the CIGAR, and the codes/quals are buffer views
     info = getattr(rec, "clip_info", None)
     if info is not None:
         start, rclip, has_indel, has_hard = info
-        if has_indel or has_hard:
+        if has_hard:
             return None
         codes, quals = rec.codes_quals
-        return codes[start : len(codes) - rclip], quals[start : len(codes) - rclip], rec.pos
+        end = len(codes) - rclip
+        return codes[start:end], quals[start:end], rec.pos, has_indel
     cigar = rec.cigar
-    if any(op in (CINS, CDEL, CHARD_CLIP) for op, _ in cigar):
+    if any(op == CHARD_CLIP for op, _ in cigar):
         return None
+    has_indel = any(op in (CINS, CDEL) for op, _ in cigar)
     codes = seq_to_codes(rec.seq)
     quals = (
         np.frombuffer(rec.qual, dtype=np.uint8)
@@ -80,7 +99,7 @@ def trim_softclips(rec: BamRecord) -> tuple[np.ndarray, np.ndarray, int] | None:
         start = cigar[0][1]
     if cigar and cigar[-1][0] == CSOFT_CLIP:
         end -= cigar[-1][1]
-    return codes[start:end], quals[start:end], rec.pos
+    return codes[start:end], quals[start:end], rec.pos, has_indel
 
 
 @dataclasses.dataclass
@@ -108,9 +127,19 @@ class MolecularBatch:
     bases: np.ndarray  # int8 [F, T, 2, W]
     quals: np.ndarray  # uint8 [F, T, 2, W]
     meta: list[FamilyMeta]
+    #: indel_policy 'align' accounting: reads recovered by the banded
+    #: aligner / reads it refused (unalignable within the band)
+    indel_aligned: int = 0
+    indel_dropped: int = 0
     #: segment-packed twin (pack_molecular_rows), filled by the encode phase
     #: when the packed kernel layout is active; None under layout=padded
     packed: "PackedRows | None" = None
+    #: the mesh's split of `packed` (shard_packed_rows), filled by the
+    #: encode phase when the packed layout dispatches on a sharded mesh
+    packed_shards: "ShardedPackedRows | None" = None
+    #: the round-robin wire's ((data, reads) slot, device) this batch
+    #: dispatches on, set by the batch caller in batch order; None off it
+    slot: "tuple | None" = None
 
     @property
     def shape(self) -> tuple[int, int, int]:
@@ -184,6 +213,58 @@ def pack_molecular_rows(batch: "MolecularBatch") -> PackedRows | None:
     return PackedRows(rows_b, rows_q, seg, f_pad, n)
 
 
+@dataclasses.dataclass
+class ShardedPackedRows:
+    """A PackedRows plan split across mesh shards at FAMILY boundaries.
+
+    Shard s owns the contiguous family range [s * fams_per_shard,
+    (s + 1) * fams_per_shard); because PackedRows.seg is ascending, each
+    shard's rows are one contiguous slice of the packed row axis, so every
+    shard runs the single-device segment vote on LOCAL family ids with no
+    collective and the sums stay bit-identical to the unsharded pack.
+    Shards share one row bucket (the pow2 ceiling of the fullest shard):
+    uneven shards pad with sentinel rows exactly like the single-device
+    pack. The JAX package's layout, array for array.
+    """
+
+    bases: np.ndarray  # int8 [S, R, 2, W]
+    quals: np.ndarray  # uint8 [S, R, 2, W]
+    seg: np.ndarray  # int32 [S, R] LOCAL ids; pad rows = fams_per_shard
+    fams_per_shard: int  # families each shard votes (pow2-bucket / S, ceil)
+    n_shards: int
+    total_families: int  # n_shards * fams_per_shard — what the fetch trims
+    n_real_rows: int  # rows carrying data across all shards
+
+
+def shard_packed_rows(packed: PackedRows, n_shards: int) -> ShardedPackedRows:
+    """Split a packed plan across `n_shards` shards at family boundaries.
+
+    Row ranges come from one searchsorted over the ascending seg ids; the
+    plan's trailing sentinel rows are dropped and each shard re-pads to
+    the shared row bucket. Local ids are global ids minus the shard's
+    family offset, so the per-shard outputs concatenated family-major are
+    the single-device output order exactly.
+    """
+    n = packed.n_real_rows
+    seg = packed.seg[:n]
+    _, _, w = packed.bases.shape
+    fs = -(-packed.num_families // n_shards)  # ceil: every family owned once
+    cuts = np.searchsorted(
+        seg, np.arange(n_shards + 1, dtype=np.int64) * fs, side="left"
+    )
+    widest = int(np.max(cuts[1:] - cuts[:-1])) if n else 0
+    r = bucket_pow2(widest, MIN_PACKED_ROWS)
+    bases = np.full((n_shards, r, 2, w), NBASE, np.int8)
+    quals = np.zeros((n_shards, r, 2, w), np.uint8)
+    seg_out = np.full((n_shards, r), fs, np.int32)
+    for s in range(n_shards):
+        i, j = int(cuts[s]), int(cuts[s + 1])
+        bases[s, : j - i] = packed.bases[i:j]
+        quals[s, : j - i] = packed.quals[i:j]
+        seg_out[s, : j - i] = seg[i:j] - s * fs
+    return ShardedPackedRows(bases, quals, seg_out, fs, n_shards, fs * n_shards, n)
+
+
 def _round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
@@ -205,14 +286,17 @@ def bucket_window(w: int) -> int:
 #: (never silent).
 MAX_TEMPLATES = 4096
 
-#: band half-width of the JAX package's indel_policy='align'; the C encode
-#: scan takes it as an argument (unused under 'drop', the port's policy)
+#: band half-width of indel_policy 'align'; also the extra window margin
+#: reserved for deletions pushing an indel read's reference span past its
+#: query length (the C encode scan takes it as an argument)
 INDEL_BAND = 8
+
+INDEL_POLICIES = ("drop", "align")
 
 
 def scan_matches(group, policy: str) -> bool:
     """True when `group` is a pipeline.ingest.FamilyRun carrying a C encode
-    digest computed under `policy` ('drop' or 'duplex') — the one gate of
+    digest computed under `policy` ('drop', 'align' or 'duplex') — the one gate of
     every native fast path (the bucketed batcher, the deep-family splitter
     and the encoders must classify a group alike)."""
     return (
@@ -259,19 +343,28 @@ def encode_molecular_families(
     families: Sequence[tuple[str, Sequence[BamRecord]]],
     max_window: int = 4096,
     max_templates: int = MAX_TEMPLATES,
+    indel_policy: str = "drop",
+    device=None,
 ) -> tuple[MolecularBatch, list[str]]:
     """Encode MI families (already grouped, e.g. by io streaming) into one
     padded batch. Families whose window exceeds max_window or whose template
     count exceeds max_templates are skipped and reported (never silently
-    dropped). Indel reads are dropped, as the reference drops them
-    (tools/1.convert_AG_to_CT.py:79-80). A chunk of FamilyRuns carrying
-    the C scan takes the native fill; the batch is the same.
+    dropped). A chunk of FamilyRuns carrying the C scan of the same policy
+    takes the native fill; the batch is the same.
+
+    indel_policy: 'drop' (parity — the reference drops indel reads,
+    tools/1.convert_AG_to_CT.py:79-80) or 'align' (recover them with the
+    banded aligner, ops.banded, against the per-column majority of the
+    directly placed reads; its DP runs on `device`, default the card, and
+    only when the batch holds an indel read).
 
     Returns (batch, skipped_mi_list).
     """
+    if indel_policy not in INDEL_POLICIES:
+        raise ValueError(f"indel_policy must be 'drop'|'align', got {indel_policy!r}")
     fams = families if isinstance(families, list) else list(families)
-    if fams and all(scan_matches(f, "drop") for f in fams):
-        return _encode_molecular_native(fams, max_window, max_templates)
+    if fams and all(scan_matches(f, indel_policy) for f in fams):
+        return _encode_molecular_native(fams, max_window, max_templates, indel_policy, device)
     families = fams
     placed = []
     skipped: list[str] = []
@@ -290,24 +383,26 @@ def encode_molecular_families(
                     ref_id = rid
                 elif rid != ref_id:
                     multi_ref = True
-            trimmed = trim_softclips(rec)
+            trimmed = trim_softclips_keep_indels(rec)
             if trimmed is None:
                 continue
-            codes, quals, pos = trimmed
+            codes, quals, pos, has_indel = trimmed
+            if has_indel and indel_policy == "drop":
+                continue
             if len(codes) == 0:
                 continue
             role = 1 if rec.flag & FREAD2 else 0
             # columnar views key templates by their raw qname bytes: only
             # template identity matters here
             templates[getattr(rec, "qname_key", None) or rec.qname][role] = (
-                codes, quals, pos, bool(rec.flag & FREVERSE)
+                codes, quals, pos, bool(rec.flag & FREVERSE), has_indel
             )
             try:  # one tag parse, not a has_tag/get_tag pair
                 rx_counts[rec.get_tag("RX")] += 1
             except KeyError:
                 pass
             lo = pos if lo is None else min(lo, pos)
-            e = pos + len(codes)
+            e = pos + len(codes) + (INDEL_BAND if has_indel else 0)
             hi = e if hi is None else max(hi, e)
         if lo is None:
             skipped.append(mi)
@@ -324,7 +419,7 @@ def encode_molecular_families(
         # (template, role) slot; duplicates overwrite, so vote the survivor)
         rev_votes = [[0, 0], [0, 0]]
         for roles in templates.values():
-            for role, (_, _, _, rev) in roles.items():
+            for role, (_, _, _, rev, _hi) in roles.items():
                 rev_votes[role][1 if rev else 0] += 1
         role_rev = (rev_votes[0][1] > rev_votes[0][0], rev_votes[1][1] > rev_votes[1][0])
         placed.append((mi, ref_id, lo, window, rx, templates, role_rev))
@@ -337,24 +432,75 @@ def encode_molecular_families(
     bases = np.full((f, t_pad, 2, w_pad), NBASE, dtype=np.int8)
     quals = np.zeros((f, t_pad, 2, w_pad), dtype=np.uint8)
     meta: list[FamilyMeta] = []
+    pending: list[tuple[int, int, int, np.ndarray, np.ndarray, int]] = []
     for fi, (mi, ref_id, lo, window, rx, templates, role_rev) in enumerate(placed):
         for ti, (qname, roles) in enumerate(templates.items()):
-            for role, (codes, q, pos, _rev) in roles.items():
+            for role, (codes, q, pos, _rev, has_indel) in roles.items():
                 off = pos - lo
+                if has_indel:
+                    pending.append((fi, ti, role, codes, q, off))
+                    continue
                 bases[fi, ti, role, off : off + len(codes)] = codes
                 quals[fi, ti, role, off : off + len(codes)] = q
         meta.append(FamilyMeta(mi, ref_id, lo, len(templates), rx, role_reverse=role_rev))
-    return MolecularBatch(bases, quals, meta), skipped
+    aligned = refused = 0
+    if pending:
+        aligned, refused = _align_pending(bases, quals, pending, device)
+    return MolecularBatch(bases, quals, meta, aligned, refused), skipped
+
+
+def _align_pending(bases, quals, pending, device) -> tuple[int, int]:
+    """Banded-align indel reads against their (family, role) anchors and
+    write the window-space rows into the batch arrays; the DP runs on
+    `device`. Returns (aligned, refused)."""
+    from bsseqconsensusreads_tpu_torch.ops.banded import banded_align
+
+    w = bases.shape[-1]
+    n = len(pending)
+    lmax = max(len(p[3]) for p in pending)
+    r_codes = np.full((n, lmax), NBASE, dtype=np.int8)
+    r_quals = np.zeros((n, lmax), dtype=np.uint8)
+    anchors = np.empty((n, w), dtype=np.int8)
+    offsets = np.zeros(n, dtype=np.int32)
+    by_slot: dict = {}  # one anchor per (family, role): no indel read is placed yet
+    for i, (fi, ti, role, codes, q, off) in enumerate(pending):
+        r_codes[i, : len(codes)] = codes
+        r_quals[i, : len(codes)] = q
+        offsets[i] = off
+        anchor = by_slot.get((fi, role))
+        if anchor is None:
+            # anchor: per-column majority of the directly placed reads of
+            # this (family, role); NBASE where nothing is placed
+            fam = bases[fi, :, role, :]  # [T, W]
+            counts = (fam[:, :, None] == np.arange(NUM_BASES)[None, None, :]).sum(0)
+            depth = counts.sum(-1)
+            anchor = by_slot[fi, role] = np.where(
+                depth > 0, counts.argmax(-1), NBASE).astype(np.int8)
+        anchors[i] = anchor
+    out_b, out_q, ok = banded_align(
+        r_codes, r_quals, anchors, offsets, band=INDEL_BAND,
+        min_score_per_base=1.0, device=device,
+    )
+    for i, (fi, ti, role, codes, q, off) in enumerate(pending):
+        if not ok[i]:
+            continue
+        cov = out_b[i] != NBASE
+        bases[fi, ti, role, cov] = out_b[i][cov]
+        quals[fi, ti, role, cov] = out_q[i][cov]
+    aligned = int(ok.sum())
+    return aligned, n - aligned
 
 
 def _encode_molecular_native(
-    fams: list, max_window: int, max_templates: int
+    fams: list, max_window: int, max_templates: int, indel_policy: str, device
 ) -> tuple[MolecularBatch, list[str]]:
     """encode_molecular_families over FamilyRuns: the per-record pass ran
     in C at ingest (io.native.encode_scan; semantics in csrc/host/bamio.cpp
     bamio_encode_scan), so this reads the per-family digests and fills the
     tensors with one C call per contiguous batch segment
-    (io.native.encode_fill). The batch equals the Python path's."""
+    (io.native.encode_fill). Under 'align' the scan marks indel reads
+    keep == 2 (the fill leaves them out): they are gathered here and
+    aligned by _align_pending. The batch equals the Python path's."""
     from bsseqconsensusreads_tpu_torch.io import native
 
     skipped: list[str] = []
@@ -388,16 +534,36 @@ def _encode_molecular_native(
             bases, quals,
         )
     meta: list[FamilyMeta] = []
-    for fam in placed:
-        s, k = fam.scan, fam.fidx
+    pending: list[tuple[int, int, int, np.ndarray, np.ndarray, int]] = []
+    for row, fam in enumerate(placed):
+        s, k, b = fam.scan, fam.fidx, fam.batch
         rxr = int(s["rx_rec"][k])
-        rx = _decode_fixed(fam.batch.rx[rxr]) if rxr >= 0 else ""
+        rx = _decode_fixed(b.rx[rxr]) if rxr >= 0 else ""
         rr = int(s["rolerev"][k])
         meta.append(FamilyMeta(
             fam.mi, int(s["refid"][k]), int(s["lo"][k]), int(s["ntpl"][k]),
             rx, role_reverse=(bool(rr & 1), bool(rr & 2)),
         ))
-    return MolecularBatch(bases, quals, meta), skipped
+        if indel_policy != "align":
+            continue
+        keep = s["keep"][fam.start : fam.start + fam.n]
+        for dj in np.nonzero(keep == 2)[0]:
+            j2 = fam.start + int(dj)
+            lc, rc = int(b.left_clip[j2]), int(b.right_clip[j2])
+            vo = int(b.var_off[j2])
+            length = int(b.l_seq[j2]) - lc - rc
+            codes = b.seq[vo + lc : vo + lc + length].view(np.int8)
+            q = b.qual[vo + lc : vo + lc + length]
+            if b.qual[vo] == 0xFF:  # BAM's missing-quals marker
+                q = np.zeros(length, np.uint8)
+            pending.append((
+                row, int(s["ti"][j2]), int(s["role"][j2]), codes, q,
+                int(b.pos[j2]) - int(s["lo"][k]),
+            ))
+    aligned = refused = 0
+    if pending:
+        aligned, refused = _align_pending(bases, quals, pending, device)
+    return MolecularBatch(bases, quals, meta, aligned, refused), skipped
 
 
 #: Flags the duplex stage accepts, and their row in the family tensor —
@@ -427,6 +593,8 @@ class DuplexBatch:
     convert_mask: np.ndarray  # bool [F, 4]
     extend_eligible: np.ndarray  # bool [F] — group had exactly 4 reads
     meta: list[FamilyMeta]
+    #: the round-robin wire's slot, as on MolecularBatch
+    slot: "tuple | None" = None
 
 
 def encode_duplex_families(

@@ -1,9 +1,9 @@
 """Streaming consensus callers on the card: BAM records in, consensus
 records out.
 
-The port of the JAX package's pipeline/calling.py on one device (its
-mesh=None routes; layout 'packed' or 'padded'). Replaces the reference's
-two JVM consensus engines:
+The port of the JAX package's pipeline/calling.py (layout 'packed' or
+'padded'; one device or a mesh). Replaces the reference's two JVM
+consensus engines:
 
 * call_molecular_batches — `fgbio CallMolecularConsensusReads`
   (main.snake.py:46-55)
@@ -80,13 +80,19 @@ memory or kernel build error is never retried, and the stall watchdog
 (BSSEQ_TPU_STALL_TIMEOUT_S) re-runs a wedged batch inline. The input guard's family admission (faults.guard.guard_groups)
 runs on the group stream.
 
-Left for later slices of the port (each raises or is absent here): mesh
-sharding with its round-robin wire and the deep route's template-axis
-split over devices.
+Meshes (parallel.mesh; mesh='auto' shards over every visible card when
+there is more than one, as the JAX package does over its devices): the
+family axis shards over the mesh's data axis (parallel.sharding, each
+shard on its own device and stream, no collective), or an explicit
+'wire' round-robins whole batches over the mesh's slots
+(_WireRoundRobin); the deep route splits its template axis over every
+slot (parallel.deep_family). Every route writes the one-device bytes,
+except that a deep family's quals may differ by one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -156,6 +162,7 @@ from bsseqconsensusreads_tpu_torch.ops.wire import (
 from bsseqconsensusreads_tpu_torch.ops.encode import (
     CONVERT_ROWS,
     DUPLEX_ROW_OF_FLAG,
+    INDEL_POLICIES,
     MAX_TEMPLATES,
     bucket_templates,
     codes_to_seq,
@@ -163,9 +170,14 @@ from bsseqconsensusreads_tpu_torch.ops.encode import (
     encode_molecular_families,
     pack_molecular_rows,
     scan_matches,
+    shard_packed_rows,
     trim_softclips,
 )
+from bsseqconsensusreads_tpu_torch.ops import cuda_vote
 from bsseqconsensusreads_tpu_torch.parallel import hostpool as _hostpool
+from bsseqconsensusreads_tpu_torch.parallel import sharding as _sharding
+from bsseqconsensusreads_tpu_torch.parallel.deep_family import deep_family_consensus
+from bsseqconsensusreads_tpu_torch.parallel.mesh import make_mesh, pad_families
 from bsseqconsensusreads_tpu_torch.utils import observe
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
@@ -197,6 +209,9 @@ class StageStats:
     leftover_records: int = 0
     refragmented_families: int = 0
     batches: int = 0
+    #: indel_policy 'align': indel reads the banded aligner placed / refused
+    indel_aligned: int = 0
+    indel_dropped: int = 0
     pad_cells: int = 0
     used_cells: int = 0
     wall_seconds: float = 0.0
@@ -254,6 +269,8 @@ class StageStats:
             "leftover_records": self.leftover_records,
             "refragmented_families": self.refragmented_families,
             "batches": self.batches,
+            "indel_aligned": self.indel_aligned,
+            "indel_dropped": self.indel_dropped,
             "pad_waste": round(self.pad_waste, 4),
             "families_per_second": round(self.families_per_second, 1),
             "wall_seconds": round(self.wall_seconds, 3),
@@ -490,6 +507,18 @@ def _split_deep(chunk, threshold: int, indel_policy: str = "drop"):
     return normal, deep
 
 
+def _pad_templates(bases, quals, n: int):
+    """Pad the template axis of [K, T, 2, W] to a multiple of n (the deep
+    mesh's reads size) with empty templates: NBASE bases add nothing to
+    the vote."""
+    pad = (-bases.shape[1]) % n
+    if pad:
+        widths = ((0, 0), (0, pad), (0, 0), (0, 0))
+        bases = np.pad(bases, widths, constant_values=NBASE)
+        quals = np.pad(quals, widths, constant_values=0)
+    return bases, quals
+
+
 def _bucket_deep(deep):
     """Group deep families into shared padded dispatches by template
     bucket (ops.encode.bucket_templates): families of one bucket vote as
@@ -588,32 +617,45 @@ _WORKER = threading.local()
 
 class _OverlapPool:
     """The overlap workers: a thread pool whose threads each own one CUDA
-    stream and one pinned _Staging on a card (the torch form of the JAX
-    package's dispatch-on-a-worker). A task runs under its worker's
-    stream, so its uploads, launches (ops.cuda_vote launches on the
-    current stream), output event and D2H copy all sit on that stream;
-    every stream first waits on `ready`, an event recorded on the
-    dispatching thread's stream when the pool opens — after the genome
-    upload and the cached device tables. On the CPU the tasks just run."""
+    stream per device they launch on and one pinned _Staging on a card
+    (the torch form of the JAX package's dispatch-on-a-worker). A task runs
+    under its worker's stream, so its uploads, launches (ops.cuda_vote
+    launches on the current stream), output event and D2H copy all sit on
+    that stream; every stream first waits on its device's `ready` event,
+    recorded on the dispatching thread's stream when the pool opens —
+    after the genome upload and the cached device tables. A task of the
+    round-robin wire enters its target device through _on_device, which
+    takes the worker's stream there. On the CPU the tasks just run."""
 
-    def __init__(self, workers: int, device: torch.device):
+    def __init__(self, workers: int, device: torch.device, devices=()):
         self.workers = workers
-        self.device = device
-        self._ready = None
+        self.device = _norm_device(device)
+        self._ready: dict = {}
         if device.type == "cuda":
-            self._ready = torch.cuda.Event()
-            self._ready.record(torch.cuda.current_stream(device))
+            for dev in {self.device, *(_norm_device(d) for d in devices)}:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                self._ready[dev] = ev
         self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="bsseq-ovl")
 
+    def stream(self, dev: torch.device):
+        """This worker thread's stream on `dev`, made on first use and
+        ordered after the pool's ready event there."""
+        streams = _WORKER.streams
+        s = streams.get(dev)
+        if s is None:
+            s = streams[dev] = torch.cuda.Stream(dev)
+            s.wait_event(self._ready[dev])
+        return s
+
     def _run(self, fn, args):
-        if self._ready is None:
+        if not self._ready:
             return fn(*args)
-        stream = getattr(_WORKER, "stream", None)
-        if stream is None:
-            stream = _WORKER.stream = torch.cuda.Stream(self.device)
-            _WORKER.staging = _Staging()
-            stream.wait_event(self._ready)
-        stream.synchronize()
+        if getattr(_WORKER, "pool", None) is not self:
+            _WORKER.pool, _WORKER.streams, _WORKER.staging = self, {}, _Staging()
+        stream = self.stream(self.device)
+        for s in _WORKER.streams.values():  # a failed task may have left copies in flight
+            s.synchronize()
         _WORKER.staging.reset()
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             return fn(*args)
@@ -623,6 +665,31 @@ class _OverlapPool:
 
     def shutdown(self) -> None:
         self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _norm_device(dev: torch.device) -> torch.device:
+    """A CUDA device with its index ('cuda' is the current card)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@contextlib.contextmanager
+def _on_device(dev: torch.device):
+    """Run the block on `dev` (the round-robin wire's target): on an
+    overlap worker under the worker's stream there, else under the
+    device's current stream."""
+    if dev.type != "cuda":
+        yield
+        return
+    dev = _norm_device(dev)
+    pool = getattr(_WORKER, "pool", None)
+    with torch.cuda.device(dev):
+        if pool is None:
+            yield
+            return
+        with torch.cuda.stream(pool.stream(dev)):
+            yield
 
 
 class _Inline:
@@ -644,25 +711,36 @@ class _Inline:
         pass
 
 
-def _make_overlap_pool(device: torch.device, stats: "StageStats") -> "_OverlapPool | None":
-    """The overlap workers, or None when the stage has none (the CPU, or
-    an explicit disable). A disabled pool is loud: the stage counts
-    'overlap_pool_disabled'; an enabled one counts
-    'overlap_pool_workers'."""
-    n = _overlap_workers(device)
+def _make_overlap_pool(device: torch.device, stats: "StageStats", sharded: bool = False,
+                       wire_rr: "_WireRoundRobin | None" = None) -> "_OverlapPool | None":
+    """The overlap workers, or None when the stage has none (the CPU, an
+    explicit disable, or the sharded mesh route, which launches every
+    shard on the mesh's own streams from the dispatching thread). A
+    disabled pool is loud: the stage counts 'overlap_pool_disabled'; an
+    enabled one counts 'overlap_pool_workers'. With the round-robin wire
+    the workers are raised to at least its device count, so each device
+    keeps a batch in flight ('overlap_rr_composed')."""
+    n = 0 if sharded else _overlap_workers(device)
     if n <= 0:
         stats.metrics.count("overlap_pool_disabled")
         return None
+    devices = ()
+    if wire_rr is not None:
+        n = max(n, len(wire_rr))
+        devices = [dev for _slot, dev in wire_rr.slots]
+        stats.metrics.count("overlap_rr_composed")
     stats.metrics.count("overlap_pool_workers", n)
-    return _OverlapPool(n, device)
+    return _OverlapPool(n, device, devices)
 
 
-def _batch_executor(device: torch.device, stats: "StageStats", hpool):
+def _batch_executor(device: torch.device, stats: "StageStats", hpool, sharded: bool = False,
+                    wire_rr: "_WireRoundRobin | None" = None):
     """The one executor a stage's batch tasks run on: the overlap
     workers when there are any, else the host pool `hpool`, else the
     dispatch thread (_Inline). The retire pipeline's depth is its
-    workers + 1: every worker holds one batch, one more sits queued."""
-    return _make_overlap_pool(device, stats) or hpool or _Inline()
+    workers + 1 (every worker holds one batch, one more sits queued), and
+    at least the round-robin's device count (_pipeline_depth)."""
+    return _make_overlap_pool(device, stats, sharded, wire_rr) or hpool or _Inline()
 
 
 def _join_with_watchdog(fut, batch, bi, redispatch, stats: "StageStats", stage: str):
@@ -734,18 +812,23 @@ def _hp_prefetch(items, pool, task_fn):
             pending.cancel()
 
 
-def _warm_device(params: ConsensusParams, device: torch.device, singleton: bool) -> None:
+def _warm_device(params: ConsensusParams, device: torch.device, singleton: bool,
+                 mesh=None) -> None:
     """Build, before any worker starts, what the workers would otherwise
     race to build: the vote kernels' load (ops.cuda_vote), the cached
-    log-likelihood table and (for the singleton host vote) the qual
-    tables on the card. The pool's ready event then orders every worker
-    stream after these uploads."""
+    log-likelihood table (on every card of the mesh too) and (for the
+    singleton host vote) the qual tables on the card. The pool's ready
+    event, and each mesh slot's wait on the current stream, then order
+    every worker and slot stream after these uploads."""
     if device.type != "cuda":
         return
-    from bsseqconsensusreads_tpu_torch.ops import cuda_vote, phred
+    from bsseqconsensusreads_tpu_torch.ops import phred
 
     cuda_vote._load()
     phred.log_table(params.error_rate_post_umi, device)
+    if mesh is not None:
+        for d, r in mesh.local_slots():
+            phred.log_table(params.error_rate_post_umi, mesh.device(d, r))
     if singleton:
         from bsseqconsensusreads_tpu_torch.ops.reconstruct import qual_tables
 
@@ -754,27 +837,33 @@ def _warm_device(params: ConsensusParams, device: torch.device, singleton: bool)
 
 class _Inflight:
     """One dispatched batch: its device output wire and the CUDA event
-    recorded after its last launch (None on the CPU)."""
+    recorded after its last launch (None on the CPU), or the per-shard
+    outputs of a sharded mesh launch (parallel.sharding.ShardOutputs)."""
 
     __slots__ = ("wire", "event")
 
-    def __init__(self, wire: torch.Tensor):
+    def __init__(self, wire):
         self.wire = wire
         self.event = None
-        if wire.device.type == "cuda":
+        if isinstance(wire, torch.Tensor) and wire.device.type == "cuda":
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(wire.device))
 
     def fetch(self, metrics: Metrics) -> np.ndarray:
         """Wait for the device ('device_wait': the device still owned the
         batch), then copy the wire to the host ('fetch'; its bytes counted
-        as 'd2h_bytes')."""
-        if self.event is not None:
-            with metrics.timed("device_wait"):
+        as 'd2h_bytes'). Shards are waited for and copied one by one and
+        concatenated family-major."""
+        sharded = not isinstance(self.wire, torch.Tensor)
+        with metrics.timed("device_wait"):
+            if sharded:
+                self.wire.synchronize()
+            elif self.event is not None:
                 self.event.synchronize()
         with metrics.timed("fetch"):
-            host = self.wire.cpu().numpy()
-        metrics.count("d2h_bytes", host.nbytes)
+            host = self.wire.host() if sharded else self.wire.cpu().numpy()
+        metrics.count("d2h_bytes", sum(a.nbytes for a in host) if isinstance(host, tuple)
+                      else host.nbytes)
         return host
 
 
@@ -941,29 +1030,79 @@ TRANSPORTS = ("auto", "wire", "unpacked")
 
 def check_route(transport: str, indel_policy: str = "drop") -> None:
     """The transports and indel policies the port runs: transport 'auto',
-    'wire' and 'unpacked' (single-device; _resolve_transport), indel
-    policy 'drop'. The JAX package's 'align' raises, naming the ROADMAP
-    item that brings it — never a silent substitute."""
+    'wire' and 'unpacked' (_resolve_transport), indel policy 'drop' or
+    'align'; anything else raises — never a silent substitute."""
     if transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r} (auto | wire | unpacked)")
-    if indel_policy == "align":
-        raise ValueError(
-            "indel_policy 'align' is not ported yet (ROADMAP queue 1, item "
-            "7: ops/banded.py); use 'drop'"
-        )
-    if indel_policy != "drop":
-        raise ValueError(f"unknown indel_policy {indel_policy!r} (drop)")
+    if indel_policy not in INDEL_POLICIES:
+        raise ValueError(f"unknown indel_policy {indel_policy!r} (drop | align)")
 
 
-def _resolve_transport(transport: str, device: torch.device) -> str:
-    """The ONE transport policy of the consensus stages (the JAX package's
-    single-device rule): 'wire' for an explicit 'wire', or 'auto' on the
-    card; 'off' (plain unpacked tensors) for 'unpacked', or 'auto' on the
-    CPU, where there is no transfer to save."""
+def _resolve_mesh(mesh, device: torch.device):
+    """'auto' -> a data mesh over every visible CUDA device when the stage
+    runs on the card and more than one is visible, else None (one device;
+    the CPU never shards under 'auto'). A parallel.mesh.Mesh or None
+    passes through; a mesh must hold devices of the stage's kind — a card
+    run never shards onto the CPU, nor a CPU run onto a card."""
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', None or a Mesh; got {mesh!r}")
+        if device.type != "cuda" or torch.cuda.device_count() <= 1:
+            return None
+        from bsseqconsensusreads_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(n_data=torch.cuda.device_count(), n_reads=1)
+    if mesh is not None:
+        kinds = {d.type for d, p in zip(mesh.devices.flat, mesh.processes.flat)
+                 if d.type != "meta"}
+        if kinds != {device.type}:
+            raise ValueError(f"a {device.type} stage cannot run on a mesh of {sorted(kinds)}")
+    return mesh
+
+
+def _resolve_transport(transport: str, device: torch.device, mesh=None) -> str:
+    """The ONE transport policy of the consensus stages (the JAX
+    package's):
+
+    * 'wire'    — one device, the packed wire: an explicit 'wire' off a
+                  mesh, or 'auto' on the card;
+    * 'wire-mc' — an explicit 'wire' on a mesh: whole batches round-robin
+                  over the mesh's slots (_WireRoundRobin);
+    * 'off'     — plain unpacked tensors: 'unpacked', 'auto' on the CPU,
+                  and 'auto' on a mesh (the sharded route)."""
     check_route(transport)
+    if mesh is not None:
+        return "wire-mc" if transport == "wire" else "off"
     if transport == "wire" or (transport == "auto" and device.type == "cuda"):
         return "wire"
     return "off"
+
+
+class _WireRoundRobin:
+    """Round-robin whole-batch placement for the wire on a mesh, shared by
+    both stages: batch k goes whole to slot k mod n of this process's mesh
+    slots. The slot is picked on the dispatching thread, in batch order,
+    so a batch's device does not depend on the executor."""
+
+    def __init__(self, mesh):
+        self.slots = [(slot, mesh.device(*slot)) for slot in mesh.local_slots()]
+        self._i = 0
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.slots)
+
+    def next_slot(self) -> tuple[tuple[int, int], torch.device]:
+        with self._lock:
+            slot = self.slots[self._i % len(self.slots)]
+            self._i += 1
+        return slot
+
+
+def _pipeline_depth(executor, wire_rr: "_WireRoundRobin | None") -> int:
+    """Retire-pipeline depth: every worker holds one batch and one more
+    sits queued; the round-robin keeps at least one batch per device."""
+    return max(executor.workers + 1, len(wire_rr) if wire_rr is not None else 1)
 
 
 def _emit_raw(batch, out, params, mode, stats, *, n_reads, role_reverse,
@@ -1125,6 +1264,7 @@ def call_molecular_batches(
     base_counts: bool = True,
     deep_threshold: int | None = None,
     guard=None,
+    mesh="auto",
 ) -> Iterator[list]:
     """Molecular (single-strand) consensus over MI families, one list of
     consensus records per batch — the checkpoint/resume granularity
@@ -1158,17 +1298,37 @@ def call_molecular_batches(
     'unpacked' copies the tensors; both fetch the same output planes;
     'auto' is the wire on the card, unpacked on the CPU
     (_resolve_transport). Same bytes on every route; device-issued
-    batches count as 'route_batches_wire' or 'route_batches_single'.
-    indel_policy: see check_route. device: 'cuda' (default) or 'cpu'; no
-    silent fallback.
+    batches count as 'route_batches_<route>' (single, wire, sharded,
+    wire_mc). device: 'cuda' (default) or 'cpu'; no silent fallback.
+
+    indel_policy: 'drop' (the reference's: indel reads never vote) or
+    'align' (they are banded-aligned into their family's window in the
+    encode — ops.encode._align_pending, its DP on `device` — and vote;
+    counted in stats.indel_aligned / indel_dropped, the latter the reads
+    the aligner refused). Indel reads count as kept templates for the
+    batcher and the deep splitter under 'align'.
+
+    mesh: 'auto' (default: every visible card when the stage runs on the
+    card and there is more than one, else one device — _resolve_mesh),
+    None (one device) or a parallel.mesh.Mesh. On a mesh the family axis
+    shards over its data axis (parallel.sharding: the packed rows split at
+    family boundaries, ops.encode.shard_packed_rows, or the padded
+    envelope), each shard launching the single-device vote on its own
+    device and stream, the outputs fetched shard by shard; T == 1 batches
+    go to the mesh too (no host vote), as in the JAX package. An explicit
+    'wire' on a mesh round-robins whole batches over the mesh's slots
+    instead (_WireRoundRobin). Same bytes on every route.
 
     Families deeper than deep_threshold kept templates (default: encode's
-    MAX_TEMPLATES) take the deep-family route, as in the JAX package on one
-    device: bucketed by template count (_bucket_deep), encoded with
-    max_templates DEEP_TEMPLATE_CAP and voted as padded [K, T, 2, W]
-    dispatches (models.molecular.molecular_consensus: seg_vote over
-    offsets k * T), their records emitted after their chunk's normal
-    batch. 'deep_routed_families' counts them; only families beyond
+    MAX_TEMPLATES) take the deep-family route, as in the JAX package:
+    bucketed by template count (_bucket_deep), encoded with max_templates
+    DEEP_TEMPLATE_CAP and voted as padded [K, T, 2, W] dispatches — on one
+    device models.molecular.molecular_consensus (seg_vote over offsets
+    k * T), on a mesh the template axis split over all its slots
+    (parallel.deep_family: seg_vote's partials mode per slot, the sums
+    added in rank order and finalized by vote_finalize; a qual may differ
+    by one from one device) — their records emitted after their chunk's
+    normal batch. 'deep_routed_families' counts them; only families beyond
     DEEP_TEMPLATE_CAP are skipped, counted in skipped_families and
     'deep_skipped_families'.
     """
@@ -1176,7 +1336,19 @@ def call_molecular_batches(
     check_route(transport, indel_policy)
     if deep_threshold is None:
         deep_threshold = MAX_TEMPLATES
-    use_wire = _resolve_transport(transport, device) == "wire"
+    mesh = _resolve_mesh(mesh, device)
+    wire_mode = _resolve_transport(transport, device, mesh)
+    use_wire = wire_mode != "off"
+    wire_rr = _WireRoundRobin(mesh) if wire_mode == "wire-mc" else None
+    sharded = mesh is not None and wire_rr is None
+    route = "sharded" if sharded else "wire_mc" if wire_rr else "wire" if use_wire else "single"
+    deep_fn = None
+    if mesh is not None:
+        data_size = len(mesh.local_data())
+        outwire_fn = _sharding.sharded_molecular_outwire(mesh, params)
+        slots = [mesh.device(*slot) for slot in mesh.local_slots()]
+        deep_fn = deep_family_consensus(
+            make_mesh(n_data=1, n_reads=len(slots), devices=slots), params)
     if layout not in ("packed", "padded"):
         raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
     native_emit = _resolve_emit(emit)
@@ -1190,10 +1362,10 @@ def call_molecular_batches(
     metrics = stats.metrics
     stage_label = stats.stage or "molecular"
 
-    def dispatch_wire(batch):
+    def dispatch_wire(batch, dev):
         """The input wire packed (the C sweep on the native engine), one
-        H2D copy, the unpack and vote on the device; returns (in-flight
-        output wire, padded f)."""
+        H2D copy, the unpack and vote on `dev`; returns (in-flight output
+        wire, padded f)."""
         pk = batch.packed
         w = batch.bases.shape[-1]
         if pk is not None:
@@ -1202,7 +1374,7 @@ def call_molecular_batches(
                 qual_mode="auto", native=native_emit,
             )
             wire = molecular_wire_packed_kernel(
-                _wire_to_device(words, device, metrics), pk.bases.shape[0],
+                _wire_to_device(words, dev, metrics), pk.bases.shape[0],
                 pk.num_families, w, params, qual_mode=qmode,
             )
             pf = pk.num_families
@@ -1212,18 +1384,41 @@ def call_molecular_batches(
                                         native=native_emit)
             qmode = win.qual_mode
             wire = molecular_wire_kernel(
-                _wire_to_device(win.to_words(), device, metrics), f, t, w, params,
+                _wire_to_device(win.to_words(), dev, metrics), f, t, w, params,
                 qual_mode=qmode,
             )
             pf = f
         metrics.count(f"wire_qual_{qmode}")
         return _Inflight(wire), pf
 
+    def dispatch_sharded(batch):
+        """The batch over the mesh's data shards: the packed row plan
+        (sharded_molecular_rows) or the padded envelope
+        (sharded_molecular_outwire), each shard on its own stream; returns
+        (in-flight shard outputs, padded f)."""
+        sp = batch.packed_shards
+        if sp is not None:
+            arrays = (sp.bases, sp.quals, sp.seg)
+            fn, pf = _sharding.sharded_molecular_rows(mesh, sp.fams_per_shard, params), \
+                sp.total_families
+        else:
+            f = batch.bases.shape[0]
+            arrays, pf = pad_families((batch.bases, batch.quals), f, data_size)
+            fn = outwire_fn
+        metrics.count("h2d_bytes", sum(a.nbytes for a in arrays))
+        return _Inflight(fn.launch(*arrays)), pf
+
     def dispatch(batch, wire):
         """H2D copies + the vote launch; returns (in-flight wire, padded
-        f)."""
+        f). On the round-robin wire the batch goes to its `slot`."""
+        if sharded:
+            return dispatch_sharded(batch)
+        if batch.slot is not None:
+            (d, r), dev = batch.slot
+            with _on_device(dev), cuda_vote.launch_tag(f"{d},{r}"):
+                return dispatch_wire(batch, dev)
         if wire:
-            return dispatch_wire(batch)
+            return dispatch_wire(batch, device)
         pk = batch.packed
         if pk is not None:
             out = molecular_consensus_packed(
@@ -1247,13 +1442,18 @@ def call_molecular_batches(
             with_histogram=base_counts and not native_emit,
         )
 
+    def host_voted(batch) -> bool:
+        """T == 1 batches vote on the host, off a mesh (the JAX package's
+        rule: the mesh routes take them to the device)."""
+        return batch.bases.shape[1] == 1 and mesh is None
+
     def dispatch_fetch(batch, bi=None, armed=True) -> dict:
         """The recovery unit: dispatch and the blocking fetch of one batch
-        (a T == 1 batch votes on the host), host arrays out. A retry, a
-        stall re-run and the degrade re-run exactly this, never a
+        (a T == 1 batch votes on the host off a mesh), host arrays out. A
+        retry, a stall re-run and the degrade re-run exactly this, never a
         half-retired batch; `armed=False` (the degrade) passes the
         failpoint sites by."""
-        singleton = batch.bases.shape[1] == 1
+        singleton = host_voted(batch)
         with metrics.timed("host_vote" if singleton else "kernel"):
             if armed:
                 _failpoints.fire("dispatch_kernel", stage=stage_label, batch=bi)
@@ -1273,9 +1473,9 @@ def call_molecular_batches(
 
     def degrade_fetch(batch) -> dict:
         """A batch whose retries ran out: its unit once more on the
-        stage's own device with the failpoints bypassed — the card's
-        kernels on a card run (never the CPU), the plain PyTorch version
-        on a CPU run; an error here propagates. Counted
+        stage's own device (or mesh) with the failpoints bypassed — the
+        card's kernels on a card run (never the CPU), the plain PyTorch
+        version on a CPU run; an error here propagates. Counted
         ('batches_degraded') and printed by faults.retry; timed as
         'degrade'."""
         with metrics.timed("degrade"):
@@ -1284,7 +1484,8 @@ def call_molecular_batches(
     def dispatch_fetch_guarded(batch, bi):
         """dispatch_fetch under the bounded retrier with the degrade."""
         return _faultretry.guarded(
-            partial(dispatch_fetch, batch, bi), degrade=partial(degrade_fetch, batch),
+            partial(dispatch_fetch, batch, bi),
+            degrade=partial(degrade_fetch, batch),
             metrics=metrics, stage=stage_label, batch=bi,
         )
 
@@ -1292,7 +1493,8 @@ def call_molecular_batches(
         """Re-run the whole dispatch+fetch unit under the retrier after
         `exc` — the retire's recovery."""
         return _faultretry.guarded(
-            partial(dispatch_fetch, batch, bi), degrade=partial(degrade_fetch, batch),
+            partial(dispatch_fetch, batch, bi),
+            degrade=partial(degrade_fetch, batch),
             metrics=metrics, stage=stage_label, batch=bi, failed=exc,
         )
 
@@ -1342,9 +1544,12 @@ def call_molecular_batches(
         for group in _bucket_deep(deep):
             with metrics.timed("encode"):
                 dbatch, dskipped = encode_molecular_families(
-                    group, max_window=max_window, max_templates=DEEP_TEMPLATE_CAP
+                    group, max_window=max_window, max_templates=DEEP_TEMPLATE_CAP,
+                    indel_policy=indel_policy, device=device,
                 )
             stats.skipped_families += len(dskipped)
+            stats.indel_aligned += dbatch.indel_aligned
+            stats.indel_dropped += dbatch.indel_dropped
             if not dbatch.meta:
                 continue
             stats.batches += 1
@@ -1352,7 +1557,11 @@ def call_molecular_batches(
             stats.pad_cells += dbatch.bases.size - used
             stats.used_cells += used
             with metrics.timed("kernel"):
-                inflight, _pf = dispatch(dbatch, False)
+                if deep_fn is None:
+                    inflight, _pf = dispatch(dbatch, False)
+                else:  # the template axis over the mesh's slots
+                    inflight = _Inflight(pack_molecular_outputs(deep_fn(*_pad_templates(
+                        dbatch.bases, dbatch.quals, deep_fn.mesh.shape["reads"]))))
             f, w = dbatch.bases.shape[0], dbatch.bases.shape[-1]
             host = inflight.fetch(metrics)
             with metrics.timed("fetch"):
@@ -1388,9 +1597,12 @@ def call_molecular_batches(
             batch, skipped = encode_molecular_families(
                 normal, max_window=max_window,
                 max_templates=min(deep_threshold, DEEP_TEMPLATE_CAP),
+                indel_policy=indel_policy, device=device,
             )
-            if layout == "packed" and batch.meta and batch.bases.shape[1] != 1:
+            if layout == "packed" and batch.meta and not host_voted(batch):
                 batch.packed = pack_molecular_rows(batch)
+                if sharded:  # the mesh's shard plan is host work too
+                    batch.packed_shards = shard_packed_rows(batch.packed, data_size)
         return bi, batch, skipped, deep
 
     def numbered_chunks():
@@ -1407,27 +1619,30 @@ def call_molecular_batches(
         )
         for batch_index, batch, skipped, deep in encoded:
             stats.skipped_families += len(skipped)
+            stats.indel_aligned += batch.indel_aligned
+            stats.indel_dropped += batch.indel_dropped
             deep_emitted = deep_records(deep) if deep else []
             if not batch.meta:
                 yield "now", deep_emitted
                 continue
             stats.batches += 1
-            singleton = batch.bases.shape[1] == 1
-            if not singleton:
-                issued = batch.packed.bases if batch.packed is not None else batch.bases
+            if not host_voted(batch):
+                issued = (batch.packed_shards or batch.packed or batch).bases
                 used = int((issued != NBASE).sum())
                 stats.pad_cells += issued.size - used
                 stats.used_cells += used
-                metrics.count("route_batches_wire" if use_wire else "route_batches_single")
+                metrics.count(f"route_batches_{route}")
+                if wire_rr is not None:
+                    batch.slot = wire_rr.next_slot()
             fut = executor.submit(batch_task, batch, batch_index, deep_emitted,
                                   batch=batch_index)
             yield "deferred", partial(retire, fut, batch, batch_index, deep_emitted)
 
-    _warm_device(params, device, singleton=True)
+    _warm_device(params, device, singleton=True, mesh=mesh)
     hpool = _hostpool.make_pool(metrics, stage_label)
-    executor = _batch_executor(device, stats, hpool)
+    executor = _batch_executor(device, stats, hpool, sharded, wire_rr)
     try:
-        yield from _pipelined(events(), depth=executor.workers + 1)
+        yield from _pipelined(events(), depth=_pipeline_depth(executor, wire_rr))
     finally:
         executor.shutdown()
         if hpool is not None:
@@ -1981,6 +2196,7 @@ def call_duplex_batches(
     methyl_engine: str = "auto",
     passthrough: bool = False,
     guard=None,
+    mesh="auto",
 ) -> Iterator[list]:
     """The fused duplex stage: convert + extend + duplex merge per MI
     group on the device, one list of consensus records per batch (the
@@ -2046,17 +2262,36 @@ def call_duplex_batches(
     duplex_call_pipeline_packed_methyl unpacked, whose planes are appended
     to its output on the device so the fetch stays one copy); 'host' runs
     the numpy twin (methyl_epilogue_host) on the retired batch — an
-    explicit choice, never a fallback. The extension windows and the
-    tallies' global offsets come from the accumulator's RefStore through
-    the BAM header's names (bind_names); give the same store as
-    `refstore` so the wire gathers from it too. Seconds: 'methyl'.
+    explicit choice, never a fallback. On the sharded mesh route each data
+    shard runs the epilogue on its own device
+    (parallel.sharding.sharded_duplex_outwire_methyl); the JAX package's
+    mesh route takes the host twin there, with the same bits.
+    The extension windows and the tallies' global offsets come from the
+    accumulator's RefStore through the BAM header's names (bind_names);
+    give the same store as `refstore` so the wire gathers from it too.
+    Seconds: 'methyl'.
+
+    mesh: as in call_molecular_batches. On a mesh the family axis shards
+    (parallel.sharding.sharded_duplex_outwire over the unpacked planes,
+    padded to the data size), or, with an explicit 'wire', whole batches
+    round-robin over the mesh's slots, the genome uploaded once per card.
+    Same bytes on every route ('route_batches_<route>').
     """
     device = resolve_device(device)
-    use_wire = _resolve_transport(transport, device) == "wire"
+    mesh = _resolve_mesh(mesh, device)
+    wire_mode = _resolve_transport(transport, device, mesh)
+    use_wire = wire_mode != "off"
     if use_wire and refstore is None:
         if transport == "wire":
             raise ValueError("transport 'wire' needs a refstore (a RefStore or a FASTA path)")
         use_wire = False  # 'auto' without a genome: the unpacked route
+    wire_rr = _WireRoundRobin(mesh) if wire_mode == "wire-mc" else None
+    sharded = mesh is not None and wire_rr is None
+    route = "sharded" if sharded else "wire_mc" if wire_rr else "wire" if use_wire else "single"
+    if sharded:
+        data_size = len(mesh.local_data())
+        duplex_fn = _sharding.sharded_duplex_outwire(mesh, params)
+        duplex_methyl_fn = _sharding.sharded_duplex_outwire_methyl(mesh, params)
     if chemistry not in ("bisulfite", "emseq", "none"):
         raise ValueError(f"unknown chemistry {chemistry!r} (bisulfite | emseq | none)")
     unconverted = chemistry == "none"
@@ -2090,16 +2325,20 @@ def call_duplex_batches(
     emit_fn = _emit_duplex_batch_raw if native_emit else _emit_duplex_batch
     stats = stats if stats is not None else StageStats(stage="duplex")
     t0 = time.monotonic()
-    genome = rid_map = None
+    genomes: dict = {}  # the genome on each device the wire launches on
+    rid_map = None
     if use_wire:
         # the whole genome is read (from a FASTA path) and uploaded only
-        # when the wire engages
+        # when the wire engages — once per card of the round-robin
         with stats.metrics.timed("genome_load"):
             if isinstance(refstore, str):
                 with stats.metrics.timed("genome_load.read"):
                     refstore = RefStore.from_fasta(refstore)
             with stats.metrics.timed("genome_load.upload"):
-                genome = refstore.device_codes(device)
+                for dev in ([d for _s, d in wire_rr.slots] if wire_rr else [device]):
+                    dev = _norm_device(dev)
+                    if dev not in genomes:
+                        genomes[dev] = refstore.device_codes(dev)
         rid_map = refstore.contig_indices(ref_names)
     metrics = stats.metrics
     stage_label = stats.stage or "duplex"
@@ -2139,31 +2378,25 @@ def call_duplex_batches(
 
     def dispatch(batch, wire, methyl_dev):
         """H2D copies + the fused convert/extend/merge; returns
-        (the in-flight output wire, the wire's (starts, limits) or None)."""
+        (the in-flight output wire, the wire's (starts, limits) or None).
+        On the round-robin wire the batch goes to its `slot`."""
+        if batch.slot is not None:
+            (d, r), dev = batch.slot
+            with _on_device(dev), cuda_vote.launch_tag(f"{d},{r}"):
+                return dispatch_wire(batch, methyl_dev, dev)
         if wire:
-            f, w = batch.bases.shape[0], batch.bases.shape[-1]
-            windows = wire_window_offsets(batch)
-            win = pack_duplex_inputs(
-                batch.bases, batch.quals.astype(np.uint8), batch.cover,
-                batch.convert_mask, batch.extend_eligible, *windows,
-                qual_mode="auto", native=native_emit,
-            )
-            metrics.count(f"wire_qual_{win.qual_mode}")
-            words = win.to_words()
+            return dispatch_wire(batch, methyl_dev, device)
+        if sharded:
+            # the unpacked planes over the data shards, with the extension
+            # windows when the epilogue runs there too
+            planes = (batch.bases, batch.quals.astype(np.int16), batch.cover, batch.ref,
+                      batch.convert_mask, batch.extend_eligible)
             if methyl_dev:
-                # the methyl input appendix: each family's contig origin
-                # (the extension gather's lower bound) after the base wire
-                los = refstore.window_origins(mapped_rids(batch, rid_map))
-                out = duplex_call_wire_fused_methyl(
-                    _wire_to_device(np.concatenate([words, los]), device, metrics),
-                    genome, f, w, params=params, qual_mode=win.qual_mode,
-                )
-            else:
-                out = duplex_call_wire_fused(
-                    _wire_to_device(words, device, metrics),
-                    genome, f, w, params=params, qual_mode=win.qual_mode,
-                )
-            return _Inflight(out), windows
+                planes += (methyl_ref_ext(batch),)
+            arrays, _pf = pad_families(planes, batch.bases.shape[0], data_size)
+            metrics.count("h2d_bytes", sum(a.nbytes for a in arrays))
+            fn = duplex_methyl_fn if methyl_dev else duplex_fn
+            return _Inflight(fn.launch(*arrays)), None
         # off the wire the rawize reads the encode-fetched plane
         arrays = [
             _to_device(a, device, metrics) for a in (
@@ -2180,6 +2413,35 @@ def call_duplex_batches(
         else:
             out, _la, _rd = duplex_call_pipeline_packed(*arrays, params=params)
         return _Inflight(out), None
+
+    def dispatch_wire(batch, methyl_dev, dev):
+        """The packed input wire on `dev`, its windows gathered there from
+        the card's genome; returns (in-flight output wire, (starts,
+        limits))."""
+        genome = genomes[_norm_device(dev)]
+        f, w = batch.bases.shape[0], batch.bases.shape[-1]
+        windows = wire_window_offsets(batch)
+        win = pack_duplex_inputs(
+            batch.bases, batch.quals.astype(np.uint8), batch.cover,
+            batch.convert_mask, batch.extend_eligible, *windows,
+            qual_mode="auto", native=native_emit,
+        )
+        metrics.count(f"wire_qual_{win.qual_mode}")
+        words = win.to_words()
+        if methyl_dev:
+            # the methyl input appendix: each family's contig origin
+            # (the extension gather's lower bound) after the base wire
+            los = refstore.window_origins(mapped_rids(batch, rid_map))
+            out = duplex_call_wire_fused_methyl(
+                _wire_to_device(np.concatenate([words, los]), dev, metrics),
+                genome, f, w, params=params, qual_mode=win.qual_mode,
+            )
+        else:
+            out = duplex_call_wire_fused(
+                _wire_to_device(words, dev, metrics),
+                genome, f, w, params=params, qual_mode=win.qual_mode,
+            )
+        return _Inflight(out), windows
 
     def rawize(host, windows, batch, sidecar, methyl_dev):
         """Unpack + the methyl planes + the rawize of one fetched wire;
@@ -2216,12 +2478,21 @@ def call_duplex_batches(
             inflight, windows = dispatch(batch, use_wire, methyl_device)
         if armed:
             _failpoints.fire("fetch_out", stage=stage_label, batch=bi)
-        return rawize(inflight.fetch(metrics), windows, batch, sidecar, methyl_device)
+        host = inflight.fetch(metrics)
+        if sharded:
+            # the shards' (packed, la, rd), or (packed, methyl planes):
+            # the planes after the real families' duplex planes, as on
+            # one device
+            f, w = batch.bases.shape[0], batch.bases.shape[-1]
+            host = (np.concatenate([host[0][: f * 4 * w], host[1].reshape(-1)])
+                    if methyl_device else host[0])
+        return rawize(host, windows, batch, sidecar, methyl_device)
 
     def degrade_fetch(batch, sidecar):
         """A batch whose retries ran out: its unit once more on the
-        stage's own device with the failpoints bypassed (the card's
-        kernels on a card run, never the CPU); timed as 'degrade'."""
+        stage's own device (or mesh) with the failpoints bypassed (the
+        card's kernels on a card run, never the CPU); timed as
+        'degrade'."""
         with metrics.timed("degrade"):
             return dispatch_fetch(batch, sidecar, armed=False)
 
@@ -2265,8 +2536,8 @@ def call_duplex_batches(
             _failpoints.fire("retire_future", stage=stage_label, batch=bi)
             with metrics.timed("stall"):
                 (recs, planes), shadow = _join_with_watchdog(
-                    fut, batch, bi, lambda b, i: batch_task(b, sidecar, i, passed), stats,
-                    stage_label,
+                    fut, batch, bi, lambda b, i: batch_task(b, sidecar, i, passed),
+                    stats, stage_label,
                 )
         except _faultretry.RETRYABLE as exc:
             shadow = _hp_stats_shadow(stats)
@@ -2331,16 +2602,18 @@ def call_duplex_batches(
             used = int(batch.cover.sum())
             stats.pad_cells += batch.cover.size - used
             stats.used_cells += used
-            metrics.count("route_batches_wire" if use_wire else "route_batches_single")
+            metrics.count(f"route_batches_{route}")
+            if wire_rr is not None:
+                batch.slot = wire_rr.next_slot()
             fut = executor.submit(batch_task, batch, sidecar, batch_index, passed,
                                   batch=batch_index)
             yield "deferred", partial(retire, fut, batch, sidecar, batch_index, passed)
 
-    _warm_device(params, device, singleton=False)
+    _warm_device(params, device, singleton=False, mesh=mesh)
     hpool = _hostpool.make_pool(metrics, stage_label)
-    executor = _batch_executor(device, stats, hpool)
+    executor = _batch_executor(device, stats, hpool, sharded, wire_rr)
     try:
-        yield from _pipelined(events(), depth=executor.workers + 1)
+        yield from _pipelined(events(), depth=_pipeline_depth(executor, wire_rr))
     finally:
         executor.shutdown()
         if hpool is not None:

@@ -226,8 +226,8 @@ class GroupedColumnarStream:
     iter_groups() when handed one of these (the configuration echo lets
     it check the stream was built with the semantics the caller wants).
 
-    scan_policy 'drop' runs the C molecular-encode scan once per batch and
-    yields FamilyRuns; 'duplex' runs the duplex-shaped scan; None yields
+    scan_policy 'drop' or 'align' runs the C molecular-encode scan (under
+    that indel policy) once per batch and yields FamilyRuns; 'duplex' runs the duplex-shaped scan; None yields
     (mi, [ColumnarRecordView]) pairs.
 
     `guard` (faults.guard.Guard, strict policy): every batch runs the
@@ -243,7 +243,7 @@ class GroupedColumnarStream:
                  grouping: str = "coordinate",
                  threads: int | None = None,
                  guard=None):
-        if scan_policy not in (None, "drop", "duplex"):
+        if scan_policy not in (None, "drop", "align", "duplex"):
             raise ValueError(f"unknown scan_policy {scan_policy!r}")
         if grouping not in ("coordinate", "adjacent"):
             raise ValueError(f"native grouping supports coordinate|adjacent, got {grouping!r}")

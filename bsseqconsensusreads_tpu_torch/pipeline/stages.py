@@ -66,9 +66,10 @@ Each consensus stage builds its input guard from the environment
 (faults.guard.Guard.from_env: BSSEQ_TPU_INPUT_POLICY, default strict)
 and reads through open_guarded_reader.
 
-Config keys the port does not honour yet raise a WorkflowError in
-PipelineBuilder.build(), before any stage runs, naming the ROADMAP item
-(queue 1) that brings them: indel_policy 'align' (item 7).
+indel_policy ('drop' | 'align') reaches both molecular call sites (the
+two-pass rule and the fused rule) and the molecular ingest's C scan; an
+unknown policy or transport raises a WorkflowError in
+PipelineBuilder.build(), before any stage runs.
 
 Left for later slices: the run ledger (observe.open_ledger,
 emit_stage_stats, BSSEQ_TPU_STATS) and the traces (item 9). The JAX
@@ -182,11 +183,12 @@ def molecular_ingest_stream(path: str, reader, stats: StageStats,
                             ingest_choice: str = "auto",
                             grouping: str = "coordinate",
                             threads: int | None = None,
-                            guard=None):
+                            guard=None,
+                            indel_policy: str = "drop"):
     """The molecular stage's ingest: full-MI grouping, the C encode digest
-    under the stage's indel policy ('drop')."""
+    under the stage's indel policy."""
     return ingest_records(path, reader, stats, ingest_choice=ingest_choice,
-                          grouping=grouping, scan_policy="drop", threads=threads,
+                          grouping=grouping, scan_policy=indel_policy, threads=threads,
                           guard=guard)
 
 
@@ -466,7 +468,8 @@ class PipelineBuilder:
         cfg = self.cfg
         return call_molecular_batches(
             molecular_ingest_stream(src, reader, stats, ingest_choice=cfg.ingest,
-                                    grouping=self.molecular_grouping, guard=guard),
+                                    grouping=self.molecular_grouping, guard=guard,
+                                    indel_policy=cfg.indel_policy),
             params=cfg.molecular,
             mode=mode,
             batch_families=cfg.batch_families,
@@ -781,7 +784,7 @@ class PipelineBuilder:
                 "methyl extraction is a duplex-stage epilogue; "
                 "single_strand stops after the molecular stage"
             )
-        try:  # an unknown transport; indel_policy 'align' (item 7)
+        try:  # an unknown transport or indel policy
             check_route(cfg.transport, cfg.indel_policy)
         except ValueError as exc:
             raise WorkflowError(f"config: {exc}") from None

@@ -61,6 +61,7 @@ def stream_duplex_families(
     rx: str = "ACGTACGT-TGCATGCA",
     bisulfite: bool = False,
     raw_umis: bool = False,
+    indel_rate: float = 0.0,
 ):
     """Stream a coordinate-sorted synthetic grouped-duplex record stream.
 
@@ -87,6 +88,10 @@ def stream_duplex_families(
     input contract: per-family duplex UMIs in RX (B-strand halves
     swapped, as sequenced) and NO MI tag — the input of UMI grouping.
     UMIs are fam-deterministic with pairwise mismatch distance >= 2.
+
+    indel_rate > 0 gives that share of reads one 1-3 bp insertion or
+    deletion (indel_read), chosen by a hash of (fam, ti, flag), with the
+    CIGAR to match; 0 (the default) leaves every record as before.
     """
     from bsseqconsensusreads_tpu_torch.ops.encode import codes_to_seq
 
@@ -112,31 +117,35 @@ def stream_duplex_families(
         u2 = "".join(BASES[(d + 1) & 3] for d in digits)
         return u1, u2
 
+    ext = read_len + INDEL_MAX  # a deletion reads past the read length
     for fam in range(n_families):
         start = 10 + (fam * span) // n_families
         r2 = start + frag_len - read_len
         if not bisulfite:
-            left = codes_to_seq(codes[start : start + read_len])
-            right = codes_to_seq(codes[r2 : r2 + read_len])
+            left = codes_to_seq(codes[start : start + ext])
+            right = codes_to_seq(codes[r2 : r2 + ext])
         t = templates_for(fam) if templates_for else 1
         for strand, (lf, rf) in (("A", (99, 147)), ("B", (163, 83))):
             if bisulfite:
                 left = bisulfite_convert(
-                    genome_str[start : start + read_len], genome_str, start, strand
+                    genome_str[start : start + ext], genome_str, start, strand
                 )
                 right = bisulfite_convert(
-                    genome_str[r2 : r2 + read_len], genome_str, r2, strand
+                    genome_str[r2 : r2 + ext], genome_str, r2, strand
                 )
             for ti in range(t):
-                for flag, pos, mate, seq, tl in (
+                for flag, pos, mate, span_seq, tl in (
                     (lf, start, r2, left, frag_len),
                     (rf, r2, start, right, -frag_len),
                 ):
+                    seq, cigar = span_seq[:read_len], [(CMATCH, read_len)]
+                    if indel_rate > 0:
+                        seq, cigar = indel_read(span_seq, read_len, fam, ti, flag, indel_rate)
                     if mutate is not None:
                         seq = mutate(seq, fam, ti, flag)
                     rec = BamRecord(
                         qname=f"f{fam}:{strand}:{ti}", flag=flag, ref_id=0,
-                        pos=pos, mapq=60, cigar=[(CMATCH, read_len)],
+                        pos=pos, mapq=60, cigar=cigar,
                         next_ref_id=0, next_pos=mate, tlen=tl, seq=seq,
                         qual=qual_for(fam, ti, flag) if qual_for else default_qual,
                     )
@@ -148,6 +157,57 @@ def stream_duplex_families(
                         rec.set_tag("RX", rx, "Z")
                         rec.set_tag("MI", f"{fam}/{strand}", "Z")
                     yield rec
+
+
+#: longest indel indel_read makes
+INDEL_MAX = 3
+
+
+def _indel_hash(fam: int, ti: int, flag: int) -> int:
+    h = ((fam * 1_000_003) ^ (ti * 7_919) ^ (flag * 104_729)) & 0xFFFFFFFF
+    h = (h * 2_654_435_761) & 0xFFFFFFFF
+    h ^= h >> 15
+    h = (h * 2_246_822_519) & 0xFFFFFFFF
+    return h ^ (h >> 13)
+
+
+def has_indel(fam: int, ti: int, flag: int, rate: float) -> bool:
+    """Whether indel_read gives read (fam, ti, flag) an indel at `rate`."""
+    return (_indel_hash(fam, ti, flag) % 100_000) < rate * 100_000
+
+
+def indel_read(span_seq: str, read_len: int, fam: int, ti: int, flag: int,
+               rate: float) -> tuple[str, list]:
+    """(seq, cigar) of one read of `read_len` bases whose reference span
+    starts span_seq (read_len + INDEL_MAX bases of its strand's sequence).
+    A hash of (fam, ti, flag) gives `rate` of reads one 1-3 bp insertion
+    or deletion: at the first homopolymer run of 3 or more that starts in
+    a 30-base window past a hashed offset in 20..read_len-50 (PCR stutter;
+    else at the offset), an insertion repeating the base there or a
+    deletion of the next bases, the CIGAR M/I/D to match. One in 16 indel
+    reads turns random past the indel (a read the banded aligner must
+    refuse). Every other read is the span's first read_len bases, all M."""
+    from bsseqconsensusreads_tpu_torch.io.bam import CDEL, CINS
+
+    h = _indel_hash(fam, ti, flag)
+    if not has_indel(fam, ti, flag, rate):
+        return span_seq[:read_len], [(CMATCH, read_len)]
+    k = 1 + (h >> 17) % INDEL_MAX
+    p = 20 + (h >> 3) % max(read_len - 70, 1)
+    for q in range(p, min(p + 30, read_len - 25)):
+        if span_seq[q] == span_seq[q + 1] == span_seq[q + 2]:
+            p = q
+            break
+    if (h >> 20) & 1:  # deletion of k reference bases at read offset p
+        seq = span_seq[:p] + span_seq[p + k : read_len + k]
+        cigar = [(CMATCH, p), (CDEL, k), (CMATCH, read_len - p)]
+    else:  # insertion of k copies of the base at p
+        seq = span_seq[:p] + span_seq[p] * k + span_seq[p : read_len - k]
+        cigar = [(CMATCH, p), (CINS, k), (CMATCH, read_len - p - k)]
+    if (h >> 24) % 16 == 0:  # garbage past the indel
+        tail = "".join(BASES[(h >> (2 * (i % 12))) & 3 ^ (i & 3)] for i in range(read_len - p - k))
+        seq = seq[: p + k] + tail
+    return seq, cigar
 
 
 def passthrough_leftovers(records) -> list:

@@ -24,7 +24,9 @@ Phases:
      and at the deep-family route's (padded [1, 5120, 2, 192],
      [3, 5120, 2, 192] and [1, 16384, 2, 192], one packed 4,097-row
      segment): mismatch counts — log-likelihood sums bit-identical, base,
-     qual, depth and errors equal. Times: CUDA events around each launch,
+     qual, depth and errors equal; seg_vote's partials mode (sums, counts,
+     depth, no finalize) at the deep mesh route's shapes (one reads slot's
+     half of the deep dispatches), bit-identical to its plain twin. Times: CUDA events around each launch,
      every launch after an L2 flush, all enqueued behind a sleep kernel and
      read after one synchronize, so the host runs ahead (mean of the event
      pairs); each kernel timed twice in turns (spread printed) and once
@@ -101,8 +103,8 @@ Phases:
         equal.
   5. methylation, fused into the duplex stage:
      a. cli.main(["duplex", ..., "--methyl", "both"]) on Phase 3's
-        molecular families below half of --families (a depth cut for the
-        run's time limit) and the human-scale genome, transport
+        molecular families below a quarter of --families (a depth cut for
+        the run's time limit) and the human-scale genome, transport
         'auto' (the wire): its BAM equal to Phase 3w's; counts set to 0
         just before and read just after (a main path);
      b. the same over 'unpacked': its BAM equal to Phase 3's, its
@@ -126,7 +128,9 @@ Phases:
      child process while Phase 3 writes its inputs (awaited before any
      stage is measured):
      a. run_pipeline(FrameworkConfig(filter={"min_reads": [2, 1, 1]}))
-        on raw.bam and the human-scale genome, default settings: the
+        on raw.bam's families below a quarter of --families (a depth cut
+        for the run's time limit) and the human-scale genome, default
+        settings: the
         rules group_reads_by_umi, call_consensus_molecular_tpu,
         call_duplex_tpu and filter_consensus_duplex, each under
         torch.profiler and the peak-memory sampler (seconds, records/s of
@@ -136,7 +140,8 @@ Phases:
         0; the grouped intermediate's MIs partition its records exactly
         by generator family and strand (records whose MI is not
         '<family>/<strand>' are counted); the unfiltered target's records,
-        as a sorted multiset with RX set aside, equal 4a's target's, the
+        as a sorted multiset with RX set aside, equal 4a's target's
+        records of the same families, the
         headers equal apart from @PG; the filter's counts reconcile;
      b. raw_head.bam through `run` (grouped, the same filter) on the card
         and on the CPU: grouped intermediate, unfiltered and filtered
@@ -155,13 +160,14 @@ Phases:
      every unarmed path must count 0 retried, recovered, degraded and
      stalled batches):
      a. run_pipeline with sort_engine 'bucket' and stream_interstage on
-        Phase 3's families below half of --families (a depth cut for the
-        run's time limit): the one fused rule, its target and molecular
+        Phase 3's families below a quarter of --families (a depth cut for
+        the run's time limit): the one fused rule, its target and molecular
         intermediate equal to 4a's records (@PG aside); bucket_count, the
         rule seconds beside 4a's, peak host RSS; a main path;
      b. the same default `run` in a child process with
-        BSSEQ_TPU_HOST_WORKERS=0 and BSSEQ_TPU_OVERLAP_THREADS=0: the
-        target equal to 4a's, per-stage families/s beside 4a's (the pools'
+        BSSEQ_TPU_HOST_WORKERS=0 and BSSEQ_TPU_OVERLAP_THREADS=0 on Phase
+        3's families below half of --families (a depth cut): the target
+        equal to 4a's records of those families, per-stage families/s beside 4a's (the pools'
         measured effect on this card);
      c. the failpoint drill at the head's normal families: each schedule
         of DRILL armed
@@ -177,9 +183,47 @@ Phases:
         card and the CPU; under quarantine the output, the sidecar and
         the counters are equal card vs CPU and reconcile.
 
+  8. indel recovery (indel_policy 'align'): the Phase 3 mixture at
+     --families families with INDEL_RATE of the reads carrying one 1-3 bp
+     insertion or deletion (mostly in homopolymers, one in 16 of them
+     garbage past the indel), written by a child process beside Phase 3's
+     inputs:
+     a. run_pipeline(FrameworkConfig(indel_policy="align")) on the card
+        (a main path): families/s per stage, indel_aligned /
+        indel_dropped (their sum must equal the C scan's keep == 2 reads),
+        every banded_scores call's (N, L) and the DP's and the host
+        traceback's seconds beside the molecular wall, and one call's
+        launches and time on the card;
+     b. `molecular --indel-policy drop` on the same input: families
+        without an indel read byte-equal to 8a's intermediate, family by
+        family, every other family's cD at least 8a's (and some deeper);
+        families/s beside 8a's;
+     c. the indel head (its deep families carry indel reads) with align
+        through both stages on the card and the CPU: SHA-equal.
+  9. the multi-device layer on one card (mesh='auto' is one device there):
+     a. Phase 3's input through both stages on make_mesh(n_data=2) over
+        two slots of cuda:0 (two streams), sharded (unpacked) and
+        round-robin (transport 'wire'): every BAM equal to Phase 3's or
+        3w's, every device batch on the mesh route, seg_vote launched on
+        the slots the route uses (per-slot launch counts), families/s,
+        stall and idle share beside Phase 3's (a main path);
+     b. the head on make_mesh(n_data=1, n_reads=2): the deep families'
+        template axis over two slots (seg_vote's partials mode on each,
+        the sums added in rank order, vote_finalize): base, depth and
+        errors equal to one device, quals within 1 (the count printed),
+        every other family byte-equal;
+     c. two processes (init_distributed over gloo, no per-batch traffic),
+        one mesh slot each on the card: each votes its local_family_count
+        share of the head's strand families; the merged records equal the
+        one-process head run's;
+     d. the head's duplex stage with methyl 'both' on make_mesh(n_data=2):
+        each data slot runs the methyl epilogue on the card; the BAM equal
+        to Phase 3's head duplex BAM, bedMethyl and CX to 5c's.
+
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a, 5b, 6a and 7a together), the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failed check exits non-zero.
+Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a and 9b together), the nvidia-smi
+line, and last {"ok": true, "device": {...}}. Any failed check exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -194,6 +238,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.monotonic()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 TIE_TOL = 2.5e-6
@@ -389,6 +434,26 @@ def kernel_cases(np, torch, dev):
     return cases
 
 
+def partials_cases(np, torch, dev):
+    """seg_vote's partials mode at the deep mesh route's shapes: one reads
+    slot's half of the template axis of the head's deep dispatches (two
+    families of the 5,120 bucket, and one) and of a family at
+    DEEP_TEMPLATE_CAP, co-called, as (name, bases, quals, offsets)."""
+    from bsseqconsensusreads_tpu_torch.models.molecular import overlap_cocall
+
+    rng = np.random.default_rng(2025)
+    cases = []
+    for k, t, real in ((2, 2560, 2048), (1, 2560, 2049), (1, 8192, 8192)):
+        b, q = random_rows(np, rng, k * t, 2, 192, 150)
+        pad = (np.arange(k * t) % t) >= real
+        b[pad], q[pad] = 4, 0
+        bt, qt = overlap_cocall(torch.from_numpy(b).to(dev),
+                                torch.from_numpy(q).to(dev).to(torch.int16))
+        cases.append((f"partials_k{k}_t{t}_w192", bt.contiguous(), qt.contiguous(),
+                      torch.arange(0, k * t + 1, t, dtype=torch.int32, device=dev)))
+    return cases
+
+
 def seg_vote_bound_ms(bases, offsets) -> tuple[float, float]:
     """(bytes-bound ms, operations-bound ms): each input read once (base
     1 B + qual 2 B per cell, offsets, table), each output written once
@@ -444,8 +509,11 @@ def finalize_cases(np, torch, dev, params):
     ]
 
 
-def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict]]:
-    from bsseqconsensusreads_tpu_torch.models.molecular import vote_contrib
+def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[dict]]:
+    from bsseqconsensusreads_tpu_torch.models.molecular import (
+        vote_contrib,
+        vote_partials_segments,
+    )
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote, phred
 
@@ -537,7 +605,53 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict]]:
         check(row["base_differ"] == 0, f"{name}: base differs from the plain version")
         check(row["qual_differ"] == 0, f"{name}: qual differs from the plain version")
         fin_rows.append(row)
-    return seg_rows, fin_rows
+
+    # seg_vote's partials mode against its plain twin (vote_partials_segments)
+    part_rows = []
+    for name, b, q, off in partials_cases(np, torch, dev):
+        got = cuda_vote.seg_vote_partials(b, q, off, params)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = vote_partials_segments(b, q, off, params)  # the plain twin, on the card
+        end.record()
+        torch.cuda.synchronize()
+        differ = {k: int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                  for k, g, w in zip(("ll_bits", "cnt_bits", "depth"), got, want)}
+        ll_max_abs = float((got[0] - want[0]).abs().max())
+        del got, want
+        t = timed(torch, lambda: cuda_vote.seg_vote_partials(b, q, off, params), repeats, flush,
+                  "seg_vote_kernel")
+        contrib = vote_contrib(b, q, phred.log_table(params.error_rate_post_umi, dev),
+                               params.min_input_base_quality)[0].reshape(b.shape[0], -1)
+        lengths = (off[1:] - off[:-1]).to(torch.int64)
+        lib_ms = None
+        try:
+            lib_ms = time_ms(torch, lambda: torch.segment_reduce(contrib, "sum", lengths=lengths),
+                             repeats, flush)
+        except RuntimeError as exc:  # the yardstick only; the port never calls it
+            log(f"phase2 {name}: torch.segment_reduce refused the input ({exc})")
+        del contrib
+        n, p_, w = b.shape
+        s_ = off.numel() - 1
+        nbytes = n * p_ * w * 3 + (s_ + 1) * 4 + 512 * 2 * 4 + s_ * p_ * w * (16 + 16 + 4)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * int((b != 4).sum()) / FP32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        row = {
+            "case": name, "shape": list(b.shape), "segments": s_, **t,
+            # the plain twin walks the deep segments one row per step: its
+            # one comparison call is its time
+            "plain_ms": start.elapsed_time(end),
+            "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **shares(bound, t, floor_ms), **{f"{k}_differ": v for k, v in differ.items()},
+            "max_abs_err": ll_max_abs,
+        }
+        log(f"phase2 seg_vote_partials {json.dumps(row)}")
+        check(not any(differ.values()), f"{name}: the partials differ from the plain twin's")
+        part_rows.append(row)
+    return seg_rows, fin_rows, part_rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -549,13 +663,16 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict]]:
 DEEP_HEAD = (4097, 5000, 16385)
 
 
-def write_inputs(np, workdir: str, families: int, cpu_families: int, raw: bool = False):
+def write_inputs(np, workdir: str, families: int, cpu_families: int, raw: bool = False,
+                 indel: bool = False):
     """The grouped BAM of `families` families, the head BAM of
     `cpu_families` families of the same mixture plus the DEEP_HEAD
     families spread among them, and the genome FASTA. raw: the same two
     inputs one step earlier, raw.bam and raw_head.bam — per-family
     duplex UMIs in RX (B strands' halves swapped) and no MI — and no
-    FASTA."""
+    FASTA. indel: the same two inputs with INDEL_RATE of the reads
+    carrying a 1-3 bp indel (utils.testing.indel_read; every other read
+    as in grouped.bam), indel.bam and indel_head.bam, and no FASTA."""
     from bsseqconsensusreads_tpu_torch.io.bam import BamHeader, BamWriter
     from bsseqconsensusreads_tpu_torch.ops.encode import codes_to_seq
     from bsseqconsensusreads_tpu_torch.utils.testing import (
@@ -567,7 +684,7 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int, raw: bool =
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 4, size=genome_len).astype(np.int8)
     fasta = os.path.join(workdir, "genome.fa")
-    if not raw:
+    if not (raw or indel):
         write_fasta(fasta, "chr1", codes_to_seq(codes))
     qual_pool = [
         bytes(np.random.default_rng(100 + i).choice(
@@ -585,8 +702,9 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int, raw: bool =
         return seq
 
     header = BamHeader("@HD\tVN:1.6\tSO:coordinate\n", [("chr1", genome_len)])
-    big = os.path.join(workdir, "raw.bam" if raw else "grouped.bam")
-    small = os.path.join(workdir, "raw_head.bam" if raw else "grouped_head.bam")
+    name = "raw" if raw else "indel" if indel else "grouped"
+    big = os.path.join(workdir, f"{name}.bam")
+    small = os.path.join(workdir, f"{name}_head.bam")
     n_head = cpu_families + len(DEEP_HEAD)
     deep = {n_head * (i + 1) // (len(DEEP_HEAD) + 1): t for i, t in enumerate(DEEP_HEAD)}
     for path, n, tmpl in ((big, families, lambda fam: 1 if fam % 10 < 7 else 2),
@@ -596,6 +714,7 @@ def write_inputs(np, workdir: str, families: int, cpu_families: int, raw: bool =
                 codes, n, read_len=read_len, frag_extra=30, templates_for=tmpl,
                 qual_for=lambda fam, ti, flag: qual_pool[(fam + ti * 13 + flag) & 63],
                 mutate=mutate, bisulfite=True, raw_umis=raw,
+                indel_rate=INDEL_RATE if indel else 0.0,
             ):
                 w.write(rec)
     return fasta, big, small
@@ -715,21 +834,23 @@ def device_busy_s(torch, prof) -> float:
 
 
 def run_stage(stage: str, inp: str, out: str, fasta: str, device: str, prof=None,
-              engine: str = "native", *, transport: str):
+              engine: str = "native", *, transport: str, indel_policy: str = "drop",
+              mesh="auto"):
     """One stage through the port's entry points, every host engine
     (ingest, emit, sort) named `engine` and the device transport named
     `transport` ('unpacked' or 'wire'; the duplex stage gets the FASTA as
-    its refstore); returns (StageStats, per-kernel launches in this stage,
-    wall seconds). With `prof`, a torch.profiler that records the card's
-    activity, the stage runs under it."""
+    its refstore), the molecular stage's `indel_policy`, on `mesh` (the
+    callers' 'auto', or a parallel.mesh.Mesh); returns (StageStats, per-kernel
+    launches in this stage, wall seconds). With `prof`, a torch.profiler
+    that records the card's activity, the stage runs under it."""
     import contextlib
 
     with prof if prof is not None else contextlib.nullcontext():
-        return _run_stage(stage, inp, out, fasta, device, engine, transport)
+        return _run_stage(stage, inp, out, fasta, device, engine, transport, indel_policy, mesh)
 
 
 def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: str,
-               transport: str):
+               transport: str, indel_policy: str, mesh):
     from bsseqconsensusreads_tpu_torch.io.bam import BamReader
     from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
@@ -745,10 +866,12 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
     with BamReader(inp) as reader:
         if stage == "molecular":
             batches = calling.call_molecular_batches(
-                stages.molecular_ingest_stream(inp, reader, stats, ingest_choice=engine),
+                stages.molecular_ingest_stream(inp, reader, stats, ingest_choice=engine,
+                                               indel_policy=indel_policy),
                 ConsensusParams(min_reads=1), mode="self",
                 batch_families=2048, grouping="coordinate", stats=stats,
                 device=device, emit=engine, transport=transport,
+                indel_policy=indel_policy, mesh=mesh,
             )
             write_batch_stream(batches, out, reader.header, "self",
                                sort_engine=engine, metrics=stats.metrics)
@@ -760,7 +883,7 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                     fa.fetch, names, ConsensusParams(min_reads=0),
                     mode="self", batch_families=2048, grouping="coordinate",
                     stats=stats, device=device, emit=engine, transport=transport,
-                    refstore=fasta,
+                    refstore=fasta, mesh=mesh,
                 )
                 write_batch_stream(batches, out, reader.header, "self",
                                    sort_engine=engine, metrics=stats.metrics)
@@ -799,7 +922,7 @@ def stage_summary(stage: str, stats, wall: float) -> dict:
     wire's resolved qual modes."""
     m = stats.metrics.seconds
     c = stats.metrics.counters
-    device_batches = c.get("route_batches_wire", 0) + c.get("route_batches_single", 0)
+    device_batches = sum(v for k, v in c.items() if k.startswith("route_batches_"))
     check_unarmed(c, f"{stage} stage")
     return {
         "stage": stage, "families": stats.families,
@@ -942,11 +1065,11 @@ def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
     # before any stage is measured); the data contig, the data genome, is
     # appended after
     t0 = time.monotonic()
-    raw_child = subprocess.Popen(
-        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--write-raw", work,
+    children = {kind: subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), f"--write-{kind}", work,
          "--families", str(families), "--cpu-families", str(cpu_families)],
         env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-    )
+    ) for kind in ("raw", "indel")}
     try:
         with ThreadPoolExecutor(1) as pool:
             fillers = pool.submit(write_genome_fillers, np, work)
@@ -956,14 +1079,17 @@ def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
         log(f"phase3 human-scale genome: {os.path.getsize(genome)} bytes, "
             f"{len(GRCH38_LENGTHS) + 1} contigs, written in {time.monotonic() - t0:.1f} s "
             "(beside the inputs)")
-        _out, err = raw_child.communicate(timeout=900)
+        errs = {kind: child.communicate(timeout=900)[1] for kind, child in children.items()}
     finally:
-        if raw_child.poll() is None:
-            raw_child.kill()
-            raw_child.wait()
-    log(f"phase6 raw input: {families} families (and the raw head) written by a child "
-        f"process in {time.monotonic() - t0:.1f} s, rc {raw_child.returncode}")
-    check(raw_child.returncode == 0, f"writing the raw inputs failed: {err.decode()[-2000:]}")
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for kind, phase in (("raw", 6), ("indel", 8)):
+        log(f"phase{phase} {kind} input: {families} families (and the {kind} head) written by "
+            f"a child process in {time.monotonic() - t0:.1f} s, rc {children[kind].returncode}")
+        check(children[kind].returncode == 0,
+              f"writing the {kind} inputs failed: {errs[kind].decode()[-2000:]}")
 
     def io(suffix):
         mol = os.path.join(work, f"molecular{suffix}.bam")
@@ -1440,7 +1566,7 @@ def methyl_argv(inp: str, out: str, fasta: str, device: str, transport: str,
 def phase5(np, torch, work: str, inputs, phase3_summaries, cut: int) -> dict:
     """Methylation, fused into the duplex stage: 5a/5b over the wire and
     unpacked (the main paths) on Phase 3's molecular families below `cut`
-    (half of --families: the run's time limit), 5c the head on
+    (a quarter of --families: the run's time limit), 5c the head on
     the card and the CPU with both methyl engines and one batch's planes
     against the numpy twin, 5d a SIGKILLed checkpointed `run` with methyl
     resumed. Returns the kernels' launches on 5a and 5b."""
@@ -1710,14 +1836,16 @@ def strip_tag(blob: bytes, key: bytes) -> bytes:
     return blob
 
 
-def record_multiset(path: str, key: bytes) -> tuple[list, list]:
+def record_multiset(path: str, key: bytes, limit: int | None = None) -> tuple[list, list]:
     """(header lines apart from @PG, the sorted encoded records with the
-    tag `key` set aside) of a BAM."""
+    tag `key` set aside — of the families below `limit` when given) of a
+    BAM."""
     from bsseqconsensusreads_tpu_torch.io.bam import BamReader
 
     with BamReader(path) as r:
         lines = [ln for ln in r.header.text.splitlines() if not ln.startswith("@PG")]
-        return lines, sorted(strip_tag(b, key) for b in r.raw_records())
+        return lines, sorted(strip_tag(b, key) for b in r.raw_records()
+                             if limit is None or family_of(b) < limit)
 
 
 def mi_partition(path: str) -> tuple[int, int, int, int]:
@@ -1761,8 +1889,10 @@ def cli_io(argv: list[str]) -> tuple[str, str]:
 
 def phase6(np, torch, work: str, inputs, phase3_summaries: dict, families: int,
            cpu_families: int) -> dict:
-    """The raw-BAM entry: 6a `run` on the --families raw BAM (the main
-    path: grouping, both consensus stages, the consensus filter), 6b the
+    """The raw-BAM entry: 6a `run` on the raw BAM's families below
+    `families` (a quarter of --families: a depth cut for the run's time
+    limit; the main path: grouping, both consensus stages, the consensus
+    filter), 6b the
     raw head through `run` on the card and the CPU with the `group`,
     `sort` and `metrics` subcommands, 6c `duplex --passthrough` on the
     head with leftover records. Returns the kernels' launches on 6a."""
@@ -1782,7 +1912,10 @@ def phase6a(torch, work: str, genome: str, phase3_summaries: dict, families: int
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
     from bsseqconsensusreads_tpu_torch.pipeline import stages
 
-    raw = os.path.join(work, "raw.bam")
+    t0 = time.monotonic()
+    raw = family_subset(os.path.join(work, "raw.bam"), os.path.join(work, "cut", "raw.bam"),
+                        families)
+    log(f"phase6a input: the raw families below {families} ({time.monotonic() - t0:.1f} s)")
     outdir = os.path.join(work, "raw_run")
     bodies = {"run_group": "group", "run_molecular": "molecular", "run_duplex": "duplex",
               "run_filter_duplex": "filter"}
@@ -1865,9 +1998,10 @@ def phase6a(torch, work: str, genome: str, phase3_summaries: dict, families: int
     t0 = time.monotonic()
     ref = os.path.join(work, "run", "grouped_consensus_duplex_unfiltered.bam")
     lines, got = record_multiset(unfiltered, b"RX")
-    ref_lines, want = record_multiset(ref, b"RX")
+    ref_lines, want = record_multiset(ref, b"RX", limit=families)
     same = got == want
-    log(f"phase6a unfiltered target vs phase 4a's target, RX and @PG aside: {len(got)} "
+    log(f"phase6a unfiltered target vs phase 4a's target (its families below {families}), "
+        f"RX and @PG aside: {len(got)} "
         f"records, sorted multisets equal={same}, header lines equal={lines == ref_lines} "
         f"({time.monotonic() - t0:.1f} s)")
     check(same and len(got) > 0, "phase6a: the raw run's consensus records differ from 4a's")
@@ -2043,14 +2177,20 @@ DRILL = (
 
 def phase7(np, torch, work: str, inputs, cpu_families: int, cut: int) -> dict:
     """The batch engine: 7a the fused rule at Phase 3's families below
-    `cut` (half of --families: the run's time limit), 7b the
-    inline path in a child process, 7c the failpoint drill and 7d the
+    half of `cut`, 7b the inline path in a child process at the families
+    below `cut` (half of --families; both depth cuts for the run's time
+    limit), 7c the failpoint drill and 7d the
     input guard at the head's families (its deep families set aside, so
     the drill's batch indices are device batches at any --cpu-families).
     Returns the kernels' launches on 7a's main path."""
     fasta, big, small, genome = inputs
-    launches = phase7a(torch, work, genome, big, cut)
-    phase7b(work, genome, big)
+    t0 = time.monotonic()
+    cut_big = family_subset(big, os.path.join(work, "cut7", "grouped.bam"), cut)
+    cut_7a = family_subset(cut_big, os.path.join(work, "cut7a", "grouped.bam"), cut // 2)
+    log(f"phase7 inputs: phase 3's families below {cut} and {cut // 2} "
+        f"({time.monotonic() - t0:.1f} s)")
+    launches = phase7a(torch, work, genome, cut_7a, cut // 2)
+    phase7b(work, genome, cut_big, cut)
     n_head = cpu_families + len(DEEP_HEAD)
     deep = {n_head * (i + 1) // (len(DEEP_HEAD) + 1) for i in range(len(DEEP_HEAD))}
     drill = os.path.join(work, "drill_head.bam")
@@ -2064,8 +2204,8 @@ def phase7(np, torch, work: str, inputs, cpu_families: int, cut: int) -> dict:
 
 
 def phase7a(torch, work: str, genome: str, big: str, cut: int) -> dict:
-    """`run` with sort_engine 'bucket' and stream_interstage on Phase 3's
-    families below `cut`: one fused rule whose target and molecular
+    """`run` with sort_engine 'bucket' and stream_interstage on `big`,
+    Phase 3's families below `cut`: one fused rule whose target and molecular
     intermediate must equal 4a's records of those families (@PG aside),
     under torch.profiler and the memory sampler, the kernels' counts set
     to 0 just before and read just after (a main path)."""
@@ -2073,9 +2213,6 @@ def phase7a(torch, work: str, genome: str, big: str, cut: int) -> dict:
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
     from bsseqconsensusreads_tpu_torch.pipeline import stages
 
-    t0 = time.monotonic()
-    big = family_subset(big, os.path.join(work, "cut", "grouped.bam"), cut)
-    log(f"phase7a input: phase 3's families below {cut} ({time.monotonic() - t0:.1f} s)")
     outdir = os.path.join(work, "run_fused")
     cfg = FrameworkConfig(genome_dir=os.path.dirname(genome),
                           genome_fasta_file_name=os.path.basename(genome),
@@ -2124,11 +2261,12 @@ def phase7a(torch, work: str, genome: str, big: str, cut: int) -> dict:
     return launches
 
 
-def phase7b(work: str, genome: str, big: str) -> None:
+def phase7b(work: str, genome: str, big: str, cut: int) -> None:
     """The same default `run` inline (BSSEQ_TPU_HOST_WORKERS=0,
-    BSSEQ_TPU_OVERLAP_THREADS=0) in a child process: its target must
-    equal 4a's; its per-stage families/s beside 4a's are the pools'
-    measured effect on this card."""
+    BSSEQ_TPU_OVERLAP_THREADS=0) in a child process on 7a's input (the
+    families below `cut`: a depth cut for the run's time limit): its
+    target must equal 4a's records of those families; its per-stage
+    families/s beside 4a's are the pools' measured effect on this card."""
     outdir = os.path.join(work, "run_inline")
     env = {**os.environ, "PYTHONPATH": REPO, "BSSEQ_TPU_HOST_WORKERS": "0",
            "BSSEQ_TPU_OVERLAP_THREADS": "0"}
@@ -2136,10 +2274,13 @@ def phase7b(work: str, genome: str, big: str) -> None:
                          capture_output=True, text=True, timeout=900)
     check(res.returncode == 0, f"phase7b: the inline run failed: {res.stderr[-2000:]}")
     doc = json.loads(res.stdout.strip().splitlines()[-1])
-    same, nbytes, h_a, h_b = same_records(doc["target"], RUN4A["doc"]["target"])
-    log(f"phase7b inline run: {doc['wall']:.3f} s (4a {RUN4A['wall']:.3f} s), rule seconds "
-        f"{json.dumps(doc['rules'])}; target records identical to 4a's={same} ({nbytes} bytes)")
-    check(same, "phase7b: the inline target differs from 4a's")
+    same, n, hdiff = same_family_records(doc["target"], RUN4A["doc"]["target"], cut)
+    log(f"phase7b inline run on the families below {cut}: {doc['wall']:.3f} s (4a "
+        f"{RUN4A['wall']:.3f} s on all), rule seconds {json.dumps(doc['rules'])}; target "
+        f"records identical to 4a's of those families={same} ({n} records), header lines "
+        f"that differ apart from @PG: {json.dumps(hdiff)}")
+    check(same and not hdiff["only_run"] and not hdiff["only_phase3"],
+          "phase7b: the inline target differs from 4a's")
     for stage, st in doc["stats"].items():
         check_unarmed(st, f"phase7b {stage}")
         pooled = RUN4A["doc"]["stats"][stage]
@@ -2308,6 +2449,515 @@ def phase7d(work: str, fasta: str, bad: str, n: int) -> None:
           f"phase7d: the counters do not reconcile with the sidecar ({n} records in)")
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+#: Phase 8's share of reads with one 1-3 bp insertion or deletion: the
+#: order of a 150 bp Illumina library's per-read indel rate plus PCR
+#: stutter (utils.testing.indel_read places most in homopolymers)
+INDEL_RATE = 0.02
+
+
+def indel_families(families: int) -> set:
+    """The families of the Phase 3 mixture (1 template per strand for 70%
+    of them, else 2) with at least one indel read at INDEL_RATE: the
+    generator's own per-read decision (utils.testing.has_indel)."""
+    from bsseqconsensusreads_tpu_torch.utils.testing import has_indel
+
+    out = set()
+    for fam in range(families):
+        t = 1 if fam % 10 < 7 else 2
+        if any(has_indel(fam, ti, flag, INDEL_RATE)
+               for ti in range(t) for flag in (99, 147, 163, 83)):
+            out.add(fam)
+    return out
+
+
+def scan_indel_reads(path: str) -> tuple[int, int]:
+    """(keep == 2 reads, families) over every family of `path` in the C
+    molecular-encode scan under indel_policy 'align' (the reads the
+    encode hands to the banded aligner)."""
+    import numpy as np
+
+    from bsseqconsensusreads_tpu_torch.pipeline import ingest
+
+    n = fams = 0
+    stream = ingest.GroupedColumnarStream(path, scan_policy="align", grouping="coordinate")
+    for g in stream.iter_groups():
+        n += int(np.count_nonzero(g.scan["keep"][g.start:g.start + g.n] == 2))
+        fams += 1
+    return n, fams
+
+
+def records_by_family(path: str) -> dict:
+    """{family: [encoded records in file order]} of a consensus BAM."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    out: dict = {}
+    with BamReader(path) as r:
+        for b in r.raw_records():
+            out.setdefault(family_of(b), []).append(b)
+    return out
+
+
+def record_depths(blobs: list) -> dict:
+    """{(qname, flag): cD} of encoded consensus records."""
+    from bsseqconsensusreads_tpu_torch.io.bam import decode_record
+
+    return {(rec.qname, rec.flag): int(rec.get_tag("cD"))
+            for rec in (decode_record(b[4:]) for b in blobs)}
+
+
+def banded_launches(torch, n: int, l: int) -> tuple[int, float, float]:
+    """(kernel launches, events ms, profiler device ms) of one
+    banded_scores call of (N, L) on the card (its uploads included), on
+    seeded reads of the window's anchor."""
+    import numpy as np
+
+    from bsseqconsensusreads_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(8)
+    ref = rng.integers(0, 4, size=(n, l + 48)).astype(np.int8)
+    reads = ref[:, 8:8 + l].copy()
+    offsets = np.full(n, 8, np.int32)
+    args = (reads, ref, offsets)  # numpy in, as the encode calls it
+    banded.banded_scores(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    banded.banded_scores(*args)
+    end.record()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        banded.banded_scores(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    return len(kernels), start.elapsed_time(end), busy
+
+
+def phase8(np, torch, work: str, inputs, families: int, cpu_families: int) -> dict:
+    """Indel recovery: 8a `run` with indel_policy 'align' on the card at
+    --families families with INDEL_RATE indel reads (a main path), 8b the
+    `molecular` stage with --indel-policy drop on the same input, 8c the
+    indel head with align on the card and the CPU. Returns 8a's
+    launches."""
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.ops import banded, cuda_vote, reconstruct
+    from bsseqconsensusreads_tpu_torch.pipeline import stages
+
+    fasta, _big, _small, genome = inputs
+    big = os.path.join(work, "indel.bam")
+    t0 = time.monotonic()
+    want_keep2, n_groups = scan_indel_reads(big)
+    with_indel = indel_families(families)
+    log(f"phase8 input: {families} families, {n_groups} strand families; the C scan's "
+        f"keep == 2 reads {want_keep2}; {len(with_indel)} families carry an indel read "
+        f"({time.monotonic() - t0:.1f} s)")
+
+    # 8a: `run` with align, the counts set to 0 just before and read just after
+    outdir = os.path.join(work, "run_align")
+    cfg = FrameworkConfig(genome_dir=os.path.dirname(genome),
+                          genome_fasta_file_name=os.path.basename(genome), indel_policy="align")
+    reconstruct._CACHE.clear()
+    for k in cuda_vote.LAUNCHES:
+        cuda_vote.LAUNCHES[k] = 0
+    banded.CALLS.clear()
+    # no torch.profiler here: the DP's ~900,000 small launches make its
+    # trace cost minutes to read back (the idle share is Phase 3's, 9a's)
+    t0 = time.monotonic()
+    with PeakMemory(torch) as mem:
+        target, results, stats = stages.run_pipeline(cfg, big, outdir=outdir)
+    wall = time.monotonic() - t0
+    launches = dict(cuda_vote.LAUNCHES)
+    calls = list(banded.CALLS)
+    check_unarmed_stats(stats, "phase8a")
+    mol = stats["molecular"]
+    rows = {}
+    for stage, st in stats.items():
+        rows[stage] = {**stage_summary(stage, st, st.wall_seconds),
+                       "indel_aligned": st.indel_aligned, "indel_dropped": st.indel_dropped}
+        log(f"phase8a stage {json.dumps(rows[stage])}")
+    dp_s = sum(c["dp_s"] for c in calls)
+    tb_s = sum(c["traceback_s"] for c in calls)
+    log(f"phase8a run (align): {wall:.3f} s, rules {json.dumps({r.name: r.seconds for r in results})}; "
+        f"indel_aligned {mol.indel_aligned}, indel_dropped {mol.indel_dropped}; peak host RSS "
+        f"{mem.host_gib:.3f} GiB, device {mem.device_gib:.4f} GiB; idle share not measured; "
+        f"launches {json.dumps(launches)}")
+    check(launches["seg_vote"] > 0, "phase8a: seg_vote never launched")
+    check(mol.indel_aligned > 0 and mol.indel_dropped > 0,
+          "phase8a: the aligner placed or refused no read")
+    check(mol.indel_aligned + mol.indel_dropped == want_keep2,
+          f"phase8a: aligned {mol.indel_aligned} + refused {mol.indel_dropped} != the C "
+          f"scan's {want_keep2} indel reads")
+    shapes = sorted({(c["n"], c["l"]) for c in calls})
+    log(f"phase8a banded_scores: {len(calls)} calls, (N, L) from {shapes[0]} to {shapes[-1]}, "
+        f"mean N {sum(c['n'] for c in calls) / max(len(calls), 1):.1f}; DP (loop + fetch) "
+        f"{dp_s:.3f} s, host traceback {tb_s:.3f} s: worker-seconds of the host pool, which "
+        f"encodes a chunk ahead and so overlaps the dispatch, not a share of the wall; over "
+        f"the molecular wall {mol.wall_seconds:.3f} s: DP worker-seconds / wall "
+        f"{dp_s / mol.wall_seconds:.4f}, with the traceback {(dp_s + tb_s) / mol.wall_seconds:.4f} "
+        f"(the end-to-end cost is 8b's align / drop families/s)")
+    log("phase8a banded_scores calls [N, L, DP ms, traceback ms]: " + json.dumps(
+        [[c["n"], c["l"], round(c["dp_s"] * 1e3, 3), round(c["traceback_s"] * 1e3, 3)]
+         for c in calls]))
+    per_call = {}
+    for n, l in sorted({max(shapes), (int(np.median([c['n'] for c in calls])), shapes[-1][1])}):
+        k, ev_ms, prof_ms = banded_launches(torch, n, l)
+        per_call[f"{n}x{l}"] = {"launches": k, "events_ms": ev_ms, "profiler_busy_ms": prof_ms}
+    log(f"phase8a banded_scores per call on the card: {json.dumps(per_call)}")
+
+    # 8b: the molecular stage with --indel-policy drop on the same input
+    drop = os.path.join(work, "indel_drop_molecular.bam")
+    t0 = time.monotonic()
+    _out, err = cli_io(["molecular", "-i", big, "-o", drop, "--mode", "self",
+                        "--indel-policy", "drop"])
+    drop_wall = time.monotonic() - t0
+    dstats = json.loads(err.strip().splitlines()[-1])
+    check_unarmed(dstats, "phase8b")
+    log(f"phase8b molecular (drop): {drop_wall:.3f} s, families/s "
+        f"{dstats['families_per_second']} (align in 8a: {rows['molecular']['families_per_s']:.1f}, "
+        f"x{rows['molecular']['families_per_s'] / dstats['families_per_second']:.3f}); "
+        f"indel_aligned {dstats['indel_aligned']}, indel_dropped {dstats['indel_dropped']}")
+    check(dstats["indel_aligned"] == dstats["indel_dropped"] == 0,
+          "phase8b: the drop policy aligned or counted indel reads")
+    # a family whose reads all carry an indel is skipped at the encode under
+    # drop; under align it is placed, and skipped at the emit (no read)
+    # only when the aligner refused all of its reads
+    log(f"phase8 skipped families: align {mol.skipped_families}, drop "
+        f"{dstats['skipped_families']}")
+    check(mol.skipped_families <= dstats["skipped_families"],
+          "phase8: align skipped more families than drop")
+
+    # the gates, family by family
+    t0 = time.monotonic()
+    inter = os.path.join(outdir, "indel_consensus_unfiltered_aunamerged_aligned.bam")
+    a, d = records_by_family(inter), records_by_family(drop)
+    same = differ = deeper = shallower = 0
+    for fam in sorted(set(a) | set(d)):
+        if fam not in with_indel:
+            ok = a.get(fam) == d.get(fam)
+            same += ok
+            differ += not ok
+            continue
+        got, want = record_depths(a.get(fam, [])), record_depths(d.get(fam, []))
+        for key, cd in want.items():
+            if got.get(key, -1) < cd:
+                shallower += 1
+            elif got[key] > cd:
+                deeper += 1
+    log(f"phase8 align vs drop, family by family: {same} families without an indel read "
+        f"byte-equal, {differ} differ; indel families' records with cD deeper under align "
+        f"{deeper}, shallower {shallower} ({time.monotonic() - t0:.1f} s)")
+    check(differ == 0 and same > 0, "phase8: families without an indel read differ")
+    check(shallower == 0 and deeper > 0, "phase8: align lost depth, or added none")
+
+    # 8c: the indel head (with its deep families) with align, card vs CPU
+    head = os.path.join(work, "indel_head.bam")
+    shas = {}
+    for stage, inp in (("molecular", head),
+                       ("duplex", os.path.join(work, "mol_indel_head_cuda.bam"))):
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"{stage[:3]}_indel_head_{dev}.bam")
+            st, _counts, swall = run_stage(stage, inp, out, fasta, dev, transport="unpacked",
+                                           indel_policy="align")
+            shas[stage, dev] = sha256(out)
+            log(f"phase8c head {stage} {dev}: {swall:.2f} s, indel_aligned {st.indel_aligned}, "
+                f"indel_dropped {st.indel_dropped}, deep_routed_families "
+                f"{st.metrics.counters.get('deep_routed_families', 0)}, sha256 {shas[stage, dev]}")
+            if stage == "molecular":
+                check(st.indel_aligned > 0, f"phase8c {dev}: no indel read aligned")
+                check_deep_head(st, f"indel {dev}")
+        check(shas[stage, "cuda"] == shas[stage, "cpu"],
+              f"phase8c {stage}: the card's BAM differs from the CPU's")
+    log("phase8c head: card and CPU BAMs SHA-equal in both stages")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+#: one card, two mesh slots (each its own stream): the sharded code on a
+#: one-card machine, where mesh='auto' resolves to None
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+
+
+def mesh_stage(torch, stage, inp, out, fasta, transport, mesh, tag, ref_summary):
+    """One stage on `mesh` through the port's entry points, under
+    torch.profiler, the kernels' counts (and the per-slot tags) set to 0
+    just before and read just after; returns (summary, launches)."""
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+
+    cuda_vote.TAGGED_LAUNCHES.clear()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with PeakMemory(torch) as mem:
+        stats, counts, wall = run_stage(stage, inp, out, fasta, "cuda", prof,
+                                        transport=transport, mesh=mesh)
+    busy = device_busy_s(torch, prof)
+    route = "wire_mc" if transport == "wire" else "sharded"
+    c = stats.metrics.counters
+    summary = {
+        **stage_summary(stage, stats, wall), "transport": transport,
+        "mesh": repr(mesh), "route": route,
+        f"route_batches_{route}": c.get(f"route_batches_{route}", 0),
+        "launches_per_slot": {f"{k}@{t}": v for (k, t), v in
+                              sorted(cuda_vote.TAGGED_LAUNCHES.items())},
+        "device_busy_s": busy if busy > 0 else "not measured",
+        "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+        "peak_host_rss_gib": mem.host_gib, "peak_device_allocated_gib": mem.device_gib,
+        "launches": counts, "sha256": sha256(out),
+        "phase3": {k: ref_summary[k] for k in ("families_per_s", "stall_s", "device_idle_share")},
+    }
+    log(f"{tag} stage {json.dumps(summary)}")
+    others = {k for k, v in c.items() if k.startswith("route_batches_") and v} - {
+        f"route_batches_{route}"}
+    check(summary[f"route_batches_{route}"] > 0 and not others,
+          f"{tag} {stage}: the device batches did not all take the {route} route ({others})")
+    check(counts["seg_vote"] > 0, f"{tag} {stage}: seg_vote never launched")
+    # sharded: every batch on every data slot; round-robin: batch k on slot k mod n
+    n = mesh.shape["data"]
+    used = n if route == "sharded" else min(n, summary[f"route_batches_{route}"])
+    slots = {t for (k, t) in cuda_vote.TAGGED_LAUNCHES if k == "seg_vote"}
+    check(slots == {f"{d},0" for d in range(used)},
+          f"{tag} {stage}: seg_vote launched on slots {slots}")
+    return summary, counts
+
+
+def phase9(np, torch, work: str, inputs, phase3_summaries, cpu_families: int) -> dict:
+    """The multi-device layer on one card: 9a Phase 3's input through both
+    stages on make_mesh(n_data=2) over MESH_DEVICES, sharded (unpacked)
+    and round-robin (wire), each BAM equal to Phase 3's or 3w's (a main
+    path); 9b the head's deep families on make_mesh(1, 2); 9c two
+    processes through init_distributed, each voting its share of the
+    head; 9d the head's duplex stage with methyl on make_mesh(n_data=2).
+    Returns the launches of 9a and 9b."""
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+    from bsseqconsensusreads_tpu_torch.parallel.mesh import make_mesh
+
+    fasta, big, small, genome = inputs
+    p3, p3w = phase3_summaries
+    launches: dict = {}
+    mesh = make_mesh(n_data=2, devices=MESH_DEVICES)
+    for transport, ref_mol, ref_dup, refs in (("unpacked", "molecular.bam", "duplex.bam", p3),
+                                              ("wire", "molecular_wire.bam", "duplex_wire.bam", p3w)):
+        mol = os.path.join(work, f"mesh_molecular_{transport}.bam")
+        for stage, inp, out, ref in (
+                ("molecular", big, mol, ref_mol),
+                ("duplex", mol, os.path.join(work, f"mesh_duplex_{transport}.bam"), ref_dup)):
+            summary, counts = mesh_stage(torch, stage, inp, out, genome, transport, mesh,
+                                         f"phase9a {transport}", refs[stage])
+            same = summary["sha256"] == sha256(os.path.join(work, ref))
+            log(f"phase9a {transport} {stage} vs {ref}: byte-identical={same}")
+            check(same, f"phase9a {transport} {stage}: the mesh wrote other bytes than {ref}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+
+    # 9b: the head's deep families, their template axis over two slots
+    deep_mesh = make_mesh(n_data=1, n_reads=2, devices=MESH_DEVICES)
+    out = os.path.join(work, "mesh_deep_head.bam")
+    cuda_vote.TAGGED_LAUNCHES.clear()
+    st, counts, wall = run_stage("molecular", small, out, fasta, "cuda", transport="unpacked",
+                                 mesh=deep_mesh)
+    check_deep_head(st, "mesh (1, 2)")
+    ref = os.path.join(work, "mol_head_cuda_native_unpacked.bam")
+    deep = deep_families(cpu_families)
+    a, b = records_by_family(out), records_by_family(ref)
+    qual_cells = qual_differ = qual_max = other = 0
+    from bsseqconsensusreads_tpu_torch.io.bam import decode_record
+
+    for fam in sorted(set(a) | set(b)):
+        if fam not in deep:
+            other += a.get(fam) != b.get(fam)
+            continue
+        for x, y in zip(a.get(fam, []), b.get(fam, []), strict=True):
+            rx, ry = decode_record(x[4:]), decode_record(y[4:])
+            check((rx.qname, rx.flag, rx.pos, rx.seq, rx.cigar, rx.tags)
+                  == (ry.qname, ry.flag, ry.pos, ry.seq, ry.cigar, ry.tags),
+                  f"phase9b: deep family {fam}'s base, depth or errors differ from one device")
+            dq = np.abs(np.frombuffer(rx.qual, np.uint8).astype(int)
+                        - np.frombuffer(ry.qual, np.uint8).astype(int))
+            qual_cells += dq.size
+            qual_differ += int((dq > 0).sum())
+            qual_max = max(qual_max, int(dq.max(initial=0)))
+    log(f"phase9b head on mesh (1, 2): {wall:.2f} s; deep families {sorted(deep)}: "
+        f"{qual_differ} of {qual_cells} quals differ from one device, max {qual_max}; "
+        f"other families differing {other}; launches {json.dumps(counts)}, per slot "
+        f"{json.dumps({f'{k}@{t}': v for (k, t), v in sorted(cuda_vote.TAGGED_LAUNCHES.items())})}")
+    check(other == 0, "phase9b: families off the deep route differ from one device")
+    check(qual_max <= 1, f"phase9b: a deep family's qual differs by {qual_max}")
+    check(counts["seg_vote_partials"] > 0 and counts["vote_finalize"] > 0,
+          "phase9b: the deep mesh route did not launch the partials mode and vote_finalize")
+    check({t for (k, t) in cuda_vote.TAGGED_LAUNCHES if k == "seg_vote_partials"} == {"0,0", "0,1"},
+          "phase9b: the partials did not launch on both reads slots")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    phase9c(work, small, ref)
+    phase9d(work, fasta)
+    return launches
+
+
+def phase9d(work: str, fasta: str, device: str = "cuda", mesh_devices=MESH_DEVICES) -> None:
+    """The head's duplex stage with methyl 'both' (the device engine) on a
+    two-slot sharded mesh: each data slot runs the methyl epilogue with
+    its duplex launch. The BAM must equal Phase 3's head duplex BAM, the
+    bedMethyl and CX 5c's."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+    from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
+    from bsseqconsensusreads_tpu_torch.methyl.tally import MethylAccumulator
+    from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+    from bsseqconsensusreads_tpu_torch.ops.refstore import RefStore
+    from bsseqconsensusreads_tpu_torch.parallel.mesh import make_mesh
+    from bsseqconsensusreads_tpu_torch.pipeline import calling, stages
+    from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
+
+    inp = os.path.join(work, "mol_head_cuda_native_unpacked.bam")
+    out = os.path.join(work, "mesh_methyl_head.bam")
+    ref5c = os.path.join(work, "methyl_head_cuda_unpacked_device.bam")
+    t0 = time.monotonic()
+    acc = MethylAccumulator(RefStore.from_fasta(fasta), out + ".bedmethyl",
+                            out + ".CX_report.txt")
+    stats = calling.StageStats(stage="duplex")
+    cuda_vote.TAGGED_LAUNCHES.clear()
+    with BamReader(inp) as reader, FastaFile(fasta) as fa:
+        batches = calling.call_duplex_batches(
+            stages.duplex_ingest_stream(inp, reader, stats, ingest_choice="native"),
+            fa.fetch, [n for n, _ in reader.header.references], ConsensusParams(min_reads=0),
+            mode="self", batch_families=2048, grouping="coordinate", stats=stats,
+            device=device, emit="native", transport="unpacked",
+            mesh=make_mesh(n_data=2, devices=mesh_devices), methyl=acc, methyl_engine="device",
+        )
+        write_batch_stream(batches, out, reader.header, "self", sort_engine="native",
+                           metrics=stats.metrics)
+    report = acc.finalize()
+    wall = time.monotonic() - t0
+    check_unarmed(stats.metrics.counters, "phase9d")
+    c = stats.metrics.counters
+    slots = sorted({t for (_k, t) in cuda_vote.TAGGED_LAUNCHES})
+    log(f"phase9d head duplex with methyl on mesh (2, 1): {wall:.2f} s, sites "
+        f"{report['sites']}, route_batches_sharded {c.get('route_batches_sharded', 0)}, "
+        f"methyl {stats.metrics.seconds.get('methyl', 0.0):.4f} s, launches per slot "
+        f"{json.dumps({f'{k}@{t}': v for (k, t), v in sorted(cuda_vote.TAGGED_LAUNCHES.items())})}")
+    check(c.get("route_batches_sharded", 0) == stats.batches > 0,
+          "phase9d: the head's batches did not take the sharded route")
+    if device == "cuda":
+        check(slots == ["0,0", "1,0"], f"phase9d: launches on slots {slots}")
+    check(sha256(out) == sha256(os.path.join(work, "dup_head_cuda_native_unpacked.bam")),
+          "phase9d: the BAM differs from phase 3's head duplex BAM")
+    for suffix in (".bedmethyl", ".CX_report.txt"):
+        check(sha256(out + suffix) == sha256(ref5c + suffix),
+              f"phase9d: the {suffix} differs from 5c's")
+    log("phase9d: BAM, bedMethyl and CX equal to the one-device runs")
+
+
+def deep_families(cpu_families: int) -> set:
+    """The head's DEEP_HEAD family indices (write_inputs)."""
+    n_head = cpu_families + len(DEEP_HEAD)
+    return {n_head * (i + 1) // (len(DEEP_HEAD) + 1) for i in range(len(DEEP_HEAD))}
+
+
+def phase9c(work: str, small: str, ref: str) -> None:
+    """Two processes on the card (init_distributed over gloo, one mesh
+    slot each): each votes its local_family_count share of the head's
+    strand families; the merged records equal the one-process run's
+    (Phase 3's head)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.monotonic()
+    env = {**os.environ, "PYTHONPATH": REPO}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mesh-child",
+         f"{rank},{port},{small},{work}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = {rank: err[-1500:] for rank, (p, (_o, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0}
+    check(not failed, f"phase9c processes failed: {json.dumps(failed)}")
+    for rank, (out, _err) in enumerate(outs):
+        log(f"phase9c process {rank}: {out.strip().splitlines()[-1]}")
+    _lines, merged = record_multiset(os.path.join(work, "mesh_share_0.bam"), b"")
+    _lines, part = record_multiset(os.path.join(work, "mesh_share_1.bam"), b"")
+    _lines, want = record_multiset(ref, b"")
+    same = sorted(merged + part) == want
+    log(f"phase9c two processes: {len(merged)} + {len(part)} records, merged equal to the "
+        f"one-process run's={same} ({time.monotonic() - t0:.1f} s)")
+    check(same, "phase9c: the two processes' merged records differ from one process")
+
+
+class FamilyShare:
+    """Groups [lo, hi) of a native grouped stream (the C grouping and
+    encode scan), as a stream pipeline.calling.stream_mi_groups takes."""
+
+    def __init__(self, stream, lo: int, hi: int):
+        self.stream, self.lo, self.hi = stream, lo, hi
+        self.grouping, self.strip_suffix = stream.grouping, stream.strip_suffix
+        self.flush_margin = stream.flush_margin
+
+    def iter_groups(self, stats=None):
+        for i, g in enumerate(self.stream.iter_groups(stats)):
+            if self.lo <= i < self.hi:
+                yield g
+
+
+def mesh_child(arg: str) -> int:
+    """One process of Phase 9c: join the two-process job (gloo, the
+    rendezvous only), take this process's local_family_count share of the
+    head's strand families and vote it on its mesh slot (the molecular
+    stage, native engines, 'self')."""
+    import numpy as np
+
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+    from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+    from bsseqconsensusreads_tpu_torch.parallel import multihost
+    from bsseqconsensusreads_tpu_torch.parallel.mesh import pad_families
+    from bsseqconsensusreads_tpu_torch.pipeline import calling, ingest
+    from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
+
+    rank, port, small, work = arg.split(",")
+    rank = int(rank)
+    t0 = time.monotonic()
+    multihost.init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = multihost.multihost_family_mesh(devices=["cuda:0"])
+    check(mesh.shape == {"data": 2, "reads": 1} and mesh.local_data() == [rank],
+          f"process {rank}: mesh {mesh!r}")
+    grouped = lambda: ingest.GroupedColumnarStream(small, scan_policy="drop",  # noqa: E731
+                                                   grouping="coordinate")
+    n_groups = sum(1 for _ in grouped().iter_groups())
+    _pads, n_pad = pad_families((np.zeros(n_groups),), n_groups, mesh.shape["data"])
+    count, first = multihost.local_family_count(n_pad, mesh)
+    out = os.path.join(work, f"mesh_share_{rank}.bam")
+    stats = calling.StageStats(stage="molecular")
+    for k in cuda_vote.LAUNCHES:
+        cuda_vote.LAUNCHES[k] = 0
+    with BamReader(small) as reader:
+        batches = calling.call_molecular_batches(
+            FamilyShare(grouped(), first, first + count), ConsensusParams(min_reads=1),
+            mode="self", batch_families=2048, grouping="coordinate", stats=stats,
+            device="cuda", emit="native", transport="unpacked", mesh=mesh)
+        write_batch_stream(batches, out, reader.header, "self", sort_engine="native")
+    check(cuda_vote.LAUNCHES["seg_vote"] > 0, f"process {rank}: seg_vote never launched")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "groups": [first, first + count], "of": n_groups,
+                      "families": stats.families, "records_out": stats.consensus_out,
+                      "launches": dict(cuda_vote.LAUNCHES),
+                      "wall_s": time.monotonic() - t0}))
+    return 0
+
+
 # ---------------------------------------------------------------- bounds
 
 
@@ -2434,6 +3084,11 @@ def main() -> int:
     ap.add_argument("--write-raw", metavar="WORKDIR", default="",
                     help="(run by the full run, beside Phase 3's input writing) Phase 6's "
                     "raw inputs of --families and --cpu-families in WORKDIR")
+    ap.add_argument("--write-indel", metavar="WORKDIR", default="",
+                    help="(run by the full run, beside Phase 3's input writing) Phase 8's "
+                    "indel inputs of --families and --cpu-families in WORKDIR")
+    ap.add_argument("--mesh-child", metavar="RANK,PORT,HEAD,WORKDIR", default="",
+                    help="(run by the full run) one of Phase 9c's two processes")
     args = ap.parse_args()
 
     try:
@@ -2454,6 +3109,15 @@ def main() -> int:
     if args.write_raw:
         write_inputs(np, args.write_raw, args.families, args.cpu_families, raw=True)
         return 0
+    if args.write_indel:
+        write_inputs(np, args.write_indel, args.families, args.cpu_families, indel=True)
+        return 0
+    if args.mesh_child:
+        try:
+            return mesh_child(args.mesh_child)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
 
     try:
         card = card_line()
@@ -2467,7 +3131,7 @@ def main() -> int:
         elif args.engine_ab:
             engine_ab(np, torch, args.families)
         else:
-            seg_rows, fin_rows = phase2(np, torch, dev, args.repeats)
+            seg_rows, fin_rows, part_rows = phase2(np, torch, dev, args.repeats)
             if not args.kernels_only:
                 case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
                 with tempfile.TemporaryDirectory(prefix="bsseq_smoke_") as work:
@@ -2475,20 +3139,28 @@ def main() -> int:
                     launches, summaries, inputs = phase3(
                         np, torch, work, args.families, args.cpu_families, case_shapes)
                     marks.append(("3", time.monotonic()))
+                    log(f"phase 3 seconds: {marks[1][1] - marks[0][1]:.1f} (phases 0-2 before it: "
+                        f"{marks[0][1] - T_START:.1f})")
                     phase_bounds(work)
                     marks.append(("2b", time.monotonic()))
                     for tag, more in (
                         ("4", lambda: phase4(np, torch, work, inputs, summaries[0], case_shapes)),
                         ("5", lambda: phase5(np, torch, work, inputs, summaries,
-                                             args.families // 2)),
+                                             args.families // 4)),
                         ("6", lambda: phase6(np, torch, work, inputs, summaries[0],
-                                             args.families, args.cpu_families)),
+                                             args.families // 4, args.cpu_families)),
                         ("7", lambda: phase7(np, torch, work, inputs, args.cpu_families,
                                              args.families // 2)),
+                        ("8", lambda: phase8(np, torch, work, inputs, args.families,
+                                             args.cpu_families)),
+                        ("9", lambda: phase9(np, torch, work, inputs, summaries,
+                                             args.cpu_families)),
                     ):
                         for k, v in more().items():
                             launches[k] = launches.get(k, 0) + v
                         marks.append((tag, time.monotonic()))
+                        log(f"phase {tag} seconds: {marks[-1][1] - marks[-2][1]:.1f} "
+                            f"(since phase 3 began: {marks[-1][1] - marks[0][1]:.1f})")
                     log("phase seconds (3 with its inputs and the head): " + ", ".join(
                         f"{tag} {t - prev:.1f}" for (_p, prev), (tag, t) in zip(marks, marks[1:])))
     except SmokeFailure as exc:
@@ -2509,6 +3181,7 @@ def main() -> int:
     kernels = []
     for name, line, rows, head in (
         ("seg_vote", 277, seg_rows, "molecular_packed_w192"),
+        ("seg_vote_partials", 277, part_rows, "partials_k2_t2560_w192"),
         ("vote_finalize", 217, fin_rows, "vote_finalize_4096x192"),
     ):
         top = next(r for r in rows if r["case"] == head)
@@ -2517,7 +3190,8 @@ def main() -> int:
             "source": "bsseqconsensusreads_tpu_torch/csrc/vote.cu",
             "replaces": f"bsseqconsensusreads_tpu/ops/pallas_vote.py:{line}",
             "launches": launches.get(name, 0),
-            "max_abs_err": max(r["qual_max_abs"] for r in rows), "ms": top["ms"],
+            "max_abs_err": max(r.get("qual_max_abs", r.get("max_abs_err")) for r in rows),
+            "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "bound_share": top["bound_share"],

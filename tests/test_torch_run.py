@@ -414,18 +414,30 @@ def test_config_from_yaml_matches_the_jax_reader(tmp_path, monkeypatch):
         pconfig.FrameworkConfig.from_yaml(str(path))
 
 
-REFUSED = {
-    "indel_policy_align": ({"indel_policy": "align"}, 7),
+INDEL_POLICY = {
+    "indel_policy_align": "align",
+    "indel_policy_unknown": "realign",
 }
 
 
-@pytest.mark.parametrize("key", sorted(REFUSED))
+@pytest.mark.parametrize("key", sorted(INDEL_POLICY))
 def test_keys_the_port_lacks_raise_at_build_naming_their_item(env, key):
-    over, item = REFUSED[key]
-    builder = pstages.PipelineBuilder(pconfig.FrameworkConfig(**_kw(env, **over)),
-                                      env["bam"], outdir="unused")
-    with pytest.raises(pwf.WorkflowError, match=rf"ROADMAP queue 1, item {item}\b"):
-        builder.build()
+    """indel_policy 'align' builds and runs to the JAX package's target and
+    intermediate; an unknown policy still raises at build time."""
+    policy = INDEL_POLICY[key]
+    builder = pstages.PipelineBuilder(
+        pconfig.FrameworkConfig(**_kw(env, indel_policy=policy)), env["bam"],
+        outdir=str(env["tmp"] / f"port_build_{policy}"))
+    if policy != "align":
+        with pytest.raises(pwf.WorkflowError, match="unknown indel_policy 'realign'"):
+            builder.build()
+        return
+    builder.build()
+    target, outdir, _results, _stats = port_run(env, "indel_align", indel_policy="align")
+    jtarget, joutdir = jax_run(env, "indel_align", indel_policy="align")
+    assert_same_bam(target, jtarget)
+    assert_same_bam(os.path.join(outdir, "sampleX" + INTERMEDIATE),
+                    os.path.join(joutdir, "sampleX" + INTERMEDIATE))
 
 
 def test_auto_grouping_on_rx_only_input_prepends_the_group_rule(tmp_path):
@@ -448,8 +460,11 @@ def test_auto_grouping_on_rx_only_input_prepends_the_group_rule(tmp_path):
 
 def test_calling_refuses_the_routes_the_port_lacks(env):
     with pbam.BamReader(env["bam"]) as r:
-        with pytest.raises(ValueError, match=r"item 7\b"):
-            next(pcalling.call_molecular_batches(r, device="cpu", indel_policy="align"))
+        with pytest.raises(ValueError, match="unknown indel_policy 'realign'"):
+            next(pcalling.call_molecular_batches(r, device="cpu", indel_policy="realign"))
+        with pytest.raises(ValueError, match="unknown indel_policy 'realign'"):
+            pcalling.check_route("auto", "realign")
+        pcalling.check_route("auto", "align")  # the JAX package's policy runs
         # the wire needs the genome on the device: no refstore, no wire
         with pytest.raises(ValueError, match="needs a refstore"):
             next(pcalling.call_duplex_batches(r, None, [], device="cpu", transport="wire"))

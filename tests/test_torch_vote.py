@@ -358,7 +358,12 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors_and_count_nothing():
     fb, fq = cuda_vote.vote_finalize(ll, depth, tp)
     torch.testing.assert_close(fb, want["base"].reshape(-1, 32), rtol=0, atol=0)
     torch.testing.assert_close(fq, want["qual"].reshape(-1, 32), rtol=0, atol=0)
-    assert cuda_vote.LAUNCHES == {"seg_vote": 0, "vote_finalize": 0}
+    # the partials mode: the plain in-order sums, the counts and the depth
+    pll, pcnt, pdepth = cuda_vote.seg_vote_partials(b, q, off, tp)
+    torch.testing.assert_close(pll, want["ll"], rtol=0, atol=0)
+    torch.testing.assert_close(pdepth.to(torch.int16), want["depth"], rtol=0, atol=0)
+    assert torch.equal(pcnt.sum(-1).to(torch.int32), pdepth)
+    assert cuda_vote.LAUNCHES == {"seg_vote": 0, "seg_vote_partials": 0, "vote_finalize": 0}
     # a tensor that is neither on the CPU nor on the card is refused, not
     # silently voted on the host
     with pytest.raises(ValueError, match="CPU or CUDA"):
