@@ -24,6 +24,18 @@ card:
               fallback); JSON on stdout
 * filter-consensus — fgbio FilterConsensusReads equivalent
               (pipeline.filter); FilterStats JSON on stderr
+* serve     — the resident engine (serve/): jobs over unix / TCP
+              addresses share device batches, each job's bytes those of
+              a standalone `molecular --batching sequential`; SIGTERM
+              drains
+* route     — N serve replicas of this package behind one router
+              (placement, requeue on a replica's death, drain)
+* submit / serve-ctl — the protocol's client and operator halves
+
+With BSSEQ_TPU_STATS set (a path, or '-' for stderr) run, molecular,
+duplex, serve and route write the JAX package's run ledger
+(utils.observe); BSSEQ_TPU_COMPILE_CACHE_DIR points the kernel builds at a
+shared directory (utils.compilecache).
 
 `run` takes a grouped BAM or a raw aligned one (RX, no MI): with the
 default group_umis 'auto' the latter is grouped first. duplex
@@ -69,6 +81,7 @@ import json
 import sys
 
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 
 def _add_params(p: argparse.ArgumentParser, min_reads_default: int) -> None:
@@ -163,6 +176,7 @@ def cmd_molecular(args) -> int:
     )
 
     _arm_failpoints(args)
+    observe.open_ledger(component="molecular-cli")
     stats = StageStats(stage="molecular")
     g = _guard.Guard.from_env(stats)
     try:
@@ -190,6 +204,8 @@ def cmd_molecular(args) -> int:
                                metrics=stats.metrics)
     finally:
         g.close()
+    observe.emit_stage_stats({"molecular": stats})
+    observe.flush_sinks()
     print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 
@@ -208,6 +224,7 @@ def cmd_duplex(args) -> int:
     )
 
     _arm_failpoints(args)
+    observe.open_ledger(component="duplex-cli")
     stats = StageStats(stage="duplex")
     methyl_acc = None
     store = args.reference  # the FASTA path; loaded only if the wire engages
@@ -258,6 +275,8 @@ def cmd_duplex(args) -> int:
     if methyl_acc is not None:
         report = methyl_acc.finalize()
         print(json.dumps({"methyl": report}), file=sys.stderr)
+    observe.emit_stage_stats({"duplex": stats})
+    observe.flush_sinks()
     print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
 
@@ -453,6 +472,204 @@ def cmd_filter_mapped(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The resident consensus engine (serve/): the card's kernels, tables
+    and pools stay warm across jobs submitted over unix / TCP addresses
+    (`submit`); families from different jobs share device batches and are
+    demultiplexed at retire, so each job's output is byte-identical to a
+    standalone `molecular --batching sequential` run. SIGTERM/SIGINT
+    drain: admitted jobs finish, then the process exits 0."""
+    import signal
+
+    from bsseqconsensusreads_tpu_torch.serve.server import ServeEngine, ServeServer
+
+    if not args.socket and not args.address:
+        observe.stderr_line("serve: need --socket and/or --address")
+        return 2
+    _arm_failpoints(args)
+    observe.open_ledger(component="serve")
+    observe.install_flight_signal()  # SIGUSR1 -> dump the recent events
+    engine = ServeEngine(
+        params=_params(args),
+        mode=args.mode,
+        batch_families=args.batch_families,
+        max_window=args.max_window,
+        grouping=args.grouping,
+        indel_policy=args.indel_policy,
+        device=args.device,
+        transport=args.transport,
+        max_active=args.max_active,
+        stride=args.stride,
+        idle_wait_s=args.idle_flush_ms / 1000.0,
+        max_pending=args.max_pending,
+    )
+    if args.warmup:
+        engine.warmup()
+    engine.start()
+    server = ServeServer(
+        engine,
+        args.socket or None,
+        addresses=args.address or None,
+        ready_file=args.ready_file or None,
+    )
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: server.request_drain())
+    server.serve_forever()
+    observe.emit_stage_stats({"serve-cli": engine.scheduler.stats})
+    observe.flush_sinks()
+    states: dict[str, int] = {}
+    for j in engine.queue.jobs():
+        states[j.state] = states.get(j.state, 0) + 1
+    observe.stderr_line(json.dumps({"jobs": states, **engine.scheduler.counters()}))
+    return 0
+
+
+def cmd_route(args) -> int:
+    """The fleet router (serve/router + serve/fleet): N serve replicas of
+    this package (spawned on kernel-assigned TCP ports, or attached with
+    --replica-address) behind the same serve protocol one replica speaks.
+    Placement is input-fingerprint affinity first, queue depth otherwise;
+    a replica dying mid-job has its unfinished jobs requeued to survivors
+    (byte-identical: jobs are idempotent) and is respawned, loading the
+    shared kernel builds (BSSEQ_TPU_COMPILE_CACHE_DIR). SIGTERM/SIGINT
+    drain the whole fleet."""
+    import os
+    import signal
+
+    from bsseqconsensusreads_tpu_torch.serve.fleet import ReplicaSet
+    from bsseqconsensusreads_tpu_torch.serve.router import Router, RouterServer
+
+    if not args.socket and not args.address:
+        observe.stderr_line("route: need --socket and/or --address")
+        return 2
+    _arm_failpoints(args)
+    observe.open_ledger(component="route")
+    observe.install_flight_signal()
+    serve_args = [
+        "--batch-families", str(args.batch_families),
+        "--max-active", str(args.max_active),
+        "--stride", str(args.stride),
+        "--idle-flush-ms", str(args.idle_flush_ms),
+        "--max-pending", str(args.max_pending),
+        "--min-reads", str(args.min_reads),
+        "--device", args.device,
+    ]
+    if args.warmup:
+        serve_args.append("--warmup")
+    fail_once: dict[str, str] = {}
+    for term in args.replica_failpoints:
+        rid, sep, schedule = term.partition(":")
+        if not sep or not rid or not schedule:
+            observe.stderr_line(f"route: bad --replica-failpoints {term!r} (want rid:schedule)")
+            return 2
+        fail_once[rid] = schedule
+    fleet = ReplicaSet(
+        n=args.replicas,
+        host=args.replica_host,
+        rundir=args.rundir or None,
+        serve_args=serve_args,
+        attach_addresses=args.replica_address or None,
+        compile_cache_dir=os.environ.get("BSSEQ_TPU_COMPILE_CACHE_DIR") or None,
+        fail_once=fail_once,
+    )
+    router = Router(fleet, affinity=not args.no_affinity, respawn=not args.no_respawn)
+    try:
+        router.launch()
+    except Exception as exc:  # a dead fleet at boot is an exit, not a hang
+        observe.stderr_line(f"route: fleet failed to start: {exc}")
+        fleet.stop(drain_timeout=5.0)
+        return 2
+    server = RouterServer(
+        router,
+        args.socket or None,
+        addresses=args.address or None,
+        ready_file=args.ready_file or None,
+    )
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: server.request_drain())
+    server.serve_forever()
+    observe.flush_sinks()
+    observe.stderr_line(json.dumps(router.counters))
+    return 0
+
+
+def cmd_submit(args) -> int:
+    """Client half of the serve protocol: submit one BAM job to a running
+    serve engine or router; --wait blocks until the job retires and exits
+    non-zero if it failed. An `overloaded` refusal is retried after its
+    retry_after_s hint until --timeout."""
+    import time
+
+    from bsseqconsensusreads_tpu_torch.serve.server import request
+
+    spec = {
+        "input": args.input,
+        "output": args.output,
+        "policy": args.policy or None,
+        "grouping": args.grouping or None,
+        "ingest": args.ingest,
+        "chemistry": args.chemistry or None,
+    }
+    try:
+        deadline = time.monotonic() + args.timeout
+        while True:
+            resp = request(args.socket, {"op": "submit", "spec": spec})
+            if resp.get("ok") or resp.get("guard") != "overloaded":
+                break
+            delay = min(2.0, max(0.05, float(resp.get("retry_after_s") or 0.1)))
+            if time.monotonic() + delay >= deadline:
+                break
+            time.sleep(delay)
+        if not resp.get("ok"):
+            observe.stderr_line(f"submit refused: {resp.get('error')}")
+            return 3
+        job = resp["job"]
+        if args.wait:
+            resp = request(
+                args.socket,
+                {"op": "wait", "job": job["id"], "timeout": args.timeout},
+                timeout=args.timeout + 30.0,
+            )
+            job = resp.get("job", job)
+    except OSError as exc:
+        observe.stderr_line(f"submit: cannot reach {args.socket}: {exc}")
+        return 2
+    print(json.dumps(job))
+    if args.wait:
+        return 0 if job.get("state") == "done" else 1
+    return 0
+
+
+def cmd_serve_ctl(args) -> int:
+    """Operator half of the serve protocol: ping / stats / status / drain /
+    preempt against a running engine or router."""
+    import time
+
+    from bsseqconsensusreads_tpu_torch.serve.server import request
+
+    payload: dict = {"op": args.op}
+    if args.op == "status":
+        if not args.job:
+            observe.stderr_line("serve-ctl status needs --job")
+            return 2
+        payload["job"] = args.job
+    if args.op == "drain":
+        payload["timeout"] = args.timeout
+        payload["sent_s"] = time.time()
+    if args.op == "preempt":
+        if not args.replica:
+            observe.stderr_line("serve-ctl preempt needs --replica")
+            return 2
+        payload["replica"] = args.replica
+    try:
+        resp = request(args.socket, payload, timeout=args.timeout + 30.0)
+    except OSError as exc:
+        observe.stderr_line(f"serve-ctl: cannot reach {args.socket}: {exc}")
+        return 2
+    print(json.dumps(resp))
+    return 0 if resp.get("ok") else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="bsseqconsensusreads_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -641,15 +858,117 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-o", "--output", required=True)
     p.set_defaults(fn=cmd_filter_mapped)
 
+    p = sub.add_parser(
+        "serve",
+        help="resident consensus engine: warm kernels across jobs, cross-job "
+        "continuous batching, unix-socket/TCP submit protocol",
+    )
+    p.add_argument("--socket", default="",
+                   help="unix socket path (optional when --address is given)")
+    p.add_argument(
+        "--address", action="append", default=[],
+        help="additional listen address (repeatable): unix:<path> or tcp:host:port "
+        "(port 0 = kernel-assigned; TLS via BSSEQ_TPU_SERVE_TLS_CERT/KEY)",
+    )
+    p.add_argument("--ready-file", default="",
+                   help="write resolved bound addresses here once listening "
+                   "(the fleet supervisor's ready protocol)")
+    p.add_argument("--mode", choices=("unaligned", "self"), default="unaligned")
+    p.add_argument("--indel-policy", choices=("drop", "align"), default="drop")
+    p.add_argument("--max-active", type=int, default=4,
+                   help="jobs ingesting concurrently (each holds one reader thread)")
+    p.add_argument("--stride", type=int, default=8,
+                   help="families pulled per job per round-robin pass")
+    p.add_argument("--idle-flush-ms", type=float, default=20.0,
+                   help="idle wait before a partial chunk is flushed to the device "
+                   "(continuous batching: latency under low load)")
+    p.add_argument("--max-pending", type=int, default=64,
+                   help="bounded admission queue depth (submits beyond it block)")
+    p.add_argument("--warmup", action="store_true",
+                   help="build and launch the kernels on a synthetic family before "
+                   "accepting jobs")
+    _add_params(p, min_reads_default=1)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "route",
+        help="fleet router: N serve replicas behind affinity placement, "
+        "drain/handoff, shared kernel build cache",
+    )
+    p.add_argument("--socket", default="", help="router unix socket path")
+    p.add_argument("--address", action="append", default=[],
+                   help="router listen address (repeatable): unix:<path> or tcp:host:port")
+    p.add_argument("--ready-file", default="",
+                   help="write the router's bound addresses here once listening")
+    p.add_argument("--replicas", type=int, default=2, help="serve replicas to spawn on this host")
+    p.add_argument("--replica-host", default="127.0.0.1")
+    p.add_argument("--replica-address", action="append", default=[],
+                   help="attach to an already-running replica at tcp:host:port instead "
+                   "of spawning (repeatable)")
+    p.add_argument("--replica-failpoints", action="append", default=[],
+                   help="rid:schedule — arm BSSEQ_TPU_FAILPOINTS in ONE replica's first "
+                   "life (r0:fleet_replica_exit=exit:9@batch=1)")
+    p.add_argument("--no-respawn", action="store_true",
+                   help="do not restart dead replicas (requeue-only handoff)")
+    p.add_argument("--no-affinity", action="store_true", help="place purely by queue depth")
+    p.add_argument("--rundir", default="",
+                   help="supervision scratch dir (ready files; default under TMPDIR)")
+    p.add_argument("--batch-families", type=int, default=64)
+    p.add_argument("--max-active", type=int, default=4)
+    p.add_argument("--stride", type=int, default=8)
+    p.add_argument("--idle-flush-ms", type=float, default=20.0)
+    p.add_argument("--max-pending", type=int, default=64)
+    p.add_argument("--min-reads", type=int, default=1)
+    p.add_argument("--warmup", action="store_true",
+                   help="each replica builds and launches the kernels before accepting jobs")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the replicas' vote runs (default: the card)")
+    _add_failpoints(p)
+    p.set_defaults(fn=cmd_route)
+
+    p = sub.add_parser(
+        "submit", help="submit one BAM job to a running serve engine or router "
+        "(--socket accepts unix paths and tcp:host:port)")
+    p.add_argument("--socket", required=True)
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--policy", choices=("strict", "quarantine", "lenient", "off"), default="",
+                   help="input guard policy for THIS job's ingest (default: the server's "
+                   "BSSEQ_TPU_INPUT_POLICY)")
+    p.add_argument("--grouping", choices=("gather", "adjacent", "coordinate"), default="",
+                   help="MI-group streaming strategy (default: the server's)")
+    p.add_argument("--ingest", choices=("auto", "native", "python"), default="python")
+    p.add_argument("--chemistry", choices=("bisulfite", "emseq", "none"), default="",
+                   help="THIS job's library chemistry (admission validation and "
+                   "provenance: the molecular stage is chemistry-invariant)")
+    p.add_argument("--wait", action="store_true", help="block until done")
+    p.add_argument("--timeout", type=float, default=600.0)
+    p.set_defaults(fn=cmd_submit)
+
+    p = sub.add_parser("serve-ctl",
+                       help="ping/stats/status/drain/preempt a running serve engine or router")
+    p.add_argument("op", choices=("ping", "stats", "status", "drain", "preempt"))
+    p.add_argument("--socket", required=True)
+    p.add_argument("--job", default="")
+    p.add_argument("--replica", default="",
+                   help="replica id for `preempt`: drain one router replica — migrate "
+                   "its jobs to survivors, then reap it")
+    p.add_argument("--timeout", type=float, default=600.0)
+    p.set_defaults(fn=cmd_serve_ctl)
+
     args = ap.parse_args(argv)
     from bsseqconsensusreads_tpu_torch.faults.guard import GuardError
+    from bsseqconsensusreads_tpu_torch.utils import compilecache
 
+    compilecache.maybe_enable()  # BSSEQ_TPU_COMPILE_CACHE_DIR, if set
     try:
         return args.fn(args)
     except GuardError as e:
         # a typed input failure (strict policy, a refused checkpoint
         # resume): its message already carries record #N / block @voffset,
-        # and a traceback would read as a crash
+        # and a traceback would read as a crash; the flight ring is dumped
+        # to the ledger first (nothing without a sink)
+        observe.flight_dump(f"guard_error:{e.reason}")
         print(f"bsseqconsensusreads_tpu_torch: input error [{e.reason}]: {e}",
               file=sys.stderr, flush=True)
         return 3

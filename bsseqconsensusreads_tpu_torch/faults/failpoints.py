@@ -19,8 +19,7 @@ Actions
 
 Network actions (net_send / net_recv / net_accept sites ONLY — they do
 not raise; the transport shim in faults/netchaos.py interprets them
-via `evaluate()`; the port parses them — its transport is a later
-slice, ROADMAP queue 1 item 9):
+via `evaluate()`, and serve/transport.py and serve/server.py enact them):
     delay[:<dur>s]      sleep before the wire op (default 0.2s)
     drop                close the connection without sending the frame
     dup                 deliver the same frame twice (a second identical
@@ -58,7 +57,7 @@ Examples:
 Zero-cost when unarmed: `fire()` returns immediately on a module-level
 flag, and per-block hot paths (io.bgzf) additionally guard on `ARMED`
 before building the call. Every fired failpoint is counted
-(`fired_counts`).
+(`fired_counts`) and ledgered ('failpoint_fired', utils.observe).
 """
 
 from __future__ import annotations
@@ -69,6 +68,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from random import Random
+
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 
 ENV_FLAG = "BSSEQ_TPU_FAILPOINTS"
@@ -365,6 +366,11 @@ def fired_counts() -> dict[str, int]:
         return dict(_FIRED)
 
 
+def fired_total() -> int:
+    with _LOCK:
+        return sum(_FIRED.values())
+
+
 def evaluate(site: str, **ctx) -> list[FailPoint]:
     """Evaluate the armed schedule at one site WITHOUT acting: every
     matching failpoint is counted and ledgered ('failpoint_fired', with
@@ -380,6 +386,11 @@ def evaluate(site: str, **ctx) -> list[FailPoint]:
             if fp.site == site and fp.should_fire(ctx):
                 _FIRED[site] = _FIRED.get(site, 0) + 1
                 to_run.append(fp)
+    for fp in to_run:
+        observe.emit("failpoint_fired", {
+            "site": site, "action": fp.action, "spec": fp.spec,
+            **{k: v for k, v in ctx.items() if k in ("batch", "stage", "job", "peer")},
+        })
     return to_run
 
 
@@ -404,7 +415,9 @@ def _act(fp: FailPoint, site: str) -> None:
         time.sleep(fp.duration_s)
         return
     if fp.action == "exit":
-        # a hard crash: no cleanup, but what was printed stays printed
+        # a hard crash: no cleanup, but the flight ring is dumped and
+        # what was printed or ledgered stays
+        observe.flight_dump(f"failpoint:{site}")
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(fp.exit_code)

@@ -397,9 +397,12 @@ class Guard:
 
     def __init__(self, policy: str | None = None, stats=None,
                  max_family_records: int | None = None,
-                 max_read_len: int | None = None):
+                 max_read_len: int | None = None,
+                 job: str | None = None):
         self.policy = resolve_policy(policy)
         self.stats = stats
+        #: a serve tenant's guard tags its ledger events with the job id
+        self.job = job
         self.max_family_records = (
             max_family_records
             if max_family_records is not None
@@ -468,7 +471,7 @@ class Guard:
     def _emit(self, event: str, payload: dict) -> None:
         if self._event_budget > 0:
             self._event_budget -= 1
-            observe.event(event, payload)
+            observe.event(event, payload, job=self.job)
         else:
             self._events_dropped += 1
 

@@ -5,7 +5,8 @@ MI grouper, the encode scans and fills, the k-way run merge) and
 io.wirepack (libbsseq_wirepack: the batch record emit, the raw-record
 sort, the duplex rawize and strand calls) share this scaffold. Each
 library compiles with g++ from the port's own sources in csrc/host/ into
-build/torch_kernels/ at first use, with the flags of the JAX package's
+build/torch_kernels/ (or BSSEQ_TPU_COMPILE_CACHE_DIR, utils.compilecache)
+at first use, with the flags of the JAX package's
 native/Makefile, and is rebuilt when its source or flags change (a sha256
 stamp beside it). The build holds a file lock, so concurrent first uses
 in several processes build once, and lands by tmp file + os.replace, so
@@ -32,6 +33,8 @@ import threading
 from dataclasses import dataclass
 from pathlib import Path
 
+from bsseqconsensusreads_tpu_torch.utils import compilecache
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc" / "host"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -55,7 +58,7 @@ class HostLibrary:
 
     @property
     def path(self) -> Path:
-        return BUILD_DIR / self.library
+        return compilecache.build_dir(BUILD_DIR) / self.library
 
 
 LIBRARIES = {
@@ -102,11 +105,13 @@ def build(name: str, force: bool = False) -> Path:
                 and stamp.read_text() == digest)
 
     if fresh():
+        compilecache.record(hit=True)
         return lib.path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.path.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.path.with_name(lib.path.name + ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if fresh():  # another process built it while this one waited
+            compilecache.record(hit=True)
             return lib.path
         if shutil.which(COMPILER) is None:
             raise NativeLibraryError(
@@ -122,6 +127,7 @@ def build(name: str, force: bool = False) -> Path:
         stamp_tmp = stamp.with_name(f"{stamp.name}.{os.getpid()}.tmp")
         stamp_tmp.write_text(digest)
         os.replace(stamp_tmp, stamp)
+    compilecache.record(hit=False)
     return lib.path
 
 

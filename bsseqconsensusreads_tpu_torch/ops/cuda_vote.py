@@ -3,8 +3,9 @@ plain PyTorch versions.
 
 Replaces the JAX package's ops/pallas_vote.py (its only two Pallas
 kernels). The CUDA source is csrc/vote.cu; it is compiled by nvcc for
-sm_90a into build/torch_kernels/libbsseq_vote.so at first use, from the
-sources in this checkout alone, and bound with ctypes.
+sm_90a into build/torch_kernels/libbsseq_vote.so (or the directory
+BSSEQ_TPU_COMPILE_CACHE_DIR names: utils.compilecache) at first use, from
+the sources in this checkout alone, and bound with ctypes.
 
 * seg_vote — the fused segmented column vote. Counterpart of _vote_kernel
   (column_vote_groups; pallas_call at ops/pallas_vote.py:277) and of
@@ -59,6 +60,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -70,6 +72,7 @@ import torch
 
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.ops import phred
+from bsseqconsensusreads_tpu_torch.utils import compilecache
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "vote.cu"
@@ -119,27 +122,43 @@ def _nvcc() -> str:
 def build(verbose: bool = False, debug: bool = False) -> Path:
     """Compile csrc/vote.cu into LIBRARY (DEBUG_LIBRARY with DEBUG_FLAGS
     when `debug`) unless a build of the same source and flags is already
-    there. Returns the library path."""
-    library = DEBUG_LIBRARY if debug else LIBRARY
+    there. Returns the library path. With BSSEQ_TPU_COMPILE_CACHE_DIR set
+    the library lives there (utils.compilecache: a found build counts as a
+    hit, an nvcc run as a miss); the build holds a file lock, so processes
+    that start together compile once."""
+    library = compilecache.build_dir(BUILD_DIR) / (DEBUG_LIBRARY if debug else LIBRARY).name
     flags = NVCC_FLAGS + (DEBUG_FLAGS if debug else ())
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     stamp = library.with_name(library.name + ".sha256")
-    if library.exists() and stamp.exists() and stamp.read_text() == digest:
+
+    def fresh() -> bool:
+        return library.exists() and stamp.exists() and stamp.read_text() == digest
+
+    if fresh():
+        compilecache.record(hit=True)
         return library
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
-    os.replace(tmp, library)
-    stamp.write_text(digest)
+    library.parent.mkdir(parents=True, exist_ok=True)
+    with open(library.with_name(library.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if fresh():  # another process built it while this one waited
+            compilecache.record(hit=True)
+            return library
+        tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), str(SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        if verbose and proc.stderr:
+            print(proc.stderr, end="")
+        os.replace(tmp, library)
+        stamp_tmp = stamp.with_name(f"{stamp.name}.{os.getpid()}.tmp")
+        stamp_tmp.write_text(digest)
+        os.replace(stamp_tmp, stamp)
+    compilecache.record(hit=False)
     return library
 
 

@@ -39,6 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
 from bsseqconsensusreads_tpu_torch.faults import retry as _faultretry
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 ENV_WORKERS = "BSSEQ_TPU_HOST_WORKERS"
 
@@ -114,8 +115,16 @@ class HostPool:
 def make_pool(metrics=None, stage: str = "") -> HostPool | None:
     """A HostPool per `host_workers()`, or None when disabled (0
     workers). Either way the stage's `host_pool_workers` counter says
-    how many workers its host phases had (0 when inline)."""
+    how many workers its host phases had (0 when inline), and the ledger
+    says so ('host_pool_enabled' with the count, or 'host_pool_disabled'
+    with the reason)."""
     n = host_workers()
     if metrics is not None:
         metrics.count("host_pool_workers", n)
-    return HostPool(n, metrics, stage) if n > 0 else None
+    if n <= 0:
+        reason = (f"{ENV_WORKERS} explicit disable" if os.environ.get(ENV_WORKERS) is not None
+                  else "single-core host: no idle core for host workers")
+        observe.emit("host_pool_disabled", {"stage": stage, "reason": reason})
+        return None
+    observe.emit("host_pool_enabled", {"stage": stage, "workers": n})
+    return HostPool(n, metrics, stage)

@@ -178,7 +178,7 @@ from bsseqconsensusreads_tpu_torch.parallel import hostpool as _hostpool
 from bsseqconsensusreads_tpu_torch.parallel import sharding as _sharding
 from bsseqconsensusreads_tpu_torch.parallel.deep_family import deep_family_consensus
 from bsseqconsensusreads_tpu_torch.parallel.mesh import make_mesh, pad_families
-from bsseqconsensusreads_tpu_torch.utils import observe
+from bsseqconsensusreads_tpu_torch.utils import compilecache, observe
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
 from bsseqconsensusreads_tpu_torch.utils.oracle import oracle_convert_read
@@ -279,6 +279,35 @@ class StageStats:
         }
 
 
+#: Batch-composition flush sentinel: a GroupSource may interleave this
+#: between families to cut the chunk under composition at once (the serve
+#: scheduler's continuous-batching flush — resident families retire on an
+#: idle queue instead of waiting for a full chunk). The batchers consume
+#: it; it never reaches encode. In sequential batching a flush on an EMPTY
+#: buffer yields an empty chunk — a sync barrier whose "now" event drains
+#: the deferred retires, and which the host pool's prefetch does not look
+#: past (_hp_prefetch).
+FLUSH_BATCH = object()
+
+
+class GroupSource:
+    """A pre-grouped batch-composition source: an iterable of (mi, records)
+    families, optionally interleaved with FLUSH_BATCH sentinels.
+    stream_mi_groups passes it through ungrouped, so one engine call can be
+    fed families composed outside it — the serve scheduler's multi-job
+    source, which tags each family's mi with its job (serve.scheduler
+    .JobMi, a str subclass: the same bytes on the wire and in the emitted
+    qname, its job read back at the retire)."""
+
+    __slots__ = ("groups",)
+
+    def __init__(self, groups: Iterable):
+        self.groups = groups
+
+    def __iter__(self):
+        return iter(self.groups)
+
+
 def stream_mi_groups(
     records: Iterable[BamRecord],
     strip_suffix: bool = False,
@@ -306,8 +335,15 @@ def stream_mi_groups(
     same groups in the same order as this function's 'coordinate' or
     'adjacent' mode) delegates straight through; its grouping,
     strip_suffix and, in 'coordinate' mode, flush_margin must match this
-    call's.
+    call's. A GroupSource passes straight through (its records still count
+    in records_in).
     """
+    if isinstance(records, GroupSource):
+        for item in records:
+            if item is not FLUSH_BATCH and stats is not None:
+                stats.records_in += len(item[1])
+            yield item
+        return
     iter_groups = getattr(records, "iter_groups", None)
     if iter_groups is not None:
         if records.grouping != grouping:
@@ -424,6 +460,12 @@ def _timed_groups(groups, metrics: Metrics):
 def _group_batches(groups, size: int):
     buf: list = []
     for g in groups:
+        if g is FLUSH_BATCH:
+            # cut the partial chunk now; on an empty buffer, an empty
+            # chunk: the sync barrier that drains the deferred retires
+            yield buf
+            buf = []
+            continue
         buf.append(g)
         if len(buf) >= size:
             yield buf
@@ -455,11 +497,17 @@ def _group_batches_bucketed(groups, size: int, indel_policy: str = "drop"):
     kept-qname count) and a chunk is emitted when its bucket fills (at
     `size` families or size*8 records), remaining buckets in bucket order
     at the end — the JAX package's chunk composition, so both packages cut
-    identical batches."""
+    identical batches. FLUSH_BATCH cuts every open bucket, in bucket
+    order."""
     pending: dict[int, list] = {}
     counts: dict[int, int] = {}
     max_records = size * 8
     for g in groups:
+        if g is FLUSH_BATCH:
+            for b in sorted(pending):
+                yield pending.pop(b)
+                counts.pop(b)
+            continue
         if scan_matches(g, indel_policy):  # the C scan counted the templates
             n_tpl, n_rec = g.ntpl_est, g.n
         else:
@@ -716,20 +764,32 @@ def _make_overlap_pool(device: torch.device, stats: "StageStats", sharded: bool 
     """The overlap workers, or None when the stage has none (the CPU, an
     explicit disable, or the sharded mesh route, which launches every
     shard on the mesh's own streams from the dispatching thread). A
-    disabled pool is loud: the stage counts 'overlap_pool_disabled'; an
-    enabled one counts 'overlap_pool_workers'. With the round-robin wire
-    the workers are raised to at least its device count, so each device
-    keeps a batch in flight ('overlap_rr_composed')."""
+    disabled pool is loud: the stage counts 'overlap_pool_disabled' and
+    ledgers the reason; an enabled one counts 'overlap_pool_workers'
+    ('overlap_pool_enabled'). With the round-robin wire the workers are
+    raised to at least its device count, so each device keeps a batch in
+    flight ('overlap_rr_composed', 'overlap_pool_composed')."""
+    stage = stats.stage
     n = 0 if sharded else _overlap_workers(device)
     if n <= 0:
         stats.metrics.count("overlap_pool_disabled")
+        if sharded:
+            reason = "sharded mesh path pipelines by device count"
+        elif os.environ.get("BSSEQ_TPU_OVERLAP_THREADS") is not None:
+            reason = "BSSEQ_TPU_OVERLAP_THREADS explicit disable"
+        else:
+            reason = "host backend: no device waits to hide"
+        observe.emit("overlap_pool_disabled", {"stage": stage, "reason": reason})
         return None
     devices = ()
     if wire_rr is not None:
         n = max(n, len(wire_rr))
         devices = [dev for _slot, dev in wire_rr.slots]
         stats.metrics.count("overlap_rr_composed")
+        observe.emit("overlap_pool_composed",
+                     {"stage": stage, "workers": n, "devices": len(wire_rr)})
     stats.metrics.count("overlap_pool_workers", n)
+    observe.emit("overlap_pool_enabled", {"stage": stage, "workers": n})
     return _OverlapPool(n, device, devices)
 
 
@@ -786,7 +846,7 @@ def _hp_stats_merge(dst: "StageStats", src: "StageStats") -> None:
         setattr(dst, name, getattr(dst, name) + getattr(src, name))
 
 
-def _hp_prefetch(items, pool, task_fn):
+def _hp_prefetch(items, pool, task_fn, barrier=None):
     """Double-buffered host-pool map: task_fn(item N+1) runs on a worker
     while the caller consumes task_fn(item N)'s result. Results yield in
     input order, and at most one task is in flight: task N+1 is submitted
@@ -794,10 +854,24 @@ def _hp_prefetch(items, pool, task_fn):
     seek + read) never has two callers. The JAX package's _hp_prefetch
     submits task N+1 before it joins task N, so two encodes can overlap
     there (ROADMAP queue 3). `items` is pulled on the caller's thread, so
-    record ingest stays on the dispatch thread."""
+    record ingest stays on the dispatch thread.
+
+    An item for which `barrier(item)` holds (the serve source's empty sync
+    chunk) is not looked past: the pending result and the barrier's own
+    (run on the caller's thread) yield before the next item is pulled, so
+    a source that waits for its retires (serve.scheduler) is never asked
+    for more while one of its chunks sits in the prefetch. The JAX
+    package's prefetch pulls past it, and its serve engine does not drain
+    with host workers on (ROADMAP queue 3)."""
     pending = None
     try:
         for item in items:
+            if barrier is not None and barrier(item):
+                if pending is not None:
+                    fut, pending = pending, None
+                    yield fut.result()
+                yield task_fn(item)
+                continue
             if pending is None:
                 pending = pool.submit(task_fn, item)
                 continue
@@ -1614,7 +1688,7 @@ def call_molecular_batches(
 
     def events():
         encoded = (
-            _hp_prefetch(numbered_chunks(), hpool, encode_chunk)
+            _hp_prefetch(numbered_chunks(), hpool, encode_chunk, barrier=lambda it: not it[1])
             if hpool is not None else map(encode_chunk, numbered_chunks())
         )
         for batch_index, batch, skipped, deep in encoded:
@@ -1648,6 +1722,7 @@ def call_molecular_batches(
         if hpool is not None:
             hpool.shutdown()
     stats.wall_seconds += time.monotonic() - t0
+    compilecache.publish(stats.metrics)
 
 
 def _duplex_sidecar(chunk, pos0: str = "skip") -> dict:
@@ -2619,3 +2694,4 @@ def call_duplex_batches(
         if hpool is not None:
             hpool.shutdown()
     stats.wall_seconds += time.monotonic() - t0
+    compilecache.publish(stats.metrics)

@@ -71,10 +71,11 @@ two-pass rule and the fused rule) and the molecular ingest's C scan; an
 unknown policy or transport raises a WorkflowError in
 PipelineBuilder.build(), before any stage runs.
 
-Left for later slices: the run ledger (observe.open_ledger,
-emit_stage_stats, BSSEQ_TPU_STATS) and the traces (item 9). The JAX
-package's compilecache has no counterpart: the port compiles its
-kernels once per build directory.
+With BSSEQ_TPU_STATS set, run_pipeline writes the JAX package's run
+ledger (utils.observe): a run_manifest line, one rule_complete line per
+rule, one stage_stats line per stage and a closing pipeline_complete
+line. BSSEQ_TPU_COMPILE_CACHE_DIR points the kernel builds at a shared
+directory (utils.compilecache).
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ from __future__ import annotations
 import os
 import shlex
 import subprocess
+import time
 
 from bsseqconsensusreads_tpu_torch.config import FrameworkConfig, check_backend
 from bsseqconsensusreads_tpu_torch.faults import guard as _guard
@@ -100,7 +102,7 @@ from bsseqconsensusreads_tpu_torch.pipeline.calling import (
 )
 from bsseqconsensusreads_tpu_torch.pipeline.checkpoint import BatchCheckpoint
 from bsseqconsensusreads_tpu_torch.pipeline.workflow import Workflow, WorkflowError
-from bsseqconsensusreads_tpu_torch.utils import observe
+from bsseqconsensusreads_tpu_torch.utils import compilecache, observe
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
 
 INGEST_CHOICES = ("auto", "native", "python")
@@ -912,12 +914,25 @@ def run_pipeline(
 
     The device comes from cfg.backend ('cuda', the default, raises
     without a card; 'cpu' runs the plain PyTorch versions) and is
-    resolved before any rule runs. The JAX package's run ledger
-    (observe.open_ledger, rule_complete / stage_stats /
-    pipeline_complete lines, BSSEQ_TPU_STATS) is ROADMAP queue 1, item 9;
-    its compile cache (utils.compilecache) has no counterpart here."""
+    resolved before any rule runs. With BSSEQ_TPU_STATS set the run
+    writes the JAX package's ledger: a run_manifest line (with the
+    config digest and the sample), one 'rule_complete' line per rule,
+    one 'stage_stats' line per stage and a closing 'pipeline_complete'
+    line whose pipeline_s the rule seconds sum to."""
     device = resolve_device(check_backend(cfg.backend))
+    compilecache.maybe_enable()
     builder = PipelineBuilder(cfg, bam_path, outdir, device=device)
     wf, target = builder.build()
+    observe.open_ledger(config_digest=observe.config_digest(cfg), component="pipeline",
+                        sample=builder.sample)
+    t0 = time.monotonic()
     results = wf.run([target], force=force)
+    pipeline_s = time.monotonic() - t0
+    for r in results:
+        observe.emit("rule_complete", {"rule": r.name, "ran": r.ran,
+                                       "seconds": round(r.seconds, 3), "reason": r.reason})
+    observe.emit_stage_stats(builder.stats, sample=builder.sample)
+    observe.emit("pipeline_complete", {"pipeline_s": round(pipeline_s, 3), "target": target,
+                                       "rules": len(results), "sample": builder.sample})
+    observe.flush_sinks()
     return target, results, builder.stats

@@ -8,6 +8,13 @@ scheme, same records for the same arguments.
 
 from __future__ import annotations
 
+import ctypes
+import fcntl
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 
 from bsseqconsensusreads_tpu_torch.io.bam import BamRecord, CMATCH
@@ -247,3 +254,46 @@ def passthrough_leftovers(records) -> list:
             rec.cigar = [(CHARD_CLIP, 5), (CMATCH, n)]
         out.append(rec)
     return out
+
+
+#: the JAX package's native libraries its reference legs load, and the
+#: modules that cache their load (a failed load is cached per process)
+REFERENCE_NATIVES = {
+    "libbamio.so": "bsseqconsensusreads_tpu.io.native",
+    "libwirepack.so": "bsseqconsensusreads_tpu.io.wirepack",
+}
+
+
+def ensure_reference_natives(repo: str, timeout: float = 180.0) -> None:
+    """Make the JAX package's native/ libraries loadable before a test's
+    reference leg takes them (tests only: this imports nothing of that
+    package). Its loader runs `make -C native <so>`, which writes the
+    library in place, so under pytest-xdist one worker may load a file
+    another worker's linker is still writing ("file too short") and that
+    worker caches the failure for its whole life. Here the build runs
+    under a file lock, each library is loaded until it loads (another
+    process's build may still be writing it; bounded by `timeout`), and
+    a failed load that a reference module cached is cleared, so its next
+    use loads again. Raises RuntimeError when a library never loads."""
+    native = os.path.join(repo, "native")
+    lock_dir = os.path.join(repo, "build", "torch_kernels")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, "reference_natives.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        subprocess.run(["make", "-C", native, *REFERENCE_NATIVES],
+                       capture_output=True, timeout=timeout)
+    deadline = time.monotonic() + timeout
+    for so in REFERENCE_NATIVES:
+        path = os.path.join(native, so)
+        while True:
+            try:
+                ctypes.CDLL(path)
+                break
+            except OSError as exc:
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"{path} does not load: {exc}") from None
+                time.sleep(0.2)
+    for module in REFERENCE_NATIVES.values():
+        mod = sys.modules.get(module)
+        if mod is not None and getattr(mod, "_lib", None) is None:
+            mod._load_error = None

@@ -128,7 +128,7 @@ Phases:
      child process while Phase 3 writes its inputs (awaited before any
      stage is measured):
      a. run_pipeline(FrameworkConfig(filter={"min_reads": [2, 1, 1]}))
-        on raw.bam's families below a quarter of --families (a depth cut
+        on raw.bam's families below an eighth of --families (a depth cut
         for the run's time limit) and the human-scale genome, default
         settings: the
         rules group_reads_by_umi, call_consensus_molecular_tpu,
@@ -160,13 +160,13 @@ Phases:
      every unarmed path must count 0 retried, recovered, degraded and
      stalled batches):
      a. run_pipeline with sort_engine 'bucket' and stream_interstage on
-        Phase 3's families below a quarter of --families (a depth cut for
+        Phase 3's families below an eighth of --families (a depth cut for
         the run's time limit): the one fused rule, its target and molecular
         intermediate equal to 4a's records (@PG aside); bucket_count, the
         rule seconds beside 4a's, peak host RSS; a main path;
      b. the same default `run` in a child process with
         BSSEQ_TPU_HOST_WORKERS=0 and BSSEQ_TPU_OVERLAP_THREADS=0 on Phase
-        3's families below half of --families (a depth cut): the target
+        3's families below a quarter of --families (a depth cut): the target
         equal to 4a's records of those families, per-stage families/s beside 4a's (the pools'
         measured effect on this card);
      c. the failpoint drill at the head's normal families: each schedule
@@ -189,7 +189,8 @@ Phases:
      garbage past the indel), written by a child process beside Phase 3's
      inputs:
      a. run_pipeline(FrameworkConfig(indel_policy="align")) on the card
-        (a main path): families/s per stage, indel_aligned /
+        on its families below a quarter of --families (a depth cut for the
+        run's time limit; a main path): families/s per stage, indel_aligned /
         indel_dropped (their sum must equal the C scan's keep == 2 reads),
         every banded_scores call's (N, L) and the DP's and the host
         traceback's seconds beside the molecular wall, and one call's
@@ -201,10 +202,11 @@ Phases:
      c. the indel head (its deep families carry indel reads) with align
         through both stages on the card and the CPU: SHA-equal.
   9. the multi-device layer on one card (mesh='auto' is one device there):
-     a. Phase 3's input through both stages on make_mesh(n_data=2) over
-        two slots of cuda:0 (two streams), sharded (unpacked) and
-        round-robin (transport 'wire'): every BAM equal to Phase 3's or
-        3w's, every device batch on the mesh route, seg_vote launched on
+     a. Phase 3's families below a quarter of --families (a depth cut
+        for the run's time limit) through both stages on make_mesh(n_data=2)
+        over two slots of cuda:0 (two streams), sharded (unpacked) and
+        round-robin (transport 'wire'): every BAM's records equal to Phase
+        3's or 3w's records of those families, every device batch on the mesh route, seg_vote launched on
         the slots the route uses (per-slot launch counts), families/s,
         stall and idle share beside Phase 3's (a main path);
      b. the head on make_mesh(n_data=1, n_reads=2): the deep families'
@@ -220,10 +222,42 @@ Phases:
         each data slot runs the methyl epilogue on the card; the BAM equal
         to Phase 3's head duplex BAM, bedMethyl and CX to 5c's.
 
+  10. the serving tier (serve/):
+     a. Phase 3's families below a quarter of --families (a depth cut for
+        the run's time limit) split by family into 4 tenant BAMs (a
+        sixteenth of --families each), submitted at once to one in-process
+        ServeEngine(device='cuda', mode 'self', 512 families per batch,
+        max_active 4) after its warmup() — the counts set to 0 just before
+        the submits and read after the last job is done (a main path):
+        every job done, batches_shared_jobs > 0, each tenant's records
+        equal to Phase 3's molecular records of its families, tenant 0
+        sha256-equal to a standalone `molecular --batching sequential` on
+        the card, drain(timeout=60) True, no failpoint fired; aggregate
+        families/s, per-job submit-to-done latency, seg_vote launches by
+        (N, P, W, S), vote_finalize launches, the idle share under
+        torch.profiler, the compile-cache counts, peak host RSS and
+        device memory;
+     b. `serve` in a child process on unix and tcp addresses, on the
+        families of Phase 3's input below 2,000: `submit --wait` over each
+        address sha256-equal to `molecular --batching sequential` on the
+        card and on the CPU; a bogus u32 length answered
+        {"ok": false, "guard": "oversized_frame"}; SIGTERM with two jobs
+        admitted: exit 0 and both jobs' bytes;
+     c. `route --replicas 2` on the card with a shared, empty
+        BSSEQ_TPU_COMPILE_CACHE_DIR (a replica loads the other's kernel
+        build: hit and no miss), r0 armed with
+        fleet_replica_exit=exit:9@batch=2: 4 jobs of 10b's input over tcp,
+        requeued when r0 dies (jobs_requeued >= 1, jobs_routed = 4 +
+        jobs_requeued), every output sha256-equal to 10b's; one client
+        submit under net_send=delay:0.2s and one under dup (admitted
+        once): the same bytes; the respawned r0 hits the cache; the fleet
+        drains and the router exits 0.
+
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a and 9b together), the nvidia-smi
-line, and last {"ok": true, "device": {...}}. Any failed check exits
-non-zero.
+Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b and 10a together), the
+nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
+exits non-zero. `--phases` runs a subset of Phases 4-10 after Phase 3 (a
+short check; the default runs them all).
 """
 
 from __future__ import annotations
@@ -1890,7 +1924,7 @@ def cli_io(argv: list[str]) -> tuple[str, str]:
 def phase6(np, torch, work: str, inputs, phase3_summaries: dict, families: int,
            cpu_families: int) -> dict:
     """The raw-BAM entry: 6a `run` on the raw BAM's families below
-    `families` (a quarter of --families: a depth cut for the run's time
+    `families` (an eighth of --families: a depth cut for the run's time
     limit; the main path: grouping, both consensus stages, the consensus
     filter), 6b the
     raw head through `run` on the card and the CPU with the `group`,
@@ -2178,8 +2212,8 @@ DRILL = (
 def phase7(np, torch, work: str, inputs, cpu_families: int, cut: int) -> dict:
     """The batch engine: 7a the fused rule at Phase 3's families below
     half of `cut`, 7b the inline path in a child process at the families
-    below `cut` (half of --families; both depth cuts for the run's time
-    limit), 7c the failpoint drill and 7d the
+    below `cut` (a quarter of --families; both depth cuts for the run's
+    time limit), 7c the failpoint drill and 7d the
     input guard at the head's families (its deep families set aside, so
     the drill's batch indices are device batches at any --cpu-families).
     Returns the kernels' launches on 7a's main path."""
@@ -2539,17 +2573,19 @@ def banded_launches(torch, n: int, l: int) -> tuple[int, float, float]:
 
 def phase8(np, torch, work: str, inputs, families: int, cpu_families: int) -> dict:
     """Indel recovery: 8a `run` with indel_policy 'align' on the card at
-    --families families with INDEL_RATE indel reads (a main path), 8b the
-    `molecular` stage with --indel-policy drop on the same input, 8c the
-    indel head with align on the card and the CPU. Returns 8a's
-    launches."""
+    the indel input's first `families` families (a depth cut of
+    --families for the run's time limit) with INDEL_RATE indel reads (a
+    main path), 8b the `molecular` stage with --indel-policy drop on the
+    same input, 8c the indel head with align on the card and the CPU.
+    Returns 8a's launches."""
     from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
     from bsseqconsensusreads_tpu_torch.ops import banded, cuda_vote, reconstruct
     from bsseqconsensusreads_tpu_torch.pipeline import stages
 
     fasta, _big, _small, genome = inputs
-    big = os.path.join(work, "indel.bam")
     t0 = time.monotonic()
+    big = family_subset(os.path.join(work, "indel.bam"), os.path.join(work, "cut8", "indel.bam"),
+                        families)
     want_keep2, n_groups = scan_indel_reads(big)
     with_indel = indel_families(families)
     log(f"phase8 input: {families} families, {n_groups} strand families; the C scan's "
@@ -2724,11 +2760,13 @@ def mesh_stage(torch, stage, inp, out, fasta, transport, mesh, tag, ref_summary)
     return summary, counts
 
 
-def phase9(np, torch, work: str, inputs, phase3_summaries, cpu_families: int) -> dict:
-    """The multi-device layer on one card: 9a Phase 3's input through both
-    stages on make_mesh(n_data=2) over MESH_DEVICES, sharded (unpacked)
-    and round-robin (wire), each BAM equal to Phase 3's or 3w's (a main
-    path); 9b the head's deep families on make_mesh(1, 2); 9c two
+def phase9(np, torch, work: str, inputs, phase3_summaries, cpu_families: int,
+           cut: int) -> dict:
+    """The multi-device layer on one card: 9a Phase 3's families below `cut`
+    (a depth cut for the run's time limit) through both stages on
+    make_mesh(n_data=2) over MESH_DEVICES, sharded (unpacked) and
+    round-robin (wire), each BAM equal to Phase 3's or 3w's records of
+    those families (a main path); 9b the head's deep families on make_mesh(1, 2); 9c two
     processes through init_distributed, each voting its share of the
     head; 9d the head's duplex stage with methyl on make_mesh(n_data=2).
     Returns the launches of 9a and 9b."""
@@ -2738,18 +2776,23 @@ def phase9(np, torch, work: str, inputs, phase3_summaries, cpu_families: int) ->
     fasta, big, small, genome = inputs
     p3, p3w = phase3_summaries
     launches: dict = {}
+    t0 = time.monotonic()
+    cut_big = family_subset(big, os.path.join(work, "cut9", "grouped.bam"), cut)
+    log(f"phase9a input: phase 3's families below {cut} ({time.monotonic() - t0:.1f} s)")
     mesh = make_mesh(n_data=2, devices=MESH_DEVICES)
     for transport, ref_mol, ref_dup, refs in (("unpacked", "molecular.bam", "duplex.bam", p3),
                                               ("wire", "molecular_wire.bam", "duplex_wire.bam", p3w)):
         mol = os.path.join(work, f"mesh_molecular_{transport}.bam")
         for stage, inp, out, ref in (
-                ("molecular", big, mol, ref_mol),
+                ("molecular", cut_big, mol, ref_mol),
                 ("duplex", mol, os.path.join(work, f"mesh_duplex_{transport}.bam"), ref_dup)):
             summary, counts = mesh_stage(torch, stage, inp, out, genome, transport, mesh,
                                          f"phase9a {transport}", refs[stage])
-            same = summary["sha256"] == sha256(os.path.join(work, ref))
-            log(f"phase9a {transport} {stage} vs {ref}: byte-identical={same}")
-            check(same, f"phase9a {transport} {stage}: the mesh wrote other bytes than {ref}")
+            same, n, hdiff = same_family_records(out, os.path.join(work, ref), cut)
+            log(f"phase9a {transport} {stage} vs {ref}'s families below {cut}: {n} records "
+                f"identical={same}, header lines that differ apart from @PG: {json.dumps(hdiff)}")
+            check(same and not hdiff["only_run"] and not hdiff["only_phase3"],
+                  f"phase9a {transport} {stage}: the mesh wrote other records than {ref}")
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
 
@@ -2961,6 +3004,329 @@ def mesh_child(arg: str) -> int:
 # ---------------------------------------------------------------- bounds
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+#: 10a's tenants: Phase 3's families split by family into this many BAMs
+SERVE_TENANTS = 4
+#: the serve engine's device batch (the `serve` subcommand's default)
+SERVE_BATCH = 512
+#: 10b/10c's head-size input: the families of Phase 3's input below this
+SERVE_HEAD = 2_000
+
+
+def split_by_family(src: str, paths: list, per: int) -> None:
+    """Write `src`'s records of the families below per * len(paths) to
+    paths[family // per] (each a contiguous family range, in input order,
+    under src's header): one pass over the encoded records."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader, BamWriter
+
+    with BamReader(src) as r:
+        writers = [BamWriter(p, r.header, level=1) for p in paths]
+        bufs: list[list] = [[] for _ in paths]
+        try:
+            for b in r.raw_records():
+                k = family_of(b) // per
+                if k >= len(paths):
+                    continue
+                bufs[k].append(b)
+                if len(bufs[k]) >= 65_536:
+                    writers[k].write_raw_many(bufs[k])
+                    bufs[k] = []
+            for w, buf in zip(writers, bufs):
+                w.write_raw_many(buf)
+        finally:
+            for w in writers:
+                w.close()
+
+
+def records_by_tenant(path: str, per: int, n: int) -> list:
+    """The sorted encoded records of `path` in each of the first n family
+    ranges of `per` families."""
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    out: list[list] = [[] for _ in range(n)]
+    with BamReader(path) as r:
+        for b in r.raw_records():
+            k = family_of(b) // per
+            if k < n:
+                out[k].append(b)
+    return [sorted(x) for x in out]
+
+
+def sorted_records(path: str) -> list:
+    from bsseqconsensusreads_tpu_torch.io.bam import BamReader
+
+    with BamReader(path) as r:
+        return sorted(r.raw_records())
+
+
+def phase10(np, torch, work: str, inputs, families: int) -> dict:
+    """The serving tier: 10a the in-process engine on Phase 3's families
+    below `families` (a depth cut of --families for the run's time limit)
+    in SERVE_TENANTS tenants (a main path), 10b `serve` in a child process
+    over unix and tcp, 10c `route` over two replicas with one killed.
+    Returns 10a's launches."""
+    fasta, big, small, genome = inputs
+    launches = phase10a(torch, work, big, families)
+    head = family_subset(big, os.path.join(work, "serve", "head.bam"), SERVE_HEAD)
+    ref = phase10b(work, head)
+    phase10c(work, head, ref)
+    return launches
+
+
+def phase10a(torch, work: str, big: str, families: int) -> dict:
+    from bsseqconsensusreads_tpu_torch.faults import failpoints
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+    from bsseqconsensusreads_tpu_torch.serve import ServeEngine
+    from bsseqconsensusreads_tpu_torch.utils import compilecache
+
+    d = os.path.join(work, "serve")
+    os.makedirs(d, exist_ok=True)
+    per = families // SERVE_TENANTS
+    tenants = [os.path.join(d, f"tenant{k}.bam") for k in range(SERVE_TENANTS)]
+    t0 = time.monotonic()
+    split_by_family(big, tenants, per)
+    log(f"phase10a input: {SERVE_TENANTS} tenants of {per} families split from Phase 3's input "
+        f"in {time.monotonic() - t0:.1f} s")
+    engine = ServeEngine(device="cuda", mode="self", batch_families=SERVE_BATCH, max_active=4)
+    t0 = time.monotonic()
+    engine.warmup()
+    log(f"phase10a warmup: {time.monotonic() - t0:.2f} s, seg_vote launches "
+        f"{cuda_vote.LAUNCHES['seg_vote']} (before the counts are set to 0)")
+    outs = [os.path.join(d, f"served{k}.bam") for k in range(SERVE_TENANTS)]
+    for k in cuda_vote.LAUNCHES:
+        cuda_vote.LAUNCHES[k] = 0
+    cuda_vote.SEG_VOTE_SHAPES.clear()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with PeakMemory(torch) as mem, prof:
+        t0 = time.monotonic()
+        jobs = [engine.submit({"input": p, "output": o}) for p, o in zip(tenants, outs)]
+        engine.start()
+        states = [engine.wait(j.id, timeout=900)["state"] for j in jobs]
+        wall = time.monotonic() - t0
+        drained = engine.drain(timeout=60)
+    counts = dict(cuda_vote.LAUNCHES)
+    shapes = [[list(k), v] for k, v in cuda_vote.SEG_VOTE_SHAPES.most_common()]
+    busy = device_busy_s(torch, prof)
+    counters = engine.scheduler.counters()
+    fams = sum(j.families for j in jobs)
+    summary = {
+        "tenants": SERVE_TENANTS, "families": fams, "wall_s": wall,
+        "families_per_s": fams / wall,
+        "job_latency_s": {j.id: j.latency_s for j in jobs},
+        "job_families": {j.id: j.families for j in jobs},
+        "serve_batches": counters.get("serve_batches", 0),
+        "batches_shared_jobs": counters.get("batches_shared_jobs", 0),
+        "launches": counts, "device_busy_s": busy if busy > 0 else "not measured",
+        "device_idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+        "compile_cache": {"enabled": compilecache.enabled(),
+                          **dict(zip(("hit", "miss"), compilecache.counts()))},
+        "engine_phases_s": dict(engine.scheduler.stats.metrics.seconds),
+        "peak_host_rss_gib": mem.host_gib, "peak_device_allocated_gib": mem.device_gib,
+        **pool_fields(counters),
+    }
+    log(f"phase10a serve {json.dumps(summary)}")
+    log(f"phase10a seg_vote shapes: {json.dumps(shapes)}")
+    check(states == ["done"] * SERVE_TENANTS, f"phase10a: job states {states}")
+    check(summary["batches_shared_jobs"] > 0, "phase10a: no device batch held two tenants")
+    check(counts["seg_vote"] > 0, "phase10a: seg_vote never launched")
+    check(drained, "phase10a: drain(timeout=60) did not return True")
+    check(failpoints.fired_total() == 0, "phase10a: a failpoint fired on an unarmed run")
+    check_unarmed(counters, "phase10a")
+    t0 = time.monotonic()
+    want = records_by_tenant(os.path.join(work, "molecular.bam"), per, SERVE_TENANTS)
+    for k, out in enumerate(outs):
+        got = sorted_records(out)
+        log(f"phase10a tenant {k}: {len(got)} records, equal to Phase 3's records of its "
+            f"families: {got == want[k]}")
+        check(got == want[k], f"phase10a tenant {k}: records differ from Phase 3's")
+    solo = os.path.join(d, "standalone0.bam")
+    t1 = time.monotonic()
+    cli_io(["molecular", "-i", tenants[0], "-o", solo, "--mode", "self", "--batching",
+            "sequential", "--batch-families", str(SERVE_BATCH)])
+    same = sha256(solo) == sha256(outs[0])
+    log(f"phase10a tenant 0 vs a standalone `molecular --batching sequential` on the card "
+        f"({time.monotonic() - t1:.1f} s): sha256-equal={same}; the gates took "
+        f"{time.monotonic() - t0:.1f} s")
+    check(same, "phase10a: tenant 0 differs from the standalone molecular stage")
+    return counts
+
+
+def wait_ready_file(path: str, proc, timeout: float) -> list:
+    """The addresses a serve or route child wrote to its ready file."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            raise SmokeFailure(f"{path}: the child exited {proc.returncode} before it was ready: "
+                               f"{proc.stderr.read().decode()[-2000:]}")
+        check(time.monotonic() < deadline, f"{path}: not ready in {timeout} s")
+        time.sleep(0.1)
+    with open(path) as fh:
+        return fh.read().split()
+
+
+def child_env(**extra) -> dict:
+    return {**os.environ, "PYTHONPATH": REPO, **extra}
+
+
+def phase10b(work: str, head: str) -> str:
+    """`serve` in a child process on the card: `submit --wait` over its unix
+    and tcp addresses (the bytes of `molecular --batching sequential` on
+    the card and on the CPU), a bogus u32 length refused, and SIGTERM with
+    two jobs admitted: exit 0, both done. Returns the reference SHA."""
+    import signal
+    import struct
+
+    from bsseqconsensusreads_tpu_torch.serve import transport
+
+    d = os.path.join(work, "serve")
+    refs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(d, f"head_ref_{dev}.bam")
+        t0 = time.monotonic()
+        cli_io(["molecular", "-i", head, "-o", out, "--batching", "sequential",
+                "--batch-families", str(SERVE_BATCH), "--device", dev])
+        refs[dev] = sha256(out)
+        log(f"phase10b standalone molecular on {dev}: {time.monotonic() - t0:.2f} s, "
+            f"sha256 {refs[dev]}")
+    check(refs["cuda"] == refs["cpu"], "phase10b: the standalone references differ card vs CPU")
+    ready = os.path.join(d, "serve.addr")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "serve",
+         "--address", f"unix:{os.path.join(d, 'serve.sock')}", "--address", "tcp:127.0.0.1:0",
+         "--ready-file", ready, "--warmup", "--batch-families", str(SERVE_BATCH)],
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        addrs = wait_ready_file(ready, proc, 300)
+        log(f"phase10b serve child ready in {time.monotonic() - t0:.1f} s on {addrs}")
+        check(len(addrs) == 2, f"phase10b: the server bound {addrs}")
+        for k, addr in enumerate(addrs):
+            out = os.path.join(d, f"head_served{k}.bam")
+            t1 = time.monotonic()
+            cli_io(["submit", "--socket", addr, "-i", head, "-o", out, "--wait",
+                    "--timeout", "300"])
+            same = sha256(out) == refs["cuda"]
+            log(f"phase10b submit --wait over {addr.split(':')[0]}: {time.monotonic() - t1:.2f} s, "
+                f"sha256-equal to the standalone card and CPU runs: {same}")
+            check(same, f"phase10b: the job over {addr} wrote other bytes")
+        sock, kind = transport.connect(addrs[1], timeout=30)
+        try:
+            sock.sendall(struct.pack("!I", 0xFFFFFFF0))
+            resp = transport.recv_message(sock, kind)
+        finally:
+            sock.close()
+        log(f"phase10b bogus u32 length: {json.dumps(resp)}")
+        check(resp.get("ok") is False and resp.get("guard") == "oversized_frame",
+              "phase10b: a bogus frame length was not refused as oversized_frame")
+        drained = [os.path.join(d, f"head_drained{k}.bam") for k in range(2)]
+        for out in drained:
+            resp = transport.request(addrs[1], {"op": "submit",
+                                                "spec": {"input": head, "output": out}})
+            check(resp.get("ok"), f"phase10b: submit refused {resp}")
+        t1 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        err = proc.stderr.read().decode()
+        log(f"phase10b SIGTERM with two jobs admitted: exit {rc} in {time.monotonic() - t1:.2f} s; "
+            f"{err.strip().splitlines()[-1] if err.strip() else ''}")
+        check(rc == 0, f"phase10b: serve exited {rc} on SIGTERM: {err[-2000:]}")
+        same = [os.path.exists(o) and sha256(o) == refs["cuda"] for o in drained]
+        log(f"phase10b drained jobs sha256-equal: {same}")
+        check(all(same), "phase10b: a job admitted before SIGTERM was lost or differs")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return refs["cuda"]
+
+
+def phase10c(work: str, head: str, ref: str) -> None:
+    """`route --replicas 2` on the one card with a shared, empty
+    BSSEQ_TPU_COMPILE_CACHE_DIR and r0 armed to exit at its third retired
+    batch: 4 jobs of the head input over tcp (affinity puts them on one
+    replica), requeued when r0 dies; every output the reference bytes; one
+    client submit under net_send=delay:0.2s and one under dup."""
+    from bsseqconsensusreads_tpu_torch.faults import failpoints
+    from bsseqconsensusreads_tpu_torch.serve import transport
+
+    d = os.path.join(work, "fleet")
+    os.makedirs(d, exist_ok=True)
+    ready = os.path.join(d, "route.addr")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "route", "--replicas", "2",
+         "--address", "tcp:127.0.0.1:0", "--ready-file", ready, "--rundir",
+         os.path.join(d, "run"), "--warmup", "--batch-families", str(SERVE_BATCH),
+         "--replica-failpoints", "r0:fleet_replica_exit=exit:9@batch=2"],
+        env=child_env(BSSEQ_TPU_COMPILE_CACHE_DIR=os.path.join(d, "kernel_cache")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        (addr,) = wait_ready_file(ready, proc, 600)
+        log(f"phase10c router and two replicas ready in {time.monotonic() - t0:.1f} s on {addr}")
+
+        def replicas() -> dict:
+            st = transport.request(addr, {"op": "fleet"}, timeout=60)["stats"]["replicas"]
+            return {rid: {"alive": r["alive"], "generation": r["generation"],
+                          "hit": r.get("counters", {}).get("compile_cache_hit", 0),
+                          "miss": r.get("counters", {}).get("compile_cache_miss", 0)}
+                    for rid, r in st.items()}
+
+        boot = replicas()
+        log(f"phase10c replicas at boot: {json.dumps(boot)}")
+        reuse = [rid for rid, r in boot.items() if r["hit"] > 0 and r["miss"] == 0]
+        check(reuse, "phase10c: no replica loaded the shared kernel builds without building")
+        outs = [os.path.join(d, f"routed{k}.bam") for k in range(4)]
+        ids = []
+        t1 = time.monotonic()
+        for out in outs:
+            resp = transport.request(addr, {"op": "submit", "spec": {"input": head, "output": out}})
+            check(resp.get("ok"), f"phase10c: submit refused {resp}")
+            ids.append(resp["job"]["id"])
+        states = [transport.request(addr, {"op": "wait", "job": j, "timeout": 300},
+                                    timeout=330)["job"]["state"] for j in ids]
+        counters = transport.request(addr, {"op": "fleet"})["stats"]["counters"]
+        same = [sha256(o) == ref for o in outs]
+        log(f"phase10c 4 jobs with r0 killed at its third batch: {time.monotonic() - t1:.1f} s, "
+            f"states {states}, router {json.dumps(counters)}, sha256-equal to 10b: {same}")
+        check(states == ["done"] * 4, f"phase10c: job states {states}")
+        check(counters["jobs_requeued"] >= 1, "phase10c: the router requeued nothing")
+        check(counters["jobs_routed"] == 4 + counters["jobs_requeued"],
+              "phase10c: placements do not reconcile (routed != 4 jobs + requeues)")
+        check(all(same), "phase10c: a routed job wrote other bytes")
+        for schedule in ("net_send=delay:0.2s", "net_send=dup@peer=tcp:"):
+            out = os.path.join(d, f"chaos_{schedule.split(':')[0].split('=')[1]}.bam")
+            failpoints.arm(schedule)
+            try:
+                t1 = time.monotonic()
+                cli_io(["submit", "--socket", addr, "-i", head, "-o", out, "--wait",
+                        "--timeout", "300"])
+            finally:
+                failpoints.disarm()
+            same = sha256(out) == ref
+            log(f"phase10c client submit under {schedule}: {time.monotonic() - t1:.2f} s, "
+                f"sha256-equal: {same}")
+            check(same, f"phase10c: the submit under {schedule} wrote other bytes")
+        counters = transport.request(addr, {"op": "fleet"})["stats"]["counters"]
+        check(counters["jobs_routed"] == 6 + counters["jobs_requeued"],
+              f"phase10c: the duplicated submit was admitted twice: {counters}")
+        after = replicas()
+        log(f"phase10c replicas after the kill: {json.dumps(after)} (router {json.dumps(counters)})")
+        check(after["r0"]["generation"] >= 1 and after["r0"]["hit"] > 0
+              and after["r0"]["miss"] == 0,
+              "phase10c: the respawned r0 did not load the shared kernel builds")
+        resp = transport.request(addr, {"op": "drain", "timeout": 300, "sent_s": time.time()},
+                                 timeout=330)
+        rc = proc.wait(timeout=300)
+        log(f"phase10c drain: {json.dumps(resp)}, router exit {rc}")
+        check(resp.get("drained") and rc == 0, "phase10c: the fleet did not drain")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
 def bounds_child(np, torch, work: str) -> None:
     """In a process started with CUDA_LAUNCH_BLOCKING=1: every Phase 2
     seg_vote case (the main paths' shapes, the edge and the deep ones)
@@ -3089,7 +3455,11 @@ def main() -> int:
                     "indel inputs of --families and --cpu-families in WORKDIR")
     ap.add_argument("--mesh-child", metavar="RANK,PORT,HEAD,WORKDIR", default="",
                     help="(run by the full run) one of Phase 9c's two processes")
+    ap.add_argument("--phases", default="4,5,6,7,8,9,10",
+                    help="the phases after Phase 3 to run (a short check of one phase: "
+                    "--phases 10); the default, all of them, is the full run")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
 
     try:
         import numpy as np
@@ -3148,14 +3518,17 @@ def main() -> int:
                         ("5", lambda: phase5(np, torch, work, inputs, summaries,
                                              args.families // 4)),
                         ("6", lambda: phase6(np, torch, work, inputs, summaries[0],
-                                             args.families // 4, args.cpu_families)),
+                                             args.families // 8, args.cpu_families)),
                         ("7", lambda: phase7(np, torch, work, inputs, args.cpu_families,
-                                             args.families // 2)),
-                        ("8", lambda: phase8(np, torch, work, inputs, args.families,
+                                             args.families // 4)),
+                        ("8", lambda: phase8(np, torch, work, inputs, args.families // 4,
                                              args.cpu_families)),
                         ("9", lambda: phase9(np, torch, work, inputs, summaries,
-                                             args.cpu_families)),
+                                             args.cpu_families, args.families // 4)),
+                        ("10", lambda: phase10(np, torch, work, inputs, args.families // 4)),
                     ):
+                        if tag not in phases:
+                            continue
                         for k, v in more().items():
                             launches[k] = launches.get(k, 0) + v
                         marks.append((tag, time.monotonic()))

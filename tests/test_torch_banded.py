@@ -30,6 +30,14 @@ from bsseqconsensusreads_tpu_torch.pipeline import extsort as pextsort
 from bsseqconsensusreads_tpu_torch.pipeline import stages as pstages
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.utils.testing import stream_duplex_families, write_fasta
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 MATCH, MISMATCH, GAP, BS = 4.0, -6.0, -8.0, 1.0
 

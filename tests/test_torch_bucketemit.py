@@ -37,6 +37,14 @@ from bsseqconsensusreads_tpu_torch.pipeline import bucketemit as pbe
 from bsseqconsensusreads_tpu_torch.pipeline import extsort as pe
 from bsseqconsensusreads_tpu_torch.pipeline import stages as pstages
 from tests.test_torch_run import assert_same_bam
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

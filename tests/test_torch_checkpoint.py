@@ -32,6 +32,14 @@ from bsseqconsensusreads_tpu_torch.pipeline import checkpoint as pcheckpoint
 from bsseqconsensusreads_tpu_torch.pipeline import stages
 from bsseqconsensusreads_tpu_torch.pipeline.checkpoint import BatchCheckpoint
 from bsseqconsensusreads_tpu_torch.pipeline.extsort import write_batch_stream
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 BATCH_FAMILIES = 8  # 40 families x 2 strand-groups -> ~10 batches
 JAX_ROUTE = dict(mesh=None, transport="unpacked", layout="packed", vote_kernel="xla")

@@ -31,6 +31,14 @@ from bsseqconsensusreads_tpu_torch.io._nativelib import NativeLibraryError
 from bsseqconsensusreads_tpu_torch.ops.cuda_vote import KernelError
 from bsseqconsensusreads_tpu_torch.pipeline import stages as pstages
 from bsseqconsensusreads_tpu_torch.utils.observe import Metrics
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 SPECS = [
     "dispatch_kernel=raise:RuntimeError:times=1@batch=2",

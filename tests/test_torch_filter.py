@@ -47,6 +47,13 @@ from bsseqconsensusreads_tpu_torch.utils.testing import (
     write_fasta,
 )
 from tests.test_torch_run import assert_same_bam
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @pytest.fixture(scope="module")

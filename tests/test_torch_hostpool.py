@@ -9,6 +9,7 @@ stage counters equal across worker counts. The JAX package's own
 overlap path is not a reference here (its overlap identity test is red,
 ROADMAP queue 3)."""
 
+import os
 import hashlib
 import itertools
 
@@ -31,6 +32,14 @@ from bsseqconsensusreads_tpu_torch.parallel import hostpool
 from bsseqconsensusreads_tpu_torch.pipeline import calling as tc
 from bsseqconsensusreads_tpu_torch.pipeline import extsort as te
 from bsseqconsensusreads_tpu_torch.pipeline import stages
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 JROUTE = dict(mesh=None, transport="unpacked", layout="packed", emit="python",
               vote_kernel="xla")

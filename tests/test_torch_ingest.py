@@ -7,6 +7,8 @@ Inputs: the grouped_env and mixture_env fixtures of
 tests/test_torch_pipeline.py, and the molecular consensus BAM the port
 writes from each (it carries the cd/ce/cB tags the duplex stage reads)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,14 @@ from bsseqconsensusreads_tpu_torch.pipeline.ingest import (
     columnar_records,
 )
 from test_torch_pipeline import _port_chain, grouped_env, mixture_env  # noqa: F401
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 FIXED = ("ref_id", "pos", "flag", "mapq", "l_seq", "next_ref", "next_pos",
          "tlen", "n_cigar", "qname", "mi", "rx", "ref_span", "left_clip",

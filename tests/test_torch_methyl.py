@@ -56,6 +56,14 @@ from bsseqconsensusreads_tpu_torch.pipeline import checkpoint as pcheckpoint
 from bsseqconsensusreads_tpu_torch.pipeline import stages as pstages
 from bsseqconsensusreads_tpu_torch.pipeline import workflow as pwf
 from bsseqconsensusreads_tpu_torch.utils.observe import Metrics
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 _A, _C, _G, _T, _N = 0, 1, 2, 3, 4
 RTA3 = np.array([2, 12, 23, 37], np.uint8)

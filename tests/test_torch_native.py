@@ -23,6 +23,14 @@ from bsseqconsensusreads_tpu_torch.pipeline import calling as tc
 from bsseqconsensusreads_tpu_torch.pipeline import extsort as te
 from bsseqconsensusreads_tpu_torch.pipeline import stages
 from test_torch_pipeline import _port_chain, _sha, grouped_env, mixture_env  # noqa: F401
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

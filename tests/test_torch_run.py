@@ -48,6 +48,14 @@ from bsseqconsensusreads_tpu_torch.pipeline import record_ops as pops
 from bsseqconsensusreads_tpu_torch.pipeline import stages as pstages
 from bsseqconsensusreads_tpu_torch.pipeline import workflow as pwf
 from bsseqconsensusreads_tpu_torch.utils.testing import stream_duplex_families
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 INTERMEDIATE = "_consensus_unfiltered_aunamerged_aligned.bam"
 

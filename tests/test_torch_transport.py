@@ -36,6 +36,13 @@ from bsseqconsensusreads_tpu_torch.ops.refstore import RefStore
 from bsseqconsensusreads_tpu_torch.pipeline import calling as tc
 from bsseqconsensusreads_tpu_torch.pipeline import extsort as te
 from bsseqconsensusreads_tpu_torch.pipeline import stages as pstages
+from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_natives():
+    """The JAX package's native libraries load before its reference legs."""
+    ensure_reference_natives(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _sha(path: str) -> str:
