@@ -31,6 +31,13 @@ card:
 * route     — N serve replicas of this package behind one router
               (placement, requeue on a replica's death, drain)
 * submit / serve-ctl — the protocol's client and operator halves
+* elastic   — `run`: split a grouped BAM into base-family slices, lease
+              them to N worker processes of this package (or run them
+              --inline), merge byte-identical to `run`; `worker --join`:
+              one worker against a running coordinator
+* observe   — the run-ledger tools (utils.ledger_tools, utils.trace_tools):
+              summarize / diff / check / trace over BSSEQ_TPU_STATS
+              ledgers, `top` polls a live process's metrics
 
 With BSSEQ_TPU_STATS set (a path, or '-' for stderr) run, molecular,
 duplex, serve and route write the JAX package's run ledger
@@ -316,6 +323,136 @@ def cmd_run(args) -> int:
         status = "ran" if r.ran else "skip"
         stderr_line(f"[{status}] {r.name} ({r.seconds:.2f}s) {r.reason}")
     print(json.dumps({"target": target, "stats": {k: s.as_dict() for k, s in stats.items()}}))
+    return 0
+
+
+def _poll_metrics(args) -> int:
+    """Live metrics plane: poll a running serve/router/coordinator over
+    the framed transport ('metrics' op) and print one JSON line per
+    sample — a `top` you can pipe. --count 0 polls until interrupted."""
+    import time as _time
+
+    from bsseqconsensusreads_tpu_torch.serve.transport import request
+
+    n = 0
+    while True:
+        try:
+            resp = request(args.address, {"op": "metrics"}, timeout=10.0)
+        except (OSError, ConnectionError) as exc:
+            observe.stderr_line(f"observe top: {exc}")
+            return 1
+        if not resp.get("ok") or "metrics" not in resp:
+            observe.stderr_line(
+                f"observe top: {args.address} does not export metrics ({resp})")
+            return 1
+        print(json.dumps(resp["metrics"], sort_keys=True), flush=True)
+        n += 1
+        if args.count and n >= args.count:
+            return 0
+        _time.sleep(args.interval)
+
+
+def cmd_observe(args) -> int:
+    """Run-ledger consumer (utils.ledger_tools + utils.trace_tools):
+    summarize / diff / check over BSSEQ_TPU_STATS JSONL ledgers; `trace`
+    reassembles the cross-process span forest of a rundir (router + N
+    replicas, or coordinator + N workers), prints the ranked overhead
+    buckets and per-trace critical paths, and exits 1 on orphan spans or
+    unterminated traces; `top` polls a live process's metrics; `check`
+    on a DIRECTORY runs the cross-process trace checks, on a file the
+    per-ledger schema + closure checks. Exit codes: 0 ok, 1 a failed
+    check, 2 an unreadable ledger."""
+    import os
+
+    from bsseqconsensusreads_tpu_torch.utils import ledger_tools, trace_tools
+
+    if args.op == "top":
+        return _poll_metrics(args)
+    if args.op == "trace":
+        target = args.target[0] if len(args.target) == 1 else list(args.target)
+        report = trace_tools.assemble(target)
+        problems = trace_tools.check_traces(report)
+        print(trace_tools.format_report(report))
+        for p in problems:
+            observe.stderr_line(f"observe trace: {p}")
+        return 1 if problems else 0
+    try:
+        if args.op == "summarize":
+            s = ledger_tools.summarize_ledger(
+                args.ledger, rel_tol=args.tolerance, job=args.job or None,
+                replica=args.replica or None, worker=args.worker or None,
+            )
+            print(ledger_tools.format_summary(s))
+            return 0 if s.ok else 1
+        if args.op == "diff":
+            a = ledger_tools.summarize_ledger(args.ledger_a, job=args.job_a or None)
+            b = ledger_tools.summarize_ledger(args.ledger_b, job=args.job_b or None)
+            print(ledger_tools.format_diff(a, b))
+            return 0
+        if os.path.isdir(args.ledger):
+            problems = trace_tools.check_traces(trace_tools.assemble(args.ledger))
+        else:
+            problems = ledger_tools.check_ledger(args.ledger, rel_tol=args.tolerance)
+    except ledger_tools.LedgerError as exc:
+        observe.stderr_line(f"observe {args.op}: {exc}")
+        return 2
+    if problems:
+        for p in problems:
+            observe.stderr_line(f"observe check: {p}")
+        print(json.dumps({"ok": False, "problems": len(problems)}))
+        return 1
+    print(json.dumps({"ok": True, "problems": 0}))
+    return 0
+
+
+def cmd_elastic(args) -> int:
+    """Elastic execution (elastic/): `run` splits the grouped input into
+    base-family slices, serves them to N worker processes of this
+    package from an in-process coordinator (or runs them --inline), and
+    merges byte-identical to `run`; `worker --join` is one worker
+    joining a coordinator over the framed transport. Prints {target,
+    report} (run) or {worker, slices} (worker) on stdout; exit 1 when the
+    run is refused or its counters do not reconcile, 2 on a bad
+    --worker-failpoints term."""
+    import os
+
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+
+    _arm_failpoints(args)
+    observe.install_flight_signal()  # SIGUSR1 -> dump recent spans/events
+    if args.op == "worker":
+        from bsseqconsensusreads_tpu_torch.elastic import worker as _worker
+
+        n = _worker.work_loop(args.join, worker_id=args.worker_id or None)
+        print(json.dumps({"worker": os.environ.get("BSSEQ_TPU_WORKER_ID", ""), "slices": n}))
+        return 0
+    from bsseqconsensusreads_tpu_torch import elastic
+
+    cfg = FrameworkConfig.from_yaml(args.config) if args.config else FrameworkConfig()
+    if args.device:
+        cfg.backend = args.device
+    if args.reference:
+        cfg.genome_dir = os.path.dirname(args.reference) or "."
+        cfg.genome_fasta_file_name = os.path.basename(args.reference)
+    if args.sort_buckets:
+        cfg.sort_buckets = args.sort_buckets
+    worker_failpoints = {}
+    for term in args.worker_failpoints:
+        wid, sep, schedule = term.partition(":")
+        if not sep or not wid or not schedule:
+            observe.stderr_line(f"--worker-failpoints: bad term {term!r} (want wid:schedule)")
+            return 2
+        worker_failpoints[wid] = schedule
+    try:
+        target, report = elastic.run_elastic(
+            cfg, args.bam, outdir=args.outdir, workers=args.workers, slices=args.slices,
+            address=args.address, inline=args.inline, worker_failpoints=worker_failpoints,
+            max_restarts=args.max_restarts, timeout_s=args.timeout, ship=args.ship,
+        )
+    except elastic.ElasticError as exc:
+        observe.stderr_line(f"elastic: {exc}")
+        return 1
+    print(json.dumps({"target": target, "report": report}))
     return 0
 
 
@@ -955,6 +1092,92 @@ def main(argv: list[str] | None = None) -> int:
                    "its jobs to survivors, then reap it")
     p.add_argument("--timeout", type=float, default=600.0)
     p.set_defaults(fn=cmd_serve_ctl)
+
+    p = sub.add_parser("elastic", help="coordinator/worker sharded runs with loss recovery, "
+                       "byte-identical to `run`")
+    eop = p.add_subparsers(dest="op", required=True)
+    r = eop.add_parser("run", help="one-command elastic run: split the grouped input into "
+                       "base-family slices, lease them to N local worker processes, merge "
+                       "byte-identical to `run`")
+    r.add_argument("--config", default="", help="YAML config")
+    r.add_argument("--bam", required=True, help="GroupReadsByUmi output BAM")
+    r.add_argument("--outdir", default="output")
+    r.add_argument("--reference", default="", help="genome FASTA (overrides config)")
+    r.add_argument("--workers", type=int, default=2)
+    r.add_argument("--slices", type=int, default=0,
+                   help="work-unit count (default: workers*4 — small slices keep requeue "
+                   "cheap and the tail short)")
+    r.add_argument("--address", default="tcp:127.0.0.1:0",
+                   help="coordinator listen address, tcp:host:port (port 0 = "
+                   "kernel-assigned; TLS via BSSEQ_TPU_SERVE_TLS_CERT/KEY)")
+    r.add_argument("--inline", action="store_true",
+                   help="process every slice sequentially in this process (no "
+                   "subprocesses/sockets; same bytes)")
+    r.add_argument("--ship", action="store_true",
+                   help="shared-nothing mode: workers fetch slice inputs and ship outputs "
+                   "over the wire as CRC-verified resumable chunks (chunk size "
+                   "BSSEQ_TPU_ELASTIC_CHUNK_B); same bytes as the shared-FS run")
+    r.add_argument("--worker-failpoints", action="append", default=[],
+                   help="wid:schedule — arm BSSEQ_TPU_FAILPOINTS in ONE worker's first "
+                   "life (e.g. w0:elastic_slice=exit:9@hit=2)")
+    r.add_argument("--max-restarts", type=int, default=2, help="respawn budget per worker id")
+    r.add_argument("--timeout", type=float, default=3600.0)
+    r.add_argument("--sort-buckets", type=int, default=0,
+                   help="bucket count for the merge reconciliation geometry (0 = engine "
+                   "default)")
+    r.add_argument("--device", choices=("cuda", "cpu"), default="",
+                   help="where every worker's consensus stages run (overrides the "
+                   "config's backend; default: the card)")
+    _add_failpoints(r)
+    r.set_defaults(fn=cmd_elastic)
+    w = eop.add_parser("worker", help="join a (possibly remote) coordinator and process "
+                       "leased slices until it reports done")
+    w.add_argument("--join", required=True, help="coordinator address tcp:host:port")
+    w.add_argument("--worker-id", default="",
+                   help="identity stamped into ledger sub-streams (default: "
+                   "BSSEQ_TPU_WORKER_ID or pid<N>)")
+    _add_failpoints(w)
+    w.set_defaults(fn=cmd_elastic)
+
+    p = sub.add_parser("observe", help="run-ledger tools: summarize / diff / check a "
+                       "BSSEQ_TPU_STATS JSONL ledger")
+    op = p.add_subparsers(dest="op", required=True)
+    s = op.add_parser("summarize", help="per-stage host/device/stall/chip_busy table + rule "
+                      "walls + closure verdict")
+    s.add_argument("ledger", help="ledger JSONL path")
+    s.add_argument("--tolerance", type=float, default=0.15,
+                   help="relative closure tolerance (unattributed share of the wall)")
+    s.add_argument("--job", default="", help="scope to one serve tenant's lines (job id)")
+    s.add_argument("--replica", default="",
+                   help="scope to one fleet replica's sub-stream (replica id, e.g. r0)")
+    s.add_argument("--worker", default="",
+                   help="scope to one elastic worker's sub-stream (worker id, e.g. w0)")
+    s.set_defaults(fn=cmd_observe)
+    d = op.add_parser("diff", help="two ledgers side by side with B/A ratios")
+    d.add_argument("ledger_a")
+    d.add_argument("ledger_b")
+    d.add_argument("--job-a", default="", help="scope ledger A to one serve tenant (job id)")
+    d.add_argument("--job-b", default="", help="scope ledger B to one serve tenant (job id)")
+    d.set_defaults(fn=cmd_observe)
+    c = op.add_parser("check", help="schema + ledger-closure validation (a directory runs "
+                      "the cross-process trace checks instead); non-zero exit on violation")
+    c.add_argument("ledger", help="ledger JSONL path, or a rundir")
+    c.add_argument("--tolerance", type=float, default=0.15)
+    c.set_defaults(fn=cmd_observe)
+    t = op.add_parser("trace", help="reassemble the cross-process span forest of a rundir's "
+                      "ledgers, print overhead buckets + critical paths; non-zero exit on "
+                      "orphan/unterminated traces")
+    t.add_argument("target", nargs="+",
+                   help="a rundir (all *.jsonl inside) or explicit ledger paths")
+    t.set_defaults(fn=cmd_observe)
+    tp = op.add_parser("top", help="poll a live serve/router/coordinator's metrics op; one "
+                       "JSON line per sample")
+    tp.add_argument("--address", required=True,
+                    help="transport address (unix:/path or tcp:host:port)")
+    tp.add_argument("--interval", type=float, default=1.0)
+    tp.add_argument("--count", type=int, default=1, help="samples to print (0 = until "
+                    "interrupted)")
+    tp.set_defaults(fn=cmd_observe)
 
     args = ap.parse_args(argv)
     from bsseqconsensusreads_tpu_torch.faults.guard import GuardError

@@ -6,15 +6,16 @@ must be detected and quarantined/recomputed, never spliced silently into
 the output (BGZF's per-block CRC catches in-block corruption at inflate
 time, but not a truncated tail, a zero-filled page, or a swapped file).
 The CRC is over the raw file bytes, so it also pins the exact container
-framing the manifest registered. The JAX module ledgers each mismatch as
-'integrity_mismatch'; the port has no ledger yet (ROADMAP queue 1, item
-9), and the raised IntegrityError carries the same facts.
+framing the manifest registered. Each mismatch is ledgered as
+'integrity_mismatch' and raised as IntegrityError.
 """
 
 from __future__ import annotations
 
 import os
 import zlib
+
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 _CHUNK = 1 << 20
 
@@ -36,14 +37,17 @@ def file_crc32(path: str) -> int:
 
 
 def verify_file_crc32(path: str, expected: int, what: str = "") -> None:
-    """Raise IntegrityError when the file's bytes no longer match the
-    recorded CRC, or the file is gone."""
+    """Raise IntegrityError (ledgered as 'integrity_mismatch') when the
+    file's bytes no longer match the recorded CRC, or the file is gone."""
     label = what or os.path.basename(path)
     try:
         actual = file_crc32(path)
     except OSError as exc:
+        observe.emit("integrity_mismatch", {"path": path, "what": label, "error": str(exc)})
         raise IntegrityError(f"{label}: unreadable: {exc}") from exc
     if actual != expected:
+        observe.emit("integrity_mismatch", {"path": path, "what": label,
+                                            "expected_crc": expected, "actual_crc": actual})
         raise IntegrityError(
             f"{label}: CRC mismatch (expected {expected:#010x}, "
             f"got {actual:#010x})"

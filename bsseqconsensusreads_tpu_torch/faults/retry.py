@@ -115,11 +115,17 @@ def _backoff(policy: RetryPolicy, attempt: int) -> float:
     )
 
 
-def _note_retry(metrics, attempt: int) -> None:
+def _note_retry(exc, metrics, stage, batch, attempt: int) -> None:
     if metrics is not None:
         if attempt == 1:
             metrics.count("batches_retried")
         metrics.count("retry_attempts")
+    observe.emit("batch_retry", {
+        "stage": stage,
+        "batch": batch,
+        "attempt": attempt,
+        "error": f"{type(exc).__name__}: {exc}",
+    })
 
 
 def _degrade_or_raise(exc, degrade, metrics, stage, batch, attempts: int):
@@ -165,11 +171,11 @@ def guarded(
     if failed is not None:
         attempt = 1
         if attempt >= pol.max_attempts:
-            _note_retry(metrics, attempt)
+            _note_retry(failed, metrics, stage, batch, attempt)
             return _degrade_or_raise(
                 failed, degrade, metrics, stage, batch, attempt
             )
-        _note_retry(metrics, attempt)
+        _note_retry(failed, metrics, stage, batch, attempt)
         sleep(_backoff(pol, attempt))
     while True:
         try:
@@ -182,9 +188,12 @@ def guarded(
                 return _degrade_or_raise(
                     exc, degrade, metrics, stage, batch, attempt
                 )
-            _note_retry(metrics, attempt)
+            _note_retry(exc, metrics, stage, batch, attempt)
             sleep(_backoff(pol, attempt))
         else:
-            if attempt and metrics is not None:
-                metrics.count("batches_recovered")
+            if attempt:
+                if metrics is not None:
+                    metrics.count("batches_recovered")
+                observe.emit("batch_recovered",
+                             {"stage": stage, "batch": batch, "attempts": attempt + 1})
             return out

@@ -266,6 +266,7 @@ class MethylAccumulator:
         if self.metrics is not None:
             self.metrics.count("methyl_spill_runs")
             self.metrics.count("methyl_spill_sites", n)
+        observe.emit("methyl_spill", {"run": run_index, "sites": n, "upto": watermark})
 
     def _save_manifest(self) -> None:
         tmp = self._manifest_path + ".tmp"
@@ -355,4 +356,5 @@ class MethylAccumulator:
             self._runs = []
             self._pending.clear()
             self._pending_sites = 0
+            observe.emit("methyl_finalize", out)
             return out

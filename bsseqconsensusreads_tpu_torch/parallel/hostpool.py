@@ -121,10 +121,16 @@ def make_pool(metrics=None, stage: str = "") -> HostPool | None:
     n = host_workers()
     if metrics is not None:
         metrics.count("host_pool_workers", n)
+    announce(n, stage)
+    return HostPool(n, metrics, stage) if n > 0 else None
+
+
+def announce(n: int, stage: str) -> None:
+    """The ledger line of one pool decision: 'host_pool_enabled' with
+    the count, or 'host_pool_disabled' with the reason."""
     if n <= 0:
         reason = (f"{ENV_WORKERS} explicit disable" if os.environ.get(ENV_WORKERS) is not None
                   else "single-core host: no idle core for host workers")
         observe.emit("host_pool_disabled", {"stage": stage, "reason": reason})
-        return None
+        return
     observe.emit("host_pool_enabled", {"stage": stage, "workers": n})
-    return HostPool(n, metrics, stage)

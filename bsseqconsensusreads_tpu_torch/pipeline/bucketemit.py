@@ -322,6 +322,8 @@ class BucketRouter:
         if self.metrics is not None:
             self.metrics.count("bucket_spill_runs")
             self.metrics.count("spill_records", n)
+        observe.emit("bucket_spill", {"bucket": bucket, "run": run_index, "records": n,
+                                      "seconds": round(_time.monotonic() - t0, 3)})
 
     def spill_largest(self) -> None:
         """Spill ONLY the largest bucket's buffer: frees the most memory
@@ -385,8 +387,10 @@ class BucketRouter:
 
         self.account_stream_seconds()
 
-        # the stage's own pool counted its host_pool_workers already
+        # the stage's own pool counted its host_pool_workers already:
+        # this one is ledgered, not counted again
         n = _hostpool.host_workers()
+        _hostpool.announce(n, "bucket_sort")
         pool = _hostpool.HostPool(n, self.metrics, "bucket_sort") if n > 0 else None
         sort_s = 0.0
         concat_s = 0.0
@@ -532,6 +536,7 @@ def bucket_sort_to_writer(
     plan = BucketPlan.from_header(header, buckets)
     if metrics is not None:
         metrics.count("bucket_count", plan.nbuckets)
+    observe.emit("bucket_plan", {"buckets": plan.nbuckets, "records_per_spill": buffer_records})
     router = BucketRouter(
         plan, header, workdir=workdir, buffer_records=buffer_records,
         metrics=metrics,
@@ -706,6 +711,7 @@ def finalize_checkpoint(
         damaged = _damaged_buckets(rundir, doc)
         if damaged:
             _replay_buckets(ck, rundir, doc, damaged, plan, header, metrics)
+        observe.emit("bucket_manifest_resumed", {"target": ck.target, "replayed": len(damaged)})
     else:
         if doc is not None:
             observe.event("bucket_manifest_discarded",

@@ -180,7 +180,7 @@ from bsseqconsensusreads_tpu_torch.parallel.deep_family import deep_family_conse
 from bsseqconsensusreads_tpu_torch.parallel.mesh import make_mesh, pad_families
 from bsseqconsensusreads_tpu_torch.utils import compilecache, observe
 from bsseqconsensusreads_tpu_torch.utils.device import resolve_device
-from bsseqconsensusreads_tpu_torch.utils.observe import DEVICE_PHASES, Metrics
+from bsseqconsensusreads_tpu_torch.utils.observe import Metrics
 from bsseqconsensusreads_tpu_torch.utils.oracle import oracle_convert_read
 
 _COMPLEMENT = str.maketrans("ACGTNacgtn", "TGCANtgcan")
@@ -193,6 +193,28 @@ DEEP_TEMPLATE_CAP = 16_384
 
 def _revcomp(seq: str) -> str:
     return seq.translate(_COMPLEMENT)[::-1]
+
+
+@contextlib.contextmanager
+def _compile_probe(seen: set, key: tuple, stage: str):
+    """Book the FIRST dispatch of each batch shape of one stage call as a
+    'compile' span on the proc trace — the port's counterpart of the JAX
+    package's probe around its first jit dispatch, read by `observe trace`
+    beside jax_import / worker_spawn. On the card a stage also books the
+    kernel library's load and the qual tables' vote_finalize launches
+    (_warm_device, shape ['load', 'cuda']); later dispatches of a shape,
+    and every dispatch with the ledger off, pay one set lookup. `seen`
+    races benignly under the pools (at worst a duplicate span)."""
+    if key in seen or observe.stats_sink() is None:
+        yield
+        return
+    seen.add(key)
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        observe.emit_span("compile", t0, time.time(), ctx=observe.proc_trace(),
+                          stage=stage, shape=list(key))
 
 
 @dataclass
@@ -237,7 +259,7 @@ class StageStats:
     #: re-dispatched after a stall or degraded to the CPU, or that input
     #: was dropped or altered. Reconciliation: records_seen = records_in
     #: + records_quarantined.
-    _COUNTER_FIELDS = (
+    _GUARD_FIELDS = (
         ("records_seen", "records_seen"),
         ("records_quarantined", "records_quarantined"),
         ("records_repaired", "records_repaired"),
@@ -247,35 +269,41 @@ class StageStats:
         ("stream_truncations", "stream_truncated"),
         ("frame_resyncs", "frame_resync"),
         ("frames_lost", "frame_lost"),
-        ("batches_retried", "batches_retried"),
-        ("batches_recovered", "batches_recovered"),
-        ("batches_degraded", "batches_degraded"),
-        ("batches_stalled", "batches_stalled"),
     )
+    _RETRY_FIELDS = ("batches_retried", "batches_recovered", "batches_degraded",
+                     "batches_stalled")
+
+    @property
+    def effective_flop_utilization(self) -> float:
+        """Data cells over issued cells: the complement of pad_waste."""
+        total = self.pad_cells + self.used_cells
+        return self.used_cells / total if total else 1.0
 
     def counter(self, name: str) -> int:
         return self.metrics.counters.get(name, 0)
 
     def as_dict(self) -> dict:
-        device_s = sum(
-            v for k, v in self.metrics.seconds.items() if k in DEVICE_PHASES
-        )
+        """The stage's ledger line, in the JAX package's key order, with
+        the phase summary (host_s, device_s, stall_s, chip_busy,
+        unattributed_s) last."""
         return {
             "records_in": self.records_in,
-            **{field: self.counter(name) for field, name in self._COUNTER_FIELDS},
+            **{field: self.counter(name) for field, name in self._GUARD_FIELDS},
             "families": self.families,
             "consensus_out": self.consensus_out,
             "skipped_families": self.skipped_families,
             "leftover_records": self.leftover_records,
             "refragmented_families": self.refragmented_families,
             "batches": self.batches,
-            "indel_aligned": self.indel_aligned,
-            "indel_dropped": self.indel_dropped,
             "pad_waste": round(self.pad_waste, 4),
+            "effective_flop_utilization": round(self.effective_flop_utilization, 4),
             "families_per_second": round(self.families_per_second, 1),
             "wall_seconds": round(self.wall_seconds, 3),
-            "device_s": round(device_s, 3),
+            "indel_aligned": self.indel_aligned,
+            "indel_dropped": self.indel_dropped,
+            **{name: self.counter(name) for name in self._RETRY_FIELDS},
             **self.metrics.as_dict(),
+            **self.metrics.phase_summary(self.wall_seconds),
         }
 
 
@@ -846,7 +874,7 @@ def _hp_stats_merge(dst: "StageStats", src: "StageStats") -> None:
         setattr(dst, name, getattr(dst, name) + getattr(src, name))
 
 
-def _hp_prefetch(items, pool, task_fn, barrier=None):
+def _hp_prefetch(items, pool, task_fn, barrier=None, metrics=None):
     """Double-buffered host-pool map: task_fn(item N+1) runs on a worker
     while the caller consumes task_fn(item N)'s result. Results yield in
     input order, and at most one task is in flight: task N+1 is submitted
@@ -862,32 +890,41 @@ def _hp_prefetch(items, pool, task_fn, barrier=None):
     a source that waits for its retires (serve.scheduler) is never asked
     for more while one of its chunks sits in the prefetch. The JAX
     package's prefetch pulls past it, and its serve engine does not drain
-    with host workers on (ROADMAP queue 3)."""
+    with host workers on (ROADMAP queue 3).
+
+    With `metrics`, the caller's waits on a task are timed as 'stall':
+    the dispatch thread blocked on a pool's future."""
+    def join(fut):
+        if metrics is None:
+            return fut.result()
+        with metrics.timed("stall"):
+            return fut.result()
+
     pending = None
     try:
         for item in items:
             if barrier is not None and barrier(item):
                 if pending is not None:
                     fut, pending = pending, None
-                    yield fut.result()
+                    yield join(fut)
                 yield task_fn(item)
                 continue
             if pending is None:
                 pending = pool.submit(task_fn, item)
                 continue
-            done = pending.result()
+            done = join(pending)
             pending = pool.submit(task_fn, item)
             yield done
         if pending is not None:
             fut, pending = pending, None
-            yield fut.result()
+            yield join(fut)
     finally:
         if pending is not None:
             pending.cancel()
 
 
 def _warm_device(params: ConsensusParams, device: torch.device, singleton: bool,
-                 mesh=None) -> None:
+                 mesh=None, stage: str = "") -> None:
     """Build, before any worker starts, what the workers would otherwise
     race to build: the vote kernels' load (ops.cuda_vote), the cached
     log-likelihood table (on every card of the mesh too) and (for the
@@ -898,15 +935,16 @@ def _warm_device(params: ConsensusParams, device: torch.device, singleton: bool,
         return
     from bsseqconsensusreads_tpu_torch.ops import phred
 
-    cuda_vote._load()
-    phred.log_table(params.error_rate_post_umi, device)
-    if mesh is not None:
-        for d, r in mesh.local_slots():
-            phred.log_table(params.error_rate_post_umi, mesh.device(d, r))
-    if singleton:
-        from bsseqconsensusreads_tpu_torch.ops.reconstruct import qual_tables
+    with _compile_probe(set(), ("load", device.type), stage):
+        cuda_vote._load()
+        phred.log_table(params.error_rate_post_umi, device)
+        if mesh is not None:
+            for d, r in mesh.local_slots():
+                phred.log_table(params.error_rate_post_umi, mesh.device(d, r))
+        if singleton:
+            from bsseqconsensusreads_tpu_torch.ops.reconstruct import qual_tables
 
-        qual_tables(params, device)
+            qual_tables(params, device)
 
 
 class _Inflight:
@@ -1435,6 +1473,8 @@ def call_molecular_batches(
     t0 = time.monotonic()
     metrics = stats.metrics
     stage_label = stats.stage or "molecular"
+    #: batch shapes already dispatched once — _compile_probe bookkeeping
+    compile_shapes: set = set()
 
     def dispatch_wire(batch, dev):
         """The input wire packed (the C sweep on the native engine), one
@@ -1528,7 +1568,9 @@ def call_molecular_batches(
         half-retired batch; `armed=False` (the degrade) passes the
         failpoint sites by."""
         singleton = host_voted(batch)
-        with metrics.timed("host_vote" if singleton else "kernel"):
+        phase = "host_vote" if singleton else "kernel"
+        with _compile_probe(compile_shapes, (phase, *batch.bases.shape), stage_label), \
+                metrics.timed(phase):
             if armed:
                 _failpoints.fire("dispatch_kernel", stage=stage_label, batch=bi)
             if singleton:
@@ -1688,7 +1730,8 @@ def call_molecular_batches(
 
     def events():
         encoded = (
-            _hp_prefetch(numbered_chunks(), hpool, encode_chunk, barrier=lambda it: not it[1])
+            _hp_prefetch(numbered_chunks(), hpool, encode_chunk, barrier=lambda it: not it[1],
+                         metrics=metrics)
             if hpool is not None else map(encode_chunk, numbered_chunks())
         )
         for batch_index, batch, skipped, deep in encoded:
@@ -1712,7 +1755,7 @@ def call_molecular_batches(
                                   batch=batch_index)
             yield "deferred", partial(retire, fut, batch, batch_index, deep_emitted)
 
-    _warm_device(params, device, singleton=True, mesh=mesh)
+    _warm_device(params, device, singleton=True, mesh=mesh, stage=stage_label)
     hpool = _hostpool.make_pool(metrics, stage_label)
     executor = _batch_executor(device, stats, hpool, sharded, wire_rr)
     try:
@@ -2195,6 +2238,23 @@ def _emit_duplex_batch(batch, out, params, mode, stats) -> list[BamRecord]:
     return emitted
 
 
+def call_molecular(
+    records: Iterable[BamRecord],
+    params: ConsensusParams = ConsensusParams(min_reads=1),
+    mode: str = "unaligned",
+    batch_families: int = 512,
+    max_window: int = 4096,
+    grouping: str = "gather",
+    stats: StageStats | None = None,
+    **kwargs,
+) -> Iterator[BamRecord]:
+    """Flat-record view of call_molecular_batches (same arguments; the
+    keyword ones, device= among them, pass through)."""
+    for batch in call_molecular_batches(records, params, mode, batch_families, max_window,
+                                        grouping, stats, **kwargs):
+        yield from batch
+
+
 #: Reference flag vocabulary at the convert stage: pass-through set and
 #: B-strand conversion set (tools/1.convert_AG_to_CT.py:70-73); any other
 #: flag is silently dropped there (:69-186 structure — no else branch).
@@ -2417,6 +2477,8 @@ def call_duplex_batches(
         rid_map = refstore.contig_indices(ref_names)
     metrics = stats.metrics
     stage_label = stats.stage or "duplex"
+    #: batch shapes already dispatched once — _compile_probe bookkeeping
+    compile_shapes: set = set()
 
     def mapped_rids(batch, rmap):
         """Store contig index per family (-1 when unknown) through `rmap`
@@ -2547,7 +2609,8 @@ def call_duplex_batches(
         batch (see the molecular stage's; `armed=False` passes the
         failpoint sites by). The methyl tallies are NOT added here: they
         land on the ordered retire (land), in batch order."""
-        with metrics.timed("kernel"):
+        with _compile_probe(compile_shapes, ("kernel", *batch.bases.shape), stage_label), \
+                metrics.timed("kernel"):
             if armed:
                 _failpoints.fire("dispatch_kernel", stage=stage_label, batch=bi)
             inflight, windows = dispatch(batch, use_wire, methyl_device)
@@ -2664,7 +2727,7 @@ def call_duplex_batches(
 
     def events():
         encoded = (
-            _hp_prefetch(numbered_chunks(), hpool, encode_chunk)
+            _hp_prefetch(numbered_chunks(), hpool, encode_chunk, metrics=metrics)
             if hpool is not None else map(encode_chunk, numbered_chunks())
         )
         for batch_index, batch, leftovers, skipped, passed, sidecar in encoded:
@@ -2684,7 +2747,7 @@ def call_duplex_batches(
                                   batch=batch_index)
             yield "deferred", partial(retire, fut, batch, sidecar, batch_index, passed)
 
-    _warm_device(params, device, singleton=False, mesh=mesh)
+    _warm_device(params, device, singleton=False, mesh=mesh, stage=stage_label)
     hpool = _hostpool.make_pool(metrics, stage_label)
     executor = _batch_executor(device, stats, hpool, sharded, wire_rr)
     try:
@@ -2695,3 +2758,26 @@ def call_duplex_batches(
             hpool.shutdown()
     stats.wall_seconds += time.monotonic() - t0
     compilecache.publish(stats.metrics)
+
+
+
+def call_duplex(
+    records: Iterable[BamRecord],
+    ref_fetch,
+    ref_names: Sequence[str],
+    params: ConsensusParams = ConsensusParams(min_reads=0),
+    mode: str = "unaligned",
+    batch_families: int = 512,
+    max_window: int = 4096,
+    grouping: str = "gather",
+    stats: StageStats | None = None,
+    passthrough: bool = False,
+    pos0: str = "skip",
+    **kwargs,
+) -> Iterator[BamRecord]:
+    """Flat-record view of call_duplex_batches (same arguments; the
+    keyword ones, device= among them, pass through)."""
+    for batch in call_duplex_batches(records, ref_fetch, ref_names, params, mode,
+                                     batch_families, max_window, grouping, stats,
+                                     passthrough=passthrough, pos0=pos0, **kwargs):
+        yield from batch

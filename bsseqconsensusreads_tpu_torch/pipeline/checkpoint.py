@@ -35,8 +35,12 @@ Faults: the `ckpt_shard_write`, `ckpt_manifest_rename` and
 `ckpt_finalize` failpoints fire where the JAX package fires them, and
 the shard write runs under the bounded retrier (faults.retry.guarded) —
 a failed attempt rewrites the whole shard from the batch items still in
-memory. Left for a later slice: the elastic write and batch gates,
-install_write_gate / install_batch_gate (ROADMAP queue 1, item 9).
+memory.
+
+Elastic workers install two gates here: the write gate (a fenced lease,
+elastic.fencing) before every shard write, manifest rename and finalize,
+and the batch gate (a preemption latch, elastic.preempt) after every
+consumed batch. Neither touches a kernel launch.
 """
 
 from __future__ import annotations
@@ -59,6 +63,42 @@ from bsseqconsensusreads_tpu_torch.io.bam import (
     write_items,
 )
 from bsseqconsensusreads_tpu_torch.utils import observe
+
+#: Durable-write gate, installed by elastic.fencing.adopt() in workers
+#: holding a fenced lease: called (with the seam name) before every
+#: checkpoint shard write, manifest rename and stage finalize, and
+#: raises FencedError once the holder's fence epoch is revoked. None —
+#: one branch per durable write — everywhere else.
+_WRITE_GATE = None
+
+
+def install_write_gate(gate) -> None:
+    global _WRITE_GATE
+    _WRITE_GATE = gate
+
+
+def _gate(what: str) -> None:
+    if _WRITE_GATE is not None:
+        _WRITE_GATE(what)
+
+
+#: Batch-boundary gate, installed by elastic.preempt in workers: called
+#: with the would-be durable batch count after every batch consumed by
+#: write_batches, and raises PreemptedError once a preemption latch is
+#: set. The pending buffer is flushed BEFORE the error propagates, so
+#: the interrupting batch is durable — handoff latency is bounded by one
+#: batch, never one lease. None everywhere else.
+_BATCH_GATE = None
+
+
+def install_batch_gate(gate) -> None:
+    global _BATCH_GATE
+    _BATCH_GATE = gate
+
+
+def _batch_gate(batches_done: int) -> None:
+    if _BATCH_GATE is not None:
+        _BATCH_GATE(batches_done)
 
 
 @dataclasses.dataclass
@@ -100,6 +140,7 @@ class _Manifest:
         )
 
     def save(self, path: str) -> None:
+        _gate("ckpt_manifest_rename")
         _failpoints.fire("ckpt_manifest_rename")
         tmp = path + ".tmp"
         with open(tmp, "w") as fh:
@@ -147,6 +188,15 @@ class BatchCheckpoint:
             and input_fingerprint
             and self.manifest.input_fingerprint != input_fingerprint
         ):
+            observe.emit(
+                "checkpoint_input_changed",
+                {
+                    "target": self.target,
+                    "manifest_input": self.manifest.input_fingerprint,
+                    "run_input": input_fingerprint,
+                    "batches_at_stake": self.manifest.batches_done,
+                },
+            )
             raise InputChangedError(
                 self.target, self.manifest.input_fingerprint,
                 input_fingerprint,
@@ -269,6 +319,21 @@ class BatchCheckpoint:
         for batch in batches:
             buf.extend(batch)
             pending += 1
+            try:
+                _batch_gate(self.manifest.batches_done + pending)
+            except BaseException:
+                # make the in-flight batch durable before unwinding: the
+                # gate fires at a batch boundary, so `buf` is a complete
+                # prefix — flushing it now bounds handoff latency to one
+                # batch instead of one lease
+                self._flush(buf, pending)
+                close = getattr(batches, "close", None)
+                if close is not None:
+                    # join the stream's in-flight batches (its pools'
+                    # streams and pinned staging) now, not at collection:
+                    # they are not durable, the next holder recomputes them
+                    close()
+                raise
             if pending == self.every:
                 self._flush(buf, pending)
                 buf, pending = [], 0
@@ -278,6 +343,7 @@ class BatchCheckpoint:
     def _write_shard(self, path: str, items: list) -> int:
         """One shard write attempt — the retry unit for transient I/O
         errors."""
+        _gate("ckpt_shard_write")
         _failpoints.fire("ckpt_shard_write", shard=os.path.basename(path))
         # shards are scratch (re-read once at finalize, then deleted):
         # always deflate fast, like the external-sort spills
@@ -329,6 +395,7 @@ class BatchCheckpoint:
         for a completed rule — the manifest survives and the rerun
         re-finalizes from the durable shards.
         """
+        _gate("ckpt_finalize")
         _failpoints.fire("ckpt_finalize", target=self.target)
         n = 0
         tmp = self.target + ".finalize.tmp"

@@ -50,6 +50,7 @@ from typing import Iterable, Iterator
 from bsseqconsensusreads_tpu_torch.faults import failpoints as _failpoints
 from bsseqconsensusreads_tpu_torch.faults import integrity as _integrity
 from bsseqconsensusreads_tpu_torch.faults import retry as _faultretry
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 from bsseqconsensusreads_tpu_torch.io.bam import (
     FREAD2,
@@ -142,7 +143,7 @@ class _Spiller:
         self._pool = None
         self._pending = None
 
-    def _write(self, path: str, payload, n: int, run_index: int) -> None:
+    def _write(self, path: str, payload, n: int, run_index: int, t0: float) -> None:
         def attempt() -> None:
             _failpoints.fire("extsort_spill", run=run_index)
             self._write_file(path, payload)
@@ -154,15 +155,19 @@ class _Spiller:
         if self._metrics is not None:
             self._metrics.count("spill_runs")
             self._metrics.count("spill_records", n)
+        observe.emit("spill", {"run": run_index, "records": n,
+                               "seconds": round(time.monotonic() - t0, 3)})
 
-    def spill(self, path: str, payload, n: int, run_index: int) -> None:
+    def spill(self, path: str, payload, n: int, run_index: int, t0: float) -> None:
+        """Write one run; `t0` is when its spill began (the sort included),
+        the start of the 'spill' ledger line's seconds."""
         if not self._use_bg:
-            self._write(path, payload, n, run_index)
+            self._write(path, payload, n, run_index, t0)
             return
         self.drain()  # double buffer: write N-1 lands before N detaches
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="bsseq-spill")
-        self._pending = self._pool.submit(self._write, path, payload, n, run_index)
+        self._pending = self._pool.submit(self._write, path, payload, n, run_index, t0)
 
     def drain(self) -> None:
         """Join the in-flight write: its CRC must be recorded before any
@@ -224,6 +229,7 @@ def _external_sort_core(
 
     def spill() -> None:
         nonlocal tmpdir, buf
+        t0 = time.monotonic()
         with _timer(metrics):
             buf.sort(key=key)
             if tmpdir is None:
@@ -232,7 +238,7 @@ def _external_sort_core(
             path = os.path.join(tmpdir.name, f"run{run_index:05d}.bam")
             run_paths.append(path)
             run_items, buf = buf, []
-        spiller.spill(path, run_items, len(run_items), run_index)
+        spiller.spill(path, run_items, len(run_items), run_index, t0)
 
     def merged(paths: list[str], readers: list):
         for p in paths:
@@ -259,6 +265,7 @@ def _external_sort_core(
             pass_index = 0
             while len(run_paths) > MERGE_FANIN:
                 _failpoints.fire("extsort_merge", runs=len(run_paths))
+                observe.emit("merge_pass", {"pass": pass_index, "runs": len(run_paths)})
                 merged_paths: list[str] = []
                 for gi in range(0, len(run_paths), MERGE_FANIN):
                     group = run_paths[gi : gi + MERGE_FANIN]
@@ -482,6 +489,7 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
 
     def spill() -> None:
         nonlocal tmpdir, buf, buf_n
+        t0 = time.monotonic()
         with _timer(metrics):
             data, n = sort_buf(buf)
             buf, buf_n = bytearray(), 0
@@ -490,7 +498,7 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
             run_index = len(run_paths)
             path = os.path.join(tmpdir.name, f"run{run_index:05d}.bam")
             run_paths.append(path)
-        spiller.spill(path, data, n, run_index)
+        spiller.spill(path, data, n, run_index, t0)
 
     try:
         try:
@@ -512,6 +520,7 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
             pass_index = 0
             while len(run_paths) > MERGE_FANIN:
                 _failpoints.fire("extsort_merge", runs=len(run_paths))
+                observe.emit("merge_pass", {"pass": pass_index, "runs": len(run_paths)})
                 merged_paths: list[str] = []
                 for gi in range(0, len(run_paths), MERGE_FANIN):
                     group = run_paths[gi : gi + MERGE_FANIN]

@@ -493,7 +493,7 @@ class PipelineBuilder:
         src = rule.inputs[0]
         g = _guard.Guard.from_env(stats)
         try:
-            with open_guarded_reader(src, g) as reader:
+            with open_guarded_reader(src, g) as reader, observe.maybe_trace("molecular"):
                 header = self._pg(reader.header, "molecular")
                 ck = self._checkpointed("molecular", rule, header)
                 batches = self._molecular_batches(
@@ -527,7 +527,8 @@ class PipelineBuilder:
         src = rule.inputs[0]
         g = _guard.Guard.from_env(stats)
         try:
-            with FastaFile(cfg.genome_fasta) as fasta, open_guarded_reader(src, g) as reader:
+            with FastaFile(cfg.genome_fasta) as fasta, open_guarded_reader(src, g) as reader, \
+                    observe.maybe_trace("duplex"):
                 names = [n for n, _ in reader.header.references]
                 header = self._pg(reader.header, "duplex")
                 if mode == "self":  # output leaves coordinate-sorted
@@ -623,7 +624,8 @@ class PipelineBuilder:
         src = rule.inputs[0]
         g = _guard.Guard.from_env(mol_stats)
         try:
-            with FastaFile(cfg.genome_fasta) as fasta, open_guarded_reader(src, g) as reader:
+            with FastaFile(cfg.genome_fasta) as fasta, open_guarded_reader(src, g) as reader, \
+                    observe.maybe_trace("fused"):
                 mol_header = self._pg(reader.header, "molecular")
                 batches = self._molecular_batches(src, reader, mol_stats, g, "self")
                 plan = bucketemit.BucketPlan.from_header(mol_header, cfg.sort_buckets)
@@ -832,6 +834,7 @@ class PipelineBuilder:
                 if blocked:
                     # the fallback must be loud: an operator who asked for
                     # fusion and got the two-pass path should see why
+                    observe.emit("interstage_fallback", {"reason": blocked})
                     observe.stderr_line(f"stream_interstage disabled: {blocked}")
                 else:
                     fused = True

@@ -301,7 +301,9 @@ class Scheduler:
                     except queue.Empty:
                         if job._eos and not job.exhausted:
                             job.exhausted = True
-                            self._sweep()
+                            # pulled under the engine's 'ingest': a part of it
+                            with self.stats.metrics.timed("ingest.sweep"):
+                                self._sweep()
                         break
                     pulled += 1
                     progressed = True
@@ -327,7 +329,8 @@ class Scheduler:
                 and self.queue.pending_count() == 0
             ):
                 return
-            self._wake.wait(self.idle_wait_s)
+            with self.stats.metrics.timed("ingest.idle"):
+                self._wake.wait(self.idle_wait_s)
             self._wake.clear()
 
     def _admit(self) -> None:
@@ -352,6 +355,8 @@ class Scheduler:
 
     def _run(self) -> None:
         t0 = time.monotonic()
+        # the engine thread's timeline is the one the 'serve' line closes
+        self.stats.metrics.own_timeline()
         try:
             batches = _calling.call_molecular_batches(
                 _calling.GroupSource(self._merged()),
@@ -377,8 +382,9 @@ class Scheduler:
                 _failpoints.fire(
                     "fleet_replica_exit", stage="serve", batch=bi
                 )
-                self._demux(bi, recs)
-                self._sweep()
+                with self.stats.metrics.timed("sort_write"):  # the tenants' writers
+                    self._demux(bi, recs)
+                    self._sweep()
         except BaseException as exc:
             with self._lock:
                 self.engine_error = f"{type(exc).__name__}: {exc}"

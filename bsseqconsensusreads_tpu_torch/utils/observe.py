@@ -2,8 +2,9 @@
 
 The port's counterpart of the JAX package's utils/observe.py.
 
-* **Metrics** — named counters and phase timers for one stage (the port's
-  own, kept as it was). Phases the stages time: ingest, encode, kernel
+* **Metrics** — named counters and nested, thread-aware phase timers for
+  one stage, with the JAX package's `phase_summary` (host_s / device_s /
+  stall_s / chip_busy / unattributed_s). Phases the stages time: ingest, encode, kernel
   (host-side dispatch: H2D copies and launches), device_wait (CUDA event
   sync — the device still owned the batch), fetch (D2H copy + unpack),
   host_vote (singleton host path), rawize (duplex raw units + strand
@@ -12,7 +13,8 @@ The port's counterpart of the JAX package's utils/observe.py.
   or the methyl accumulator's read, once per stage), methyl (the
   methylation planes peeled or computed on the host, and their tallies
   added), methyl_finalize (the tally merge and the bedMethyl / CX
-  writes), stall (the dispatch thread blocked on a pool's future),
+  writes), stall (the dispatch thread blocked on a pool's future), idle
+  (the serve engine waiting for its tenants' families),
   degrade (a batch's unit run once more, failpoints bypassed, after its
   retries ran out) and spill_write (a sort run's write, on the background
   writer when host workers are on). Phases timed on pool workers sum
@@ -24,8 +26,8 @@ The port's counterpart of the JAX package's utils/observe.py.
   sink, so worker threads interleave whole lines, never bytes, and a
   crash loses at most the line being written. `ledger_digest` is a
   SHA-256 over the bytes this process wrote to a sink. Lines carry the
-  JAX package's event names and fields, so its utils/ledger_tools reads
-  the port's ledgers.
+  JAX package's event names and fields; utils.ledger_tools and
+  utils.trace_tools (`observe summarize|diff|check|trace|top`) read them.
 * **sub-sinks** — job-tagged lines (the serve engine's tenants) mirror to
   <BSSEQ_TPU_STATS_JOBS>/<job>.jsonl; a fleet replica
   (BSSEQ_TPU_REPLICA_ID) stamps 'replica' on every line and mirrors to
@@ -45,6 +47,9 @@ Activation is environment-driven, as in the JAX package:
 
   BSSEQ_TPU_STATS=-            ledger JSON lines to stderr
   BSSEQ_TPU_STATS=/path.jsonl  appended to a file
+  BSSEQ_TPU_TRACE=/path/dir    wrap the molecular, duplex and fused
+                               stages in a torch.profiler trace
+                               (Chrome trace JSON; `maybe_trace`)
 
 `event` is the port's never-silent form of `emit`: the ledger line, and
 one `<name> {json}` line on stderr.
@@ -63,40 +68,141 @@ import threading
 import time
 from dataclasses import dataclass, field
 
-#: phases whose seconds are device occupancy or the transfer around it
+#: phases whose seconds are device occupancy or the transfer around it;
+#: every other undotted phase is host work, except 'stall' (the dispatch
+#: thread blocked on a pool's future — the pipeline's unhidden remainder)
 DEVICE_PHASES = frozenset({"kernel", "device_wait", "fetch"})
+STALL_PHASES = frozenset({"stall"})
 
 
 @dataclass
 class Metrics:
-    """Named counters + phase timers for one stage. Locked: the overlap
-    and host pools' workers count and time into the stage's Metrics
-    concurrently with the dispatch thread. Nested `timed` phases each
-    record their own seconds; a phase timed on several threads at once
-    sums their seconds (worker-busy time, not wall)."""
+    """Named counters + nested, thread-aware span timers for one stage.
+
+    Locked: the overlap and host pools' workers count and time into the
+    stage's Metrics concurrently with the dispatch thread; a phase timed
+    on several threads at once sums their seconds (worker-busy time, not
+    wall). Each thread keeps its own span stack: nested `timed` calls
+    record slash-joined paths in `spans` (`span_tree` rebuilds the
+    hierarchy), and `owner_seconds` tracks the OUTERMOST spans on the
+    thread that created the Metrics — what `phase_summary`'s closure
+    (`unattributed_s`) sums against the stage wall. A dotted name
+    ('emit.pack', 'sort_write.merge') is a part of the phase before the
+    dot: it never enters the host/device/stall sums or `owner_seconds`.
+    """
 
     counters: dict = field(default_factory=dict)
     seconds: dict = field(default_factory=dict)
+    #: slash-joined span path -> [seconds, calls]
+    spans: dict = field(default_factory=dict)
+    #: outermost-span seconds on the owning thread only (closure checks)
+    owner_seconds: dict = field(default_factory=dict)
+    clock: object = field(default=time.monotonic, repr=False, compare=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False,
                                   compare=False)
+    _owner: int = field(default_factory=threading.get_ident, repr=False, compare=False)
+    _tls: threading.local = field(default_factory=threading.local, repr=False,
+                                  compare=False)
+
+    def _stack(self) -> list:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        return stack
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def own_timeline(self) -> None:
+        """Make the calling thread the owner: a Metrics made on one thread
+        for a loop that runs on another (the serve engine's) closes the
+        loop's timeline, not its maker's."""
+        with self._lock:
+            self._owner = threading.get_ident()
+
     @contextlib.contextmanager
     def timed(self, name: str):
-        t0 = time.monotonic()
+        stack = self._stack()
+        path = "/".join(stack + [name])
+        outermost = not stack
+        stack.append(name)
+        t0 = self.clock()
         try:
             yield
         finally:
-            self.add_seconds(name, time.monotonic() - t0)
+            dt = self.clock() - t0
+            stack.pop()
+            self._accumulate(name, path, dt, outermost)
 
-    def add_seconds(self, name: str, dt: float) -> None:
-        """Seconds measured elsewhere (a C call's own clock): a dotted
-        name ('sort_write.merge') marks a part of a phase timed whole."""
+    def _accumulate(self, name: str, path: str, dt: float, outermost: bool) -> None:
+        """The one locked read-modify-write behind every timer entry point."""
         with self._lock:
             self.seconds[name] = self.seconds.get(name, 0.0) + dt
+            rec = self.spans.get(path)
+            if rec is None:
+                self.spans[path] = [dt, 1]
+            else:
+                rec[0] += dt
+                rec[1] += 1
+            if outermost and threading.get_ident() == self._owner:
+                self.owner_seconds[name] = self.owner_seconds.get(name, 0.0) + dt
+
+    def add_seconds(self, name: str, dt: float) -> None:
+        """Seconds measured elsewhere (a C call's own clock, a writer's
+        post-stream share); a dotted name is booked as a sub-phase."""
+        outermost = not self._stack() and "." not in name
+        self._accumulate(name, name, dt, outermost)
+
+    def add_sub_seconds(self, name: str, dt: float) -> None:
+        """A share of time already booked under its parent phase; the name
+        must be dotted (parent.child)."""
+        if "." not in name:
+            raise ValueError(f"sub-phase name must be dotted (parent.child), got {name!r}")
+        self._accumulate(name, name, dt, outermost=False)
+
+    def rate(self, counter: str, timer: str) -> float:
+        dt = self.seconds.get(timer, 0.0)
+        return self.counters.get(counter, 0) / dt if dt else 0.0
+
+    def span_tree(self) -> dict:
+        """The span hierarchy: {name: {seconds, calls, children: {...}}},
+        rebuilt from the slash-joined paths. Same-name spans from several
+        threads merge into one node (their seconds sum)."""
+        with self._lock:
+            snapshot = dict(self.spans)
+        tree: dict = {}
+        for path, (secs, calls) in sorted(snapshot.items()):
+            node_map = tree
+            parts = path.split("/")
+            for i, part in enumerate(parts):
+                node = node_map.setdefault(part, {"seconds": 0.0, "calls": 0, "children": {}})
+                if i == len(parts) - 1:
+                    node["seconds"] = round(node["seconds"] + secs, 6)
+                    node["calls"] += calls
+                node_map = node["children"]
+        return tree
+
+    def phase_summary(self, wall: float) -> dict:
+        """The stage report the ledger carries: host_s / device_s /
+        stall_s, chip_busy (device seconds per wall second — above 1 with
+        several batches in flight) and unattributed_s (the owner thread's
+        timeline outside every outermost span; `observe check` bounds it)."""
+        with self._lock:
+            secs = dict(self.seconds)
+            owner = dict(self.owner_seconds)
+        device_s = sum(v for k, v in secs.items() if k in DEVICE_PHASES)
+        stall_s = sum(v for k, v in secs.items() if k in STALL_PHASES)
+        host_s = sum(v for k, v in secs.items()
+                     if k not in DEVICE_PHASES and k not in STALL_PHASES and "." not in k)
+        attributed = sum(owner.values())
+        return {
+            "host_s": round(host_s, 3),
+            "device_s": round(device_s, 3),
+            "stall_s": round(stall_s, 3),
+            "chip_busy": round(device_s / wall, 4) if wall > 0 else 0.0,
+            "unattributed_s": round(max(wall - attributed, 0.0), 3),
+        }
 
     def as_dict(self) -> dict:
         with self._lock:
@@ -127,10 +233,31 @@ def stats_sink() -> str | None:
     return os.environ.get("BSSEQ_TPU_STATS") or None
 
 
-def _sub_sink(env: str, key: str) -> str | None:
-    """<$env>/<key>.jsonl, or None when the sub-sink is off; the key is
-    sanitized so a hostile tag cannot leave the directory."""
-    directory = os.environ.get(env) or None
+def job_sink_dir() -> str | None:
+    """Directory of the per-job sub-sinks (BSSEQ_TPU_STATS_JOBS): every
+    job-tagged line is mirrored to <dir>/<job>.jsonl."""
+    return os.environ.get("BSSEQ_TPU_STATS_JOBS") or None
+
+
+def replica_sink_dir() -> str | None:
+    """Directory of the per-replica sub-sinks (BSSEQ_TPU_STATS_REPLICAS)."""
+    return os.environ.get("BSSEQ_TPU_STATS_REPLICAS") or None
+
+
+def worker_sink_dir() -> str | None:
+    """Directory of the per-worker sub-sinks (BSSEQ_TPU_STATS_WORKERS):
+    an elastic worker's lines are mirrored to <dir>/<worker>.jsonl."""
+    return os.environ.get("BSSEQ_TPU_STATS_WORKERS") or None
+
+
+def trace_dir() -> str | None:
+    """Where `maybe_trace` writes (BSSEQ_TPU_TRACE), or None."""
+    return os.environ.get("BSSEQ_TPU_TRACE") or None
+
+
+def _sub_sink(directory: str | None, key: str) -> str | None:
+    """<directory>/<key>.jsonl, or None when the sub-sink is off; the key
+    is sanitized so a hostile tag cannot leave the directory."""
     if directory is None:
         return None
     safe = "".join(c if c.isalnum() or c in "._-" else "_" for c in str(key)) or "_"
@@ -138,7 +265,7 @@ def _sub_sink(env: str, key: str) -> str | None:
 
 
 def job_sink(job: str) -> str | None:
-    return _sub_sink("BSSEQ_TPU_STATS_JOBS", job)
+    return _sub_sink(job_sink_dir(), job)
 
 
 def replica_id() -> str | None:
@@ -148,7 +275,7 @@ def replica_id() -> str | None:
 
 
 def replica_sink(replica: str) -> str | None:
-    return _sub_sink("BSSEQ_TPU_STATS_REPLICAS", replica)
+    return _sub_sink(replica_sink_dir(), replica)
 
 
 def worker_id() -> str | None:
@@ -158,7 +285,7 @@ def worker_id() -> str | None:
 
 
 def worker_sink(worker: str) -> str | None:
-    return _sub_sink("BSSEQ_TPU_STATS_WORKERS", worker)
+    return _sub_sink(worker_sink_dir(), worker)
 
 
 class LedgerWriter:
@@ -296,6 +423,10 @@ def emit(event: str, payload: dict, sink: str | None = None,
 # (kind job | slice | proc), `span` the current node. Span times are wall
 # clock (time.time), comparable across processes.
 
+#: trace-id kinds whose trees must reach a terminal event (job retired,
+#: slice merged); `observe check` exempts the others (proc overhead roots)
+TRACE_TERMINAL_KINDS = frozenset({"job", "slice"})
+
 _TRACE_TLS = threading.local()
 _SPAN_LOCK = threading.Lock()
 _SPAN_SEQ = [0]
@@ -320,6 +451,11 @@ def mint_trace(kind: str, key: str, job: str | None = None, **fields) -> dict:
     emit("span", {"name": f"{kind}_admit", "trace": ctx["trace"], "span": ctx["span"],
                   "t0": now, "t1": now, "dur_s": 0.0, **fields}, job=job)
     return ctx
+
+
+def trace_kind(trace_id: str) -> str:
+    """The kind segment of a trace id ('job-j0001-a1b2c3' -> 'job')."""
+    return str(trace_id).split("-", 1)[0]
 
 
 def current_trace() -> dict | None:
@@ -398,6 +534,15 @@ def proc_trace() -> dict:
             else:
                 ctx = _PROC_TRACE
     return dict(ctx)
+
+
+def reset_proc_trace() -> None:
+    """Forget the process's overhead trace: the next `proc_trace` mints a
+    new one, so its root lands in whatever ledger is open then (a driver
+    that opens one ledger per run, as a separate process would)."""
+    global _PROC_TRACE
+    with _SPAN_LOCK:
+        _PROC_TRACE = None
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +674,38 @@ def open_ledger(sink: str | None = None, config_digest: str | None = None,
     emit("run_manifest", run_manifest(config_digest, component, query_devices, extra or None),
          sink=sink)
     return True
+
+
+@contextlib.contextmanager
+def maybe_trace(label: str, directory: str | None = None):
+    """A torch.profiler trace of the block when BSSEQ_TPU_TRACE (or
+    `directory`) is set, else a no-op — the stages call it
+    unconditionally. CPU activity always, CUDA activity (the kernels by
+    name) when a card is visible; the Chrome trace lands under
+    <dir>/<label>/ as trace_<pid>_<n>.json."""
+    directory = directory if directory is not None else trace_dir()
+    if not directory:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(directory, label)
+    os.makedirs(path, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with _TRACE_SEQ_LOCK:
+        _TRACE_SEQ[0] += 1
+        n = _TRACE_SEQ[0]
+    prof = profile(activities=activities)
+    with prof:
+        yield
+    prof.export_chrome_trace(os.path.join(path, f"trace_{os.getpid()}_{n}.json"))
+
+
+_TRACE_SEQ_LOCK = threading.Lock()
+_TRACE_SEQ = [0]
 
 
 def emit_stage_stats(stage_stats: dict, sample: str | None = None,

@@ -41,7 +41,8 @@ Phases:
      csrc/vote.cu (a trap on any row, offset, segment, stage, output cell
      or TMA address outside its tensor) against the release build, then
      the head's molecular and duplex stages on it (the release bytes).
-  3. end to end: a grouped BAM of --families families (default 200,000:
+  3. end to end: a grouped BAM of --families families (default 100,000
+     since the elastic phase joined the run's time limit; 200,000 before:
      the JAX package's tools/scale_rehearsal.py mixture: read length 150,
      fragment 180, 2 Mb genome, 70% one template per strand and the rest
      two, RTA3-binned quals, ~1.3% substitutions), written by the port's
@@ -166,7 +167,8 @@ Phases:
         rule seconds beside 4a's, peak host RSS; a main path;
      b. the same default `run` in a child process with
         BSSEQ_TPU_HOST_WORKERS=0 and BSSEQ_TPU_OVERLAP_THREADS=0 on Phase
-        3's families below a quarter of --families (a depth cut): the target
+        3's families below an eighth of --families (7a's input, a depth
+        cut): the target
         equal to 4a's records of those families, per-stage families/s beside 4a's (the pools'
         measured effect on this card);
      c. the failpoint drill at the head's normal families: each schedule
@@ -189,7 +191,7 @@ Phases:
      garbage past the indel), written by a child process beside Phase 3's
      inputs:
      a. run_pipeline(FrameworkConfig(indel_policy="align")) on the card
-        on its families below a quarter of --families (a depth cut for the
+        on its families below an eighth of --families (a depth cut for the
         run's time limit; a main path): families/s per stage, indel_aligned /
         indel_dropped (their sum must equal the C scan's keep == 2 reads),
         every banded_scores call's (N, L) and the DP's and the host
@@ -202,7 +204,7 @@ Phases:
      c. the indel head (its deep families carry indel reads) with align
         through both stages on the card and the CPU: SHA-equal.
   9. the multi-device layer on one card (mesh='auto' is one device there):
-     a. Phase 3's families below a quarter of --families (a depth cut
+     a. Phase 3's families below a sixteenth of --families (a depth cut
         for the run's time limit) through both stages on make_mesh(n_data=2)
         over two slots of cuda:0 (two streams), sharded (unpacked) and
         round-robin (transport 'wire'): every BAM's records equal to Phase
@@ -223,9 +225,9 @@ Phases:
         to Phase 3's head duplex BAM, bedMethyl and CX to 5c's.
 
   10. the serving tier (serve/):
-     a. Phase 3's families below a quarter of --families (a depth cut for
-        the run's time limit) split by family into 4 tenant BAMs (a
-        sixteenth of --families each), submitted at once to one in-process
+     a. Phase 3's families below a sixteenth of --families (a depth cut
+        for the run's time limit) split by family into 4 tenant BAMs (a
+        sixty-fourth of --families each), submitted at once to one in-process
         ServeEngine(device='cuda', mode 'self', 512 families per batch,
         max_active 4) after its warmup() — the counts set to 0 just before
         the submits and read after the last job is done (a main path):
@@ -253,10 +255,42 @@ Phases:
         once): the same bytes; the respawned r0 hits the cache; the fleet
         drains and the router exits 0.
 
+  11. the elastic tier (elastic/):
+     a. `python -m bsseqconsensusreads_tpu_torch elastic run --workers 2`
+        (default slices, default config: the wire and the human-scale
+        genome, loaded by every slice's duplex stage) as a child process on
+        Phase 7b's input (Phase 3's families below an eighth of
+        --families), the workers spawned by it as processes of the port,
+        each with its own CUDA context, under BSSEQ_TPU_STATS (a main
+        path: each worker's launches start at 0 in its process and are
+        ledgered per slice): the target sha256-equal to 7b's single-process
+        target (or one run here when Phase 7 did not run), report.ok with
+        every reconciliation check, every worker's seg_vote on the card
+        and its run_manifest naming the port, the kernel library loaded
+        from Phase 1's build (not rebuilt); families/s beside the
+        single-process run, per-slice wall and genome_load, the workers'
+        spawn-to-join, import and kernel-load spans, launches and device
+        peaks;
+     b. the lifecycle on the head's normal families (7c's drill head)
+        and the small genome: two `elastic run --workers 2`, on the shared
+        run directory (a killed worker's slice resumes from its
+        checkpoints, the handoff from the rundir) and with `--ship`, each
+        with w0 armed with elastic_slice=exit:9@hit=2 and w1 sent SIGTERM
+        once it holds a lease, each sha256-equal to a single-process `run` of that
+        input, with requeues >= 2, a lost worker, elastic_worker_spawn
+        >= 4 (both respawned), one handoff_published and a preempt;
+     c. `observe check` on 4a's and 10a's ledgers (exit 0, every stage
+        line carrying chip_busy: the per-stage coverage check is not
+        vacuous) and, as the cross-process trace check, on 11a's;
+        `observe summarize --worker w0` and `observe trace` on 11a's
+        ledger printed; `run` on 11b's input under BSSEQ_TPU_TRACE in a child
+        process: both stages' torch.profiler Chrome traces name the
+        seg_vote kernel, and the target is 11b's bytes.
+
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b and 10a together), the
+Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b, 10a and 11a together), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
-exits non-zero. `--phases` runs a subset of Phases 4-10 after Phase 3 (a
+exits non-zero. `--phases` runs a subset of Phases 4-11 after Phase 3 (a
 short check; the default runs them all).
 """
 
@@ -1371,7 +1405,8 @@ def phase4a(torch, work: str, fasta: str, big: str, phase3_summaries: dict,
         for name in originals:
             setattr(stages.PipelineBuilder, name, observed(name))
         t0 = time.monotonic()
-        doc, err = run_cli(argv)
+        with ledgered(work, "4a"):
+            doc, err = run_cli(argv)
         run_wall = time.monotonic() - t0
     finally:
         for name, fn in originals.items():
@@ -2210,31 +2245,42 @@ DRILL = (
 
 
 def phase7(np, torch, work: str, inputs, cpu_families: int, cut: int) -> dict:
-    """The batch engine: 7a the fused rule at Phase 3's families below
-    half of `cut`, 7b the inline path in a child process at the families
-    below `cut` (a quarter of --families; both depth cuts for the run's
-    time limit), 7c the failpoint drill and 7d the
+    """The batch engine: 7a the fused rule and 7b the inline path in a
+    child process, both at Phase 3's families below `cut` (an eighth of
+    --families; a depth cut for the run's time limit), 7c the failpoint drill and 7d the
     input guard at the head's families (its deep families set aside, so
     the drill's batch indices are device batches at any --cpu-families).
     Returns the kernels' launches on 7a's main path."""
     fasta, big, small, genome = inputs
     t0 = time.monotonic()
     cut_big = family_subset(big, os.path.join(work, "cut7", "grouped.bam"), cut)
-    cut_7a = family_subset(cut_big, os.path.join(work, "cut7a", "grouped.bam"), cut // 2)
-    log(f"phase7 inputs: phase 3's families below {cut} and {cut // 2} "
-        f"({time.monotonic() - t0:.1f} s)")
-    launches = phase7a(torch, work, genome, cut_7a, cut // 2)
+    log(f"phase7 input: phase 3's families below {cut} ({time.monotonic() - t0:.1f} s)")
+    launches = phase7a(torch, work, genome, cut_big, cut)
     phase7b(work, genome, cut_big, cut)
-    n_head = cpu_families + len(DEEP_HEAD)
-    deep = {n_head * (i + 1) // (len(DEEP_HEAD) + 1) for i in range(len(DEEP_HEAD))}
-    drill = os.path.join(work, "drill_head.bam")
-    n = head_subset(small, drill, lambda fam: fam not in deep)
-    log(f"phase7 drill head: {n} records of the head's {n_head - len(deep)} normal families")
+    drill = normal_head(work, small, cpu_families)
     phase7c(work, fasta, drill)
     bad = os.path.join(work, "bad_head.bam")
+    deep = deep_head_families(cpu_families)
     n = head_subset(small, bad, lambda fam: fam < 400 and fam not in deep, corrupt_every=211)
     phase7d(work, fasta, bad, n)
     return launches
+
+
+def deep_head_families(cpu_families: int) -> set:
+    """The head's deep families (DEEP_HEAD, spread among its normal ones)."""
+    n_head = cpu_families + len(DEEP_HEAD)
+    return {n_head * (i + 1) // (len(DEEP_HEAD) + 1) for i in range(len(DEEP_HEAD))}
+
+
+def normal_head(work: str, small: str, cpu_families: int) -> str:
+    """drill_head.bam: the head's normal families (its deep ones set
+    aside), written once."""
+    drill = os.path.join(work, "drill_head.bam")
+    if not os.path.exists(drill):
+        deep = deep_head_families(cpu_families)
+        n = head_subset(small, drill, lambda fam: fam not in deep)
+        log(f"drill head: {n} records of the head's {cpu_families} normal families")
+    return drill
 
 
 def phase7a(torch, work: str, genome: str, big: str, cut: int) -> dict:
@@ -2315,6 +2361,7 @@ def phase7b(work: str, genome: str, big: str, cut: int) -> None:
         f"that differ apart from @PG: {json.dumps(hdiff)}")
     check(same and not hdiff["only_run"] and not hdiff["only_phase3"],
           "phase7b: the inline target differs from 4a's")
+    RUN7B.update(input=big, target=doc["target"], wall=doc["wall"])
     for stage, st in doc["stats"].items():
         check_unarmed(st, f"phase7b {stage}")
         pooled = RUN4A["doc"]["stats"][stage]
@@ -3079,7 +3126,7 @@ def phase10a(torch, work: str, big: str, families: int) -> dict:
     from bsseqconsensusreads_tpu_torch.faults import failpoints
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote
     from bsseqconsensusreads_tpu_torch.serve import ServeEngine
-    from bsseqconsensusreads_tpu_torch.utils import compilecache
+    from bsseqconsensusreads_tpu_torch.utils import compilecache, observe
 
     d = os.path.join(work, "serve")
     os.makedirs(d, exist_ok=True)
@@ -3099,7 +3146,8 @@ def phase10a(torch, work: str, big: str, families: int) -> dict:
         cuda_vote.LAUNCHES[k] = 0
     cuda_vote.SEG_VOTE_SHAPES.clear()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    with PeakMemory(torch) as mem, prof:
+    with ledgered(work, "10a"), PeakMemory(torch) as mem, prof:
+        observe.open_ledger(component="serve")
         t0 = time.monotonic()
         jobs = [engine.submit({"input": p, "output": o}) for p, o in zip(tenants, outs)]
         engine.start()
@@ -3327,6 +3375,316 @@ def phase10c(work: str, head: str, ref: str) -> None:
             proc.wait(timeout=30)
 
 
+# ---------------------------------------------------------------- Phase 11
+
+
+#: Phase 7b's inline `run` (its input, target, wall and families): 11a's
+#: single-process reference when Phase 7 ran
+RUN7B: dict = {}
+
+#: the run ledgers 11c checks: phase tag -> BSSEQ_TPU_STATS path
+LEDGERS: dict = {}
+
+#: 11b's single-process run of the head (its target): 11c's reference
+RUN11B: dict = {}
+
+
+class ledgered:
+    """BSSEQ_TPU_STATS=<work>/ledgers/<tag>.jsonl for the block, in this
+    process (and the children it starts); the path lands in LEDGERS. The
+    process's proc trace is minted anew, so its root is in this ledger."""
+
+    def __init__(self, work: str, tag: str):
+        self.path = os.path.join(work, "ledgers", f"{tag}.jsonl")
+        self.tag = tag
+
+    def __enter__(self) -> str:
+        from bsseqconsensusreads_tpu_torch.utils import observe
+
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.old = os.environ.get("BSSEQ_TPU_STATS")
+        os.environ["BSSEQ_TPU_STATS"] = self.path
+        observe.reset_proc_trace()
+        return self.path
+
+    def __exit__(self, *exc) -> None:
+        from bsseqconsensusreads_tpu_torch.utils import observe
+
+        observe.close_sinks()
+        observe.reset_proc_trace()
+        if self.old is None:
+            os.environ.pop("BSSEQ_TPU_STATS", None)
+        else:
+            os.environ["BSSEQ_TPU_STATS"] = self.old
+        LEDGERS[self.tag] = self.path
+
+
+def ledger_lines(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(ln) for ln in fh if ln.strip()]
+
+
+def observe_cli(argv: list[str]) -> tuple[int, str, str]:
+    """`observe ...` through cli.main in this process: (exit, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from bsseqconsensusreads_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["observe", *argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def elastic_cli(args: list[str], ledger: str, timeout: float = 900, **env) -> tuple:
+    """`python -m bsseqconsensusreads_tpu_torch elastic run ...` as a child
+    (the coordinator; it spawns the workers): (stdout JSON, wall, ledger
+    lines)."""
+    cmd = [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "elastic", "run", *args]
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, env=child_env(BSSEQ_TPU_STATS=ledger, **env),
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.monotonic() - t0
+    check(res.returncode == 0, f"elastic run {args[-4:]} exited {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), wall, ledger_lines(ledger)
+
+
+def count_events(lines: list, event: str, **match) -> int:
+    return sum(1 for d in lines if d.get("event") == event
+               and all(d.get(k) == v for k, v in match.items()))
+
+
+def worker_launches(lines: list) -> tuple[dict, set, int]:
+    """The vote kernels' launches summed over the workers' kernel_launches
+    lines, their backends, and the largest device peak a worker booked."""
+    total: dict = {}
+    backends = set()
+    peak = 0
+    for d in lines:
+        if d.get("event") != "kernel_launches":
+            continue
+        backends.add(d["backend"])
+        peak = max(peak, d.get("device_peak_bytes", 0))
+        for k in ("seg_vote", "seg_vote_partials", "vote_finalize"):
+            total[k] = total.get(k, 0) + d.get(k, 0)
+    return total, backends, peak
+
+
+def phase11(np, torch, work: str, inputs, families: int, cpu_families: int) -> dict:
+    """The elastic tier: 11a `elastic run --workers 2` on Phase 3's
+    families below `families` (7b's cut; a main path), 11b its lifecycle
+    on the head's normal families, 11c `observe` on the card's ledgers.
+    Returns 11a's launches, summed over its workers' ledgers."""
+    fasta, big, small, genome = inputs
+    launches = phase11a(torch, work, big, genome, families)
+    head = normal_head(work, small, cpu_families)
+    phase11b(work, fasta, head)
+    phase11c(work, fasta, head)
+    return launches
+
+
+def phase11a(torch, work: str, big: str, genome: str, families: int) -> dict:
+    """`elastic run --workers 2` (default slices, default config, the
+    human-scale genome) as a child process: the target SHA-equal to a
+    single-process `run` of the same input (7b's when Phase 7 ran),
+    report.ok, every worker's seg_vote on the card; families/s beside the
+    single-process run, per-slice wall and genome_load, the workers'
+    spawn-to-join and import spans, launches and device peaks."""
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.ops import cuda_vote
+    from bsseqconsensusreads_tpu_torch.pipeline import stages
+
+    d = os.path.join(work, "elastic11a")
+    if RUN7B:
+        inp, ref, ref_wall, ref_kind = (RUN7B["input"], RUN7B["target"], RUN7B["wall"],
+                                        "7b's inline run (host and overlap workers 0)")
+    else:
+        inp = family_subset(big, os.path.join(d, "input", "grouped.bam"), families)
+        cfg = FrameworkConfig(genome_dir=os.path.dirname(genome),
+                              genome_fasta_file_name=os.path.basename(genome))
+        t0 = time.monotonic()
+        ref = stages.run_pipeline(cfg, inp, outdir=os.path.join(d, "single"))[0]
+        ref_wall, ref_kind = time.monotonic() - t0, "a single-process run in this process"
+    lib = cuda_vote.build()
+    built = os.path.getmtime(lib)
+    with ledgered(work, "11a") as ledger:
+        doc, wall, lines = elastic_cli(
+            ["--bam", inp, "--reference", genome, "--outdir", os.path.join(d, "out"),
+             "--workers", "2"], ledger, BSSEQ_TPU_STATS_WORKERS=os.path.join(d, "workers"))
+    report = doc["report"]
+    same = sha256(doc["target"]) == sha256(ref)
+    launches, backends, peak = worker_launches(lines)
+    spawn = {d_["worker"]: round(d_["dur_s"], 3) for d_ in lines
+             if d_.get("event") == "span" and d_.get("name") == "worker_spawn"}
+    imports = [round(d_["dur_s"], 3) for d_ in lines
+               if d_.get("event") == "span" and d_.get("name") == "jax_import"]
+    slices = {d_["slice"]: d_["wall_s"] for d_ in lines
+              if d_.get("event") == "elastic_slice_processed"}
+    genome_load = {d_["sample"]: round(d_.get("genome_load_seconds", 0.0), 3) for d_ in lines
+                   if d_.get("event") == "stage_stats" and d_.get("stage") == "duplex"}
+    manifests = [d_ for d_ in lines if d_.get("event") == "run_manifest" and d_.get("worker_id")]
+    log(f"phase11a elastic run --workers 2 on {families} families: {wall:.2f} s of command "
+        f"(split to merge {report['wall_s']} s), {families / wall:.1f} families/s beside "
+        f"{families / ref_wall:.1f} for {ref_kind} ({ref_wall:.2f} s, x{ref_wall / wall:.3f}); "
+        f"target sha256-equal: {same}; report ok {report['ok']} {json.dumps(report['checks'])}, "
+        f"records {report['records']}, requeues {report['requeues']}")
+    log(f"phase11a per slice: wall {json.dumps(slices)}; duplex genome_load "
+        f"{json.dumps(genome_load)} (sum {sum(genome_load.values()):.2f} s)")
+    log(f"phase11a workers: spawn-to-join {json.dumps(spawn)}; import + kernel load spans "
+        f"{json.dumps(imports)}; launches {json.dumps(launches)} on {sorted(backends)}; "
+        f"peak device allocated per worker {peak / 2**30:.4f} GiB; the kernel library rebuilt: "
+        f"{os.path.getmtime(lib) != built}")
+    check(same, "phase11a: the elastic target differs from the single-process run's")
+    check(report["ok"] and all(report["checks"].values()), f"phase11a: report {report}")
+    check(backends == {"cuda"} and launches.get("seg_vote", 0) > 0,
+          f"phase11a: the workers' launches {launches} on {backends}")
+    check(manifests and all("bsseqconsensusreads_tpu_torch" in m["argv"]
+                            and m["backend"] == "cuda" for m in manifests),
+          "phase11a: a worker's run_manifest does not name the port on the card")
+    check(os.path.getmtime(lib) == built, "phase11a: a worker rebuilt the kernel library")
+    check(len(slices) == 8, f"phase11a: {len(slices)} slices processed, not the default 8")
+    return launches
+
+
+def phase11b(work: str, fasta: str, small: str) -> None:
+    """The lifecycle on the head's normal families (`small`) and the small
+    genome: two `elastic run --workers 2`, on the shared run directory and
+    with `--ship`, each with w0 killed at its second slice (requeue and
+    respawn) and w1 sent SIGTERM as it holds its first slice (a handoff),
+    SHA-equal to a single-process run."""
+    from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
+    from bsseqconsensusreads_tpu_torch.pipeline import stages
+
+    d = os.path.join(work, "elastic11b")
+    cfg = FrameworkConfig(genome_dir=os.path.dirname(fasta),
+                          genome_fasta_file_name=os.path.basename(fasta))
+    t0 = time.monotonic()
+    RUN11B["target"] = stages.run_pipeline(cfg, small, outdir=os.path.join(d, "single"))[0]
+    ref = sha256(RUN11B["target"])
+    log(f"phase11b single-process run of the head's normal families: "
+        f"{time.monotonic() - t0:.2f} s")
+    # the shared rundir: a killed worker's slice resumes from its
+    # checkpoints, the handoff from the rundir; --ship: both from the
+    # chunks the workers pushed
+    for mode in ("shared", "ship"):
+        lifecycle_run(d, fasta, small, ref, mode)
+
+
+def lifecycle_run(d: str, fasta: str, small: str, ref: str, mode: str) -> None:
+    """One fleet run of phase11b with both faults, `--ship` when `mode` is
+    'ship': rc 0, SHA-equal, the kill requeued and respawned, one handoff."""
+    ledger = os.path.join(d, f"lifecycle_{mode}.jsonl")
+    cmd = [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "elastic", "run", "--bam",
+           small, "--reference", fasta, "--workers", "2", "--outdir",
+           os.path.join(d, f"out_{mode}"), "--worker-failpoints",
+           "w0:elastic_slice=exit:9@hit=2", *(["--ship"] if mode == "ship" else [])]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, env=child_env(BSSEQ_TPU_STATS=ledger),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        pid = None
+        deadline = time.monotonic() + 300
+        while pid is None and time.monotonic() < deadline and proc.poll() is None:
+            time.sleep(0.05)
+            lines = ledger_lines(ledger) if os.path.exists(ledger) else []
+            spawned = {x["worker"]: x["pid"] for x in lines
+                       if x.get("event") == "elastic_worker_spawn"}
+            if count_events(lines, "elastic_lease", worker="w1") and "w1" in spawned:
+                pid = spawned["w1"]
+        check(pid is not None, f"phase11b {mode}: w1 never held a lease")
+        t_kill = time.monotonic()
+        os.kill(pid, 15)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    check(proc.returncode == 0,
+          f"phase11b {mode}: elastic run exited {proc.returncode}: {err[-3000:]}")
+    doc = json.loads(out.strip().splitlines()[-1])
+    r = doc["report"]
+    lines = ledger_lines(ledger)
+    handoff = [x for x in lines if x.get("event") == "handoff_published"]
+    spawns = count_events(lines, "elastic_worker_spawn")
+    same = sha256(doc["target"]) == ref
+    log(f"phase11b {mode}, w0 killed at its second slice, w1 sent SIGTERM {t_kill - t0:.2f} s "
+        f"into the run as it held its first slice: {time.monotonic() - t0:.2f} s, "
+        f"sha256-equal {same}, requeues {r['requeues']}, workers_lost {r['workers_lost']}, "
+        f"preempts {r['preempts']}, worker spawns {spawns}, handoffs {json.dumps(handoff)}, "
+        f"chunks resent {count_events(lines, 'slice_chunk_resent')}")
+    check(same and r["ok"], f"phase11b {mode}: other bytes after the faults")
+    check(r["requeues"] >= 2 and r["workers_lost"] >= 1 and spawns >= 4,
+          f"phase11b {mode}: the kill did not requeue and respawn: {r}, spawns {spawns}")
+    check(len(handoff) == 1 and handoff[0]["worker"] == "w1" and r["preempts"] >= 1,
+          f"phase11b {mode}: no handoff after the SIGTERM")
+
+
+def phase11c(work: str, fasta: str, head: str) -> None:
+    """`observe` on the card's ledgers: check passes on 4a's and 10a's
+    ledgers (their stage lines carry the phase summary) and, as the
+    cross-process trace check, on 11a's; summarize --worker w0 and trace
+    print their tables; a run on 11b's input under BSSEQ_TPU_TRACE writes
+    Chrome traces that name the seg_vote kernel."""
+    for tag in ("4a", "10a"):
+        if tag not in LEDGERS:
+            continue
+        rc, out, err = observe_cli(["check", LEDGERS[tag]])
+        # a serve tenant's line (job-tagged) carries no phases, as in the
+        # JAX package: the device time is the engine's ('serve' line)
+        stages_ = [x for x in ledger_lines(LEDGERS[tag])
+                   if x.get("event") == "stage_stats" and "job" not in x]
+        covered = bool(stages_) and all("chip_busy" in x for x in stages_)
+        log(f"phase11c observe check {tag}: exit {rc} {out.strip()} {err.strip()[:2000]}; "
+            f"{len(stages_)} stage lines, each with chip_busy: {covered}")
+        check(rc == 0 and covered, f"phase11c: observe check of {tag}'s ledger")
+    if "11a" in LEDGERS:
+        rundir = os.path.dirname(LEDGERS["11a"])
+        rc, out, err = observe_cli(["check", rundir])
+        log(f"phase11c observe check 11a (cross-process traces): exit {rc} {out.strip()} "
+            f"{err.strip()[:2000]}")
+        check(rc == 0, "phase11c: observe check of 11a's ledgers")
+        rc, out, _err = observe_cli(["summarize", LEDGERS["11a"], "--worker", "w0"])
+        for ln in out.splitlines():
+            log(f"phase11c summarize --worker w0 | {ln}")
+        log(f"phase11c summarize --worker w0: exit {rc}")
+        rc, out, err = observe_cli(["trace", rundir])
+        for ln in out.splitlines():
+            log(f"phase11c trace | {ln}")
+        log(f"phase11c trace: exit {rc} {err.strip()[:2000]}")
+        check(rc == 0, "phase11c: observe trace of 11a's ledgers")
+        stages_ = [x for x in ledger_lines(LEDGERS["11a"]) if x.get("event") == "stage_stats"]
+        check(stages_ and all("chip_busy" in x for x in stages_),
+              "phase11c: 11a's stage lines lack the phase summary")
+    import collections
+
+    traces = os.path.join(work, "traces")
+    res = subprocess.run(
+        [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "run", "--bam", head,
+         "--reference", fasta, "--outdir", os.path.join(work, "traced")],
+        env=child_env(BSSEQ_TPU_TRACE=traces), capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"phase11c: the traced run failed: {res.stderr[-2000:]}")
+    named = {}
+    for stage in ("molecular", "duplex"):
+        files = sorted(os.listdir(os.path.join(traces, stage)))
+        with open(os.path.join(traces, stage, files[0])) as fh:
+            doc = json.load(fh)
+        # a kernel event's name is its demangled signature, e.g.
+        # "(anonymous namespace)::seg_vote_kernel(signed char const*, ...)"
+        kernels = collections.Counter(
+            e.get("name", "").replace("(anonymous namespace)::", "").split("(")[0]
+            for e in doc["traceEvents"] if e.get("cat") == "kernel")
+        named[stage] = {k: v for k, v in kernels.items() if "vote" in k}
+    same = sha256(json.loads(res.stdout.strip().splitlines()[-1])["target"]) == \
+        sha256(RUN11B["target"])
+    log(f"phase11c traced run of 11b's input (BSSEQ_TPU_TRACE): vote kernels in the Chrome traces "
+        f"{json.dumps(named)}; target equal to 11b's single-process run: {same}")
+    check(all(any(k.startswith("seg_vote") for k in v) for v in named.values()),
+          "phase11c: a stage's trace does not name the seg_vote kernel")
+    check(same, "phase11c: the traced run wrote other bytes")
+
+
 def bounds_child(np, torch, work: str) -> None:
     """In a process started with CUDA_LAUNCH_BLOCKING=1: every Phase 2
     seg_vote case (the main paths' shapes, the edge and the deep ones)
@@ -3455,7 +3813,7 @@ def main() -> int:
                     "indel inputs of --families and --cpu-families in WORKDIR")
     ap.add_argument("--mesh-child", metavar="RANK,PORT,HEAD,WORKDIR", default="",
                     help="(run by the full run) one of Phase 9c's two processes")
-    ap.add_argument("--phases", default="4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="4,5,6,7,8,9,10,11",
                     help="the phases after Phase 3 to run (a short check of one phase: "
                     "--phases 10); the default, all of them, is the full run")
     args = ap.parse_args()
@@ -3520,12 +3878,14 @@ def main() -> int:
                         ("6", lambda: phase6(np, torch, work, inputs, summaries[0],
                                              args.families // 8, args.cpu_families)),
                         ("7", lambda: phase7(np, torch, work, inputs, args.cpu_families,
-                                             args.families // 4)),
-                        ("8", lambda: phase8(np, torch, work, inputs, args.families // 4,
+                                             args.families // 8)),
+                        ("8", lambda: phase8(np, torch, work, inputs, args.families // 8,
                                              args.cpu_families)),
                         ("9", lambda: phase9(np, torch, work, inputs, summaries,
-                                             args.cpu_families, args.families // 4)),
-                        ("10", lambda: phase10(np, torch, work, inputs, args.families // 4)),
+                                             args.cpu_families, args.families // 16)),
+                        ("10", lambda: phase10(np, torch, work, inputs, args.families // 16)),
+                        ("11", lambda: phase11(np, torch, work, inputs, args.families // 8,
+                                               args.cpu_families)),
                     ):
                         if tag not in phases:
                             continue

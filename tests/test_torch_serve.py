@@ -14,7 +14,8 @@ held against the JAX package's serve contract (tests/test_serve.py):
 * lifecycle — drain() returns True with 0 and 4 host workers (the JAX
   engine does not drain with its host pool on), JobMi rides the Python
   encode and emit to the retire, FLUSH_BATCH and the prefetch barrier;
-* the per-job ledger lines read by the JAX package's utils.ledger_tools.
+* the per-job ledger lines read by the port's utils.ledger_tools, and
+  summarized alike by the JAX package's.
 
 Tolerance: equality (SHA-256 of the BAMs, equal counters and types).
 """
@@ -30,7 +31,7 @@ import pytest
 from bsseqconsensusreads_tpu import cli as jcli
 from bsseqconsensusreads_tpu import serve as jserve
 from bsseqconsensusreads_tpu.io.bam import BamReader, BamWriter
-from bsseqconsensusreads_tpu.utils import ledger_tools
+from bsseqconsensusreads_tpu.utils import ledger_tools as jledger_tools
 from bsseqconsensusreads_tpu.utils.testing import make_grouped_bam_records
 from bsseqconsensusreads_tpu_torch.faults import failpoints
 from bsseqconsensusreads_tpu_torch.pipeline import calling as pcalling
@@ -41,7 +42,7 @@ from bsseqconsensusreads_tpu_torch.serve import (
     QueueClosed,
     ServeEngine,
 )
-from bsseqconsensusreads_tpu_torch.utils import observe
+from bsseqconsensusreads_tpu_torch.utils import ledger_tools, observe
 from bsseqconsensusreads_tpu_torch.utils.testing import ensure_reference_natives
 
 GENOME = "".join("ACGT"[i] for i in np.random.default_rng(7).integers(0, 4, size=2000))
@@ -189,6 +190,29 @@ def test_lone_job_completes_without_load(tenants, tmp_path):
         assert eng.status(job.id)["latency_s"] >= 0
     finally:
         assert eng.stop(timeout=30)
+
+
+def test_idle_engine_books_its_waits_inside_ingest(tenants, tmp_path, monkeypatch):
+    """An engine that idles between two jobs books the waits as a part of
+    the engine thread's 'ingest' (the dotted 'ingest.idle'), never as host
+    work of their own: the serve line's host_s stays within its wall."""
+    monkeypatch.setenv("BSSEQ_TPU_HOST_WORKERS", "0")
+    _d, inputs, refs = tenants
+    eng = ServeEngine(device="cpu", batch_families=4, stride=2).start()
+    try:
+        for k in range(2):
+            job = eng.submit({"input": inputs[k], "output": str(tmp_path / f"o{k}.bam")})
+            assert eng.wait(job.id, timeout=60)["state"] == "done"
+            assert sha(str(tmp_path / f"o{k}.bam")) == refs[k]
+            if k == 0:
+                time.sleep(2.0)
+    finally:
+        assert eng.stop(timeout=30)
+    line = eng.scheduler.stats.as_dict()
+    assert line["ingest.idle_seconds"] >= 1.5
+    assert line["ingest_seconds"] >= line["ingest.idle_seconds"]
+    assert "idle_seconds" not in line
+    assert line["host_s"] <= line["wall_seconds"], line
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +400,7 @@ def test_prefetch_does_not_pull_past_a_sync_barrier():
 
 
 # ---------------------------------------------------------------------------
-# the job-scoped ledger, read by the JAX package's ledger_tools
+# the job-scoped ledger, read by the port's ledger_tools and the JAX package's
 
 
 def test_job_scoped_ledger_reads_in_the_jax_ledger_tools(tenants, tmp_path, monkeypatch):
@@ -409,6 +433,9 @@ def test_job_scoped_ledger_reads_in_the_jax_ledger_tools(tenants, tmp_path, monk
         sub = ledger_tools.summarize_ledger(os.path.join(jobs_dir, f"{jid}.jsonl"), job=jid)
         assert sub.events == s0.events
     assert not ledger_tools.summarize_ledger(ledger, job="j9999").ok
+    for jid in [None] + ids:
+        assert jledger_tools.format_summary(jledger_tools.summarize_ledger(ledger, job=jid)) == \
+            ledger_tools.format_summary(ledger_tools.summarize_ledger(ledger, job=jid))
     with open(ledger) as fh:
         events = [json.loads(ln)["event"] for ln in fh]
     assert events[0] == "run_manifest"
