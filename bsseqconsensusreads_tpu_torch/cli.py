@@ -38,6 +38,8 @@ card:
 * observe   — the run-ledger tools (utils.ledger_tools, utils.trace_tools):
               summarize / diff / check / trace over BSSEQ_TPU_STATS
               ledgers, `top` polls a live process's metrics
+* lint      — graftlint (analysis/) over the port, or with --contracts the
+              graftcontract registry pass; host code, no card
 
 With BSSEQ_TPU_STATS set (a path, or '-' for stderr) run, molecular,
 duplex, serve and route write the JAX package's run ledger
@@ -85,7 +87,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.utils import observe
@@ -213,7 +214,7 @@ def cmd_molecular(args) -> int:
         g.close()
     observe.emit_stage_stats({"molecular": stats})
     observe.flush_sinks()
-    print(json.dumps(stats.as_dict()), file=sys.stderr)
+    observe.stderr_line(json.dumps(stats.as_dict()))
     return 0
 
 
@@ -281,10 +282,10 @@ def cmd_duplex(args) -> int:
             g.close()
     if methyl_acc is not None:
         report = methyl_acc.finalize()
-        print(json.dumps({"methyl": report}), file=sys.stderr)
+        observe.stderr_line(json.dumps({"methyl": report}))
     observe.emit_stage_stats({"duplex": stats})
     observe.flush_sinks()
-    print(json.dumps(stats.as_dict()), file=sys.stderr)
+    observe.stderr_line(json.dumps(stats.as_dict()))
     return 0
 
 
@@ -476,7 +477,7 @@ def cmd_sort(args) -> int:
     with BamReader(args.input) as reader:
         header = reader.header.with_sort_order(so, ss)
         n = sorted_write(reader, key, args.output, header)
-    print(json.dumps({"records": n, "order": args.order}), file=sys.stderr)
+    observe.stderr_line(json.dumps({"records": n, "order": args.order}))
     return 0
 
 
@@ -503,7 +504,7 @@ def cmd_group(args) -> int:
                     stats=stats,
                 )
             )
-    print(json.dumps(stats.as_dict()), file=sys.stderr)
+    observe.stderr_line(json.dumps(stats.as_dict()))
     return 0
 
 
@@ -554,7 +555,7 @@ def cmd_filter_consensus(args) -> int:
         with BamWriter(args.output, filtered_header(reader.header)) as w:
             blobs = (encode_record(rec) for rec in reader)
             w.write_raw_many(filter_consensus_raw(blobs, params, stats=stats))
-    print(json.dumps(stats.as_dict()), file=sys.stderr)
+    observe.stderr_line(json.dumps(stats.as_dict()))
     return 0
 
 
@@ -572,7 +573,7 @@ def cmd_zipper(args) -> int:
             for rec in zipper_bams_stream(aligned, unaligned, header):
                 w.write(rec)
                 n += 1
-    print(json.dumps({"records": n}), file=sys.stderr)
+    observe.stderr_line(json.dumps({"records": n}))
     return 0
 
 
@@ -590,7 +591,7 @@ def cmd_sam_to_fastq(args) -> int:
         n1, n2 = sam_to_fastq(
             external_sort(reader, name_key, reader.header), args.fq1, args.fq2,
         )
-    print(json.dumps({"r1": n1, "r2": n2}), file=sys.stderr)
+    observe.stderr_line(json.dumps({"r1": n1, "r2": n2}))
     return 0
 
 
@@ -605,7 +606,7 @@ def cmd_filter_mapped(args) -> int:
             for rec in filter_mapped(reader):
                 w.write(rec)
                 n += 1
-    print(json.dumps({"records": n}), file=sys.stderr)
+    observe.stderr_line(json.dumps({"records": n}))
     return 0
 
 
@@ -750,6 +751,8 @@ def cmd_submit(args) -> int:
     try:
         deadline = time.monotonic() + args.timeout
         while True:
+            # graftlint: disable=untraced-transport-send -- the job's trace is minted at
+            # the server's admission; the submitting client has none to pass
             resp = request(args.socket, {"op": "submit", "spec": spec})
             if resp.get("ok") or resp.get("guard") != "overloaded":
                 break
@@ -805,6 +808,77 @@ def cmd_serve_ctl(args) -> int:
         return 2
     print(json.dumps(resp))
     return 0 if resp.get("ok") else 1
+
+
+def cmd_lint(args) -> int:
+    """graftlint driver: lint the port's package (default) or the given
+    paths; --contracts runs the whole-program graftcontract pass instead.
+    Host code: no card, no --device.
+
+    Exit codes: 0 clean, 1 unsuppressed findings or drift, 2 usage error
+    (an unknown rule name — in --rules or a suppression comment — an
+    unparseable file, or a registry / waiver error). The JSON carries the
+    JAX package's keys."""
+    import os
+
+    from bsseqconsensusreads_tpu_torch import analysis
+
+    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(analysis.__file__)))
+    paths = args.paths or [pkg_dir]
+    rules = None
+    if args.rules:
+        rules = [r.strip() for r in args.rules.split(",") if r.strip()]
+    if args.contracts:
+        from bsseqconsensusreads_tpu_torch.analysis import contracts
+
+        try:
+            report = contracts.verify_package(args.paths or None)
+        except analysis.LintError as exc:
+            if args.json:
+                print(json.dumps({"error": str(exc)}))
+            else:
+                observe.stderr_line(f"lint: {exc}")
+            return 2
+        if args.json:
+            print(json.dumps(report.as_dict()))
+        else:
+            for d in report.drifts:
+                print(d.format())
+            print(f"{len(report.drifts)} drift(s), {len(report.waived)} waived")
+        return 0 if report.ok else 1
+    registry = analysis.all_rules()
+    if args.list_rules:
+        if args.json:
+            print(json.dumps(
+                {name: rule.summary for name, rule in sorted(registry.items())}
+            ))
+        else:
+            for name, rule in sorted(registry.items()):
+                print(f"{name}: {rule.summary}")
+        return 0
+    try:
+        findings = analysis.run_lint(
+            paths, rules=rules, include_suppressed=args.include_suppressed
+        )
+    except analysis.LintError as exc:
+        if args.json:
+            print(json.dumps({"error": str(exc)}))
+        else:
+            observe.stderr_line(f"lint: {exc}")
+        return 2
+    if args.json:
+        print(json.dumps({
+            "findings": [f.as_dict() for f in findings],
+            "count": len(findings),
+            "rules": sorted(r.name for r in registry.values()
+                            if rules is None or r.name in rules),
+            "paths": [str(p) for p in paths],
+        }))
+    else:
+        for f in findings:
+            print(f.format())
+        print(f"{len(findings)} finding(s)")
+    return 1 if findings else 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -909,9 +983,10 @@ def main(argv: list[str] | None = None) -> int:
         help="base path for the methylation outputs (default: the output BAM's path)",
     )
     p.add_argument(
-        "--methyl-engine", choices=("auto", "device", "host"), default="auto",
+        "--methyl-engine", choices=("auto", "device", "host"), default=None,
         help="where the epilogue runs: on the vote's device, inside the "
-        "dispatch (auto = device), or the numpy twin on the host",
+        "dispatch (auto = device), or the numpy twin on the host "
+        "(default: BSSEQ_TPU_METHYL_ENGINE, else auto)",
     )
     p.add_argument(
         "--passthrough", action="store_true",
@@ -1179,6 +1254,33 @@ def main(argv: list[str] | None = None) -> int:
                     "interrupted)")
     tp.set_defaults(fn=cmd_observe)
 
+    p = sub.add_parser(
+        "lint",
+        help="graftlint static analysis: card-hostile / thread-unsafe code "
+        "checkers over the port's package (or given paths)",
+    )
+    p.add_argument(
+        "paths", nargs="*",
+        help="files or directories to lint (default: the "
+        "bsseqconsensusreads_tpu_torch package)",
+    )
+    p.add_argument("--json", action="store_true", help="machine output")
+    p.add_argument("--rules", default="",
+                   help="comma-separated rule subset (default: all; see --list-rules)")
+    p.add_argument("--list-rules", action="store_true", help="print the rule table")
+    p.add_argument(
+        "--include-suppressed", action="store_true",
+        help="report findings even where a graftlint disable comment covers "
+        "them (audit mode)",
+    )
+    p.add_argument(
+        "--contracts", action="store_true",
+        help="run the whole-program graftcontract drift pass instead of the "
+        "per-file rules (registry vs extracted uses of env vars, failpoints, "
+        "ledger events, counters, protocol ops, CLI surface)",
+    )
+    p.set_defaults(fn=cmd_lint)
+
     args = ap.parse_args(argv)
     from bsseqconsensusreads_tpu_torch.faults.guard import GuardError
     from bsseqconsensusreads_tpu_torch.utils import compilecache
@@ -1192,6 +1294,6 @@ def main(argv: list[str] | None = None) -> int:
         # and a traceback would read as a crash; the flight ring is dumped
         # to the ledger first (nothing without a sink)
         observe.flight_dump(f"guard_error:{e.reason}")
-        print(f"bsseqconsensusreads_tpu_torch: input error [{e.reason}]: {e}",
-              file=sys.stderr, flush=True)
+        observe.stderr_line(
+            f"bsseqconsensusreads_tpu_torch: input error [{e.reason}]: {e}")
         return 3

@@ -663,6 +663,8 @@ class Coordinator(ProtocolServer):
             return
         # lease-expiry pump: it only calls
         # the lock-guarded ledger API on a fixed cadence
+        # graftlint: owned-thread -- lease-expiry pump: it only calls
+        # the lock-guarded ledger API on a fixed cadence
         self._monitor_thread = threading.Thread(
             target=self._monitor, args=(interval_s,),
             name="elastic-lease-monitor", daemon=True,
@@ -915,6 +917,8 @@ def _run_fleet(
     server = Coordinator(ledger, cfg_doc_, addresses=[address], ship=ship)
     server.start_monitor()
     # the accept loop owns the socket; this
+    # thread exists so the supervisor below can poll worker processes
+    # graftlint: owned-thread -- the accept loop owns the socket; this
     # thread exists so the supervisor below can poll worker processes
     thread = threading.Thread(
         target=server.serve_forever, name="elastic-coordinator", daemon=True

@@ -137,7 +137,7 @@ def _reset_stale_finals(sdir: str, sname: str, worker: str) -> None:
 def _load_stack(cfg: FrameworkConfig):
     """Import the pipeline (and torch with it) and, on a card run, check
     the card and load the vote kernels' library through the locked build
-    cache (ops.cuda_vote.build: one nvcc build however many workers share
+    cache (ops.cuda_vote.build_library: one nvcc build however many workers share
     the card). A worker whose config names the card and cannot reach it
     raises here — it never carries on on the CPU. Returns run_pipeline."""
     from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
@@ -265,7 +265,7 @@ def _renew_lease(address: str, worker: str, lease_id: str, lease_s: float,
                 {"op": "heartbeat", "worker": worker, "lease_id": lease_id},
                 timeout=max(1.0, min(lease_s / 2.0, deadline - t_send)),
             )
-        # bounded by the local lease
+        # graftlint: disable=unbounded-retry -- bounded by the local lease
         # deadline: the next tick self-fences and returns once it passes
         except (OSError, transport.TransportError):
             continue  # transient: retry, but the local deadline still runs
@@ -297,7 +297,7 @@ def _fetch_slice(address: str, sl: dict, dest: str, worker: str = "") -> str:
             while True:
                 data = None
                 try:
-                    # read-only
+                    # graftlint: disable=unleased-work-dispatch,untraced-transport-send -- read-only
                     # chunk pull under the CALLER's lease (work_loop holds
                     # lease_id + the renewal pump) and the caller's bound
                     # slice trace (request ships `_trace` from the ambient
@@ -308,7 +308,7 @@ def _fetch_slice(address: str, sl: dict, dest: str, worker: str = "") -> str:
                          "offset": offset, "worker": worker},
                         timeout=120.0,
                     )
-                # bounded: attempt
+                # graftlint: disable=unbounded-retry -- bounded: attempt
                 # caps at CHUNK_RETRIES (raise) with linear backoff
                 except (OSError, transport.TransportError):
                     resp = None
@@ -367,7 +367,7 @@ def _push_output(address: str, sid: int, lease_id: str, epoch,
             while True:
                 try:
                     resp = transport.request(address, payload, timeout=120.0)
-                # bounded: attempt
+                # graftlint: disable=unbounded-retry -- bounded: attempt
                 # caps at CHUNK_RETRIES (raise) with linear backoff
                 except (OSError, transport.TransportError):
                     resp = None
@@ -531,6 +531,8 @@ def work_loop(address: str, worker_id: str | None = None,
             stop = threading.Event()
             # lease-renewal pump for the
             # slice this loop iteration is processing; joined below
+            # graftlint: owned-thread -- lease-renewal pump for the
+            # slice this loop iteration is processing; joined below
             renewer = threading.Thread(
                 target=_renew_lease,
                 args=(address, wid, lease_id, lease_s, stop, hb),
@@ -581,7 +583,7 @@ def work_loop(address: str, worker_id: str | None = None,
                          "manifest": manifest, "epoch": epoch},
                         timeout=600.0,
                     )
-                # not a retry: the
+                # graftlint: disable=unbounded-retry -- not a retry: the
                 # slice is ABANDONED (the requeued holder owns it) and the
                 # loop leases different work; the coordinator's `done`
                 # reply is the bound

@@ -208,11 +208,14 @@ class FailPoint:
             return False
         if self.times is not None and self._fires >= self.times:
             return False
+        # graftlint: disable=thread-unsafe-mutation -- should_fire is only called under
+        # fire()'s _LOCK
         self._hits += 1
         if self.hit is not None and self._hits != self.hit:
             return False
         if self.prob < 1.0 and self._rng.random() >= self.prob:
             return False
+        # graftlint: disable=thread-unsafe-mutation -- under fire()'s _LOCK, as above
         self._fires += 1
         return True
 
@@ -419,6 +422,8 @@ def _act(fp: FailPoint, site: str) -> None:
         # what was printed or ledgered stays
         observe.flight_dump(f"failpoint:{site}")
         sys.stdout.flush()
+        # graftlint: disable=stderr-print -- a flush before os._exit writes nothing new;
+        # it keeps what was already printed
         sys.stderr.flush()
         os._exit(fp.exit_code)
 

@@ -470,9 +470,13 @@ class Guard:
 
     def _emit(self, event: str, payload: dict) -> None:
         if self._event_budget > 0:
+            # graftlint: disable=thread-unsafe-mutation -- dispatch-thread Guard: the
+            # event budget is spent where the groups stream
             self._event_budget -= 1
             observe.event(event, payload, job=self.job)
         else:
+            # graftlint: disable=thread-unsafe-mutation -- dispatch-thread Guard, as
+            # above
             self._events_dropped += 1
 
     # -- quarantine -------------------------------------------------------
@@ -566,9 +570,13 @@ class Guard:
             observe.event("guard_events_truncated", {
                 "input": self.input_path, "dropped": self._events_dropped,
             })
+            # graftlint: disable=thread-unsafe-mutation -- dispatch-thread Guard: closed
+            # by the stage that owns it
             self._events_dropped = 0
         if self._sidecar is not None:
             self._sidecar.close()
+            # graftlint: disable=thread-unsafe-mutation -- dispatch-thread Guard, as
+            # above
             self._sidecar = None
 
 

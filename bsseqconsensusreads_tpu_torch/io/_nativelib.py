@@ -93,7 +93,7 @@ def _digest(lib: HostLibrary) -> str:
     return hashlib.sha256(lib.source_path.read_bytes() + flags.encode()).hexdigest()
 
 
-def build(name: str, force: bool = False) -> Path:
+def build_library(name: str, force: bool = False) -> Path:
     """Compile the named library unless a build of the same source and
     flags is already there (force: rebuild regardless). Returns its path."""
     lib = LIBRARIES[name]
@@ -155,7 +155,7 @@ def _load_locked(name: str, required_symbols: tuple[str, ...]) -> ctypes.CDLL:
         except Exception as exc:  # an injected load failure
             raise NativeLibraryError(lib.library, f"failpoint injected: {exc}") from None
     for attempt in range(2):
-        path = build(name, force=attempt > 0)
+        path = build_library(name, force=attempt > 0)
         try:
             handle = ctypes.CDLL(str(path))
         except OSError as exc:

@@ -593,6 +593,8 @@ class BamReader:
                     reason, record_index=self.records_read,
                     voffset=self._voffset(),
                 )
+        # graftlint: disable=thread-unsafe-mutation -- a reader is confined to the one
+        # ingest thread that iterates it
         self.records_read += 1
         return data
 

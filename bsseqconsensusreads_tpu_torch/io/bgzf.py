@@ -119,6 +119,8 @@ class BgzfReader:
             self._event("stream_truncated", {"error": str(exc)})
             # suppress the EOF-marker raise; reader state is confined to
             # the one ingest thread that owns this reader
+            # graftlint: disable=thread-unsafe-mutation -- confined to the one ingest
+            # thread that owns this reader
             self._last_block_empty = True
             return None
         scan_from = start + 1
@@ -132,6 +134,8 @@ class BgzfReader:
                     "error": str(exc), "scanned": len(window),
                 })
                 self._fh.seek(0, 2)  # consume: later reads see EOF
+                # graftlint: disable=thread-unsafe-mutation -- confined to the reader's
+                # ingest thread
                 self._last_block_empty = True
                 return None
             self._fh.seek(scan_from + hit)
@@ -146,7 +150,11 @@ class BgzfReader:
                 "resumed_at": scan_from + hit,
                 "skipped_bytes": scan_from + hit - start,
             })
+            # graftlint: disable=thread-unsafe-mutation -- confined to the reader's
+            # ingest thread
             self._gap_just = True
+            # graftlint: disable=thread-unsafe-mutation -- confined to the reader's
+            # ingest thread
             self.gap_pending = True
             return data
 
@@ -156,6 +164,8 @@ class BgzfReader:
         self.gap_pending = False
 
     def _read_block_raw(self) -> bytes | None:
+        # graftlint: disable=thread-unsafe-mutation -- confined to the reader's ingest
+        # thread
         self.last_block_offset = self._tell()
         head = self._fh.read(12)
         if not head:
@@ -190,6 +200,8 @@ class BgzfReader:
             raise BgzfError("BGZF ISIZE mismatch")
         if zlib.crc32(data) != crc:
             raise BgzfError("BGZF CRC mismatch")
+        # graftlint: disable=thread-unsafe-mutation -- reader state is confined to the
+        # reader's ingest thread
         self._last_block_empty = len(data) == 0
         return data
 
@@ -204,20 +216,30 @@ class BgzfReader:
                     break
                 block = self._read_block()
                 if block is None:
+                    # graftlint: disable=thread-unsafe-mutation -- confined to the
+                    # reader's ingest thread
                     self._eof = True
                     break
+                # graftlint: disable=thread-unsafe-mutation -- confined to the reader's
+                # ingest thread
                 self._buf = block
+                # graftlint: disable=thread-unsafe-mutation -- confined to the reader's
+                # ingest thread
                 self._buf_off = 0
                 if self._gap_just:
                     # a resync happened: never splice pre- and post-gap
                     # bytes into one logical read — return short and
                     # leave the post-gap block buffered for the record
                     # layer's re-framing pass
+                    # graftlint: disable=thread-unsafe-mutation -- confined to the
+                    # reader's ingest thread
                     self._gap_just = False
                     break
                 continue
             take = min(avail, need)
             parts.append(self._buf[self._buf_off : self._buf_off + take])
+            # graftlint: disable=thread-unsafe-mutation -- confined to the reader's
+            # ingest thread
             self._buf_off += take
             need -= take
         return b"".join(parts)
@@ -274,6 +296,8 @@ class BgzfWriter:
         return cls(open(path, "wb"), level=level)
 
     def write(self, data: bytes) -> None:
+        # graftlint: disable=thread-unsafe-mutation -- writer objects are confined to
+        # the thread that writes the output (the pool only deflates detached payloads)
         self._buf += data
         while len(self._buf) >= MAX_BLOCK_SIZE:
             self._flush_block(bytes(self._buf[:MAX_BLOCK_SIZE]))
@@ -293,6 +317,8 @@ class BgzfWriter:
         self.flush()
         self._fh.write(BGZF_EOF)
         self._fh.close()
+        # graftlint: disable=thread-unsafe-mutation -- writer objects are confined to
+        # their writing thread
         self._closed = True
 
     def __enter__(self) -> "BgzfWriter":

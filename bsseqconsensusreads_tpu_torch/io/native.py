@@ -136,8 +136,13 @@ def lib() -> C.CDLL:
 
 
 def default_threads() -> int:
-    """BGZF worker threads when the caller names none: min(4, cpu count)."""
-    return min(4, os.cpu_count() or 1)
+    """BGZF worker threads when the caller names none: BSSEQ_TPU_BGZF_THREADS
+    (the JAX package's knob), else min(4, cpu count)."""
+    default = min(4, os.cpu_count() or 1)
+    try:
+        return int(os.environ.get("BSSEQ_TPU_BGZF_THREADS", str(default)))
+    except ValueError:
+        return default
 
 
 class NativeBgzfReader:
@@ -166,7 +171,10 @@ class NativeBgzfReader:
             raise classify_stream_error(self._lib.bamio_error(self._h).decode())
         if got == 0:
             return False
+        # graftlint: disable=thread-unsafe-mutation -- reader state is confined to the
+        # ingest thread that owns the native reader
         self._buf = buf.raw[:got]
+        # graftlint: disable=thread-unsafe-mutation -- confined reader, as above
         self._off = 0
         return True
 
@@ -174,6 +182,7 @@ class NativeBgzfReader:
         avail = len(self._buf) - self._off
         if avail >= n:  # fast path: serve from the buffer
             out = self._buf[self._off : self._off + n]
+            # graftlint: disable=thread-unsafe-mutation -- confined reader, as above
             self._off += n
             return out
         parts = [self._buf[self._off :]]
@@ -184,6 +193,7 @@ class NativeBgzfReader:
                 break
             take = min(need, len(self._buf))
             parts.append(self._buf[:take])
+            # graftlint: disable=thread-unsafe-mutation -- confined reader, as above
             self._off = take
             need -= take
         return b"".join(parts)
@@ -203,6 +213,8 @@ class NativeBgzfReader:
     def close(self) -> None:
         if self._h:
             self._lib.bamio_close(self._h)
+            # graftlint: disable=thread-unsafe-mutation -- closed by the thread that
+            # owns the reader
             self._h = None
 
     def __enter__(self):
@@ -244,6 +256,8 @@ class NativeBgzfWriter:
         if self._h:
             finish = self._lib.bamio_finish_mt if self._mt else self._lib.bamio_finish
             rc = finish(self._h)
+            # graftlint: disable=thread-unsafe-mutation -- closed by the thread that
+            # owns the writer
             self._h = None
             if rc != 0:
                 raise IOError("bamio_finish failed")

@@ -117,10 +117,14 @@ class PBgzfWriter:
 
     def _submit(self, payload: bytes) -> None:
         if self._t_first is None:
+            # graftlint: disable=thread-unsafe-mutation -- writer state is confined to
+            # the writing thread; the pool only deflates detached payloads
             self._t_first = time.monotonic()
         if len(self._pending) >= self._window:
             self._fh.write(self._pending.popleft().result())
         self._pending.append(self._pool.submit(self._task, payload))
+        # graftlint: disable=thread-unsafe-mutation -- thread-confined writer state, as
+        # above
         self._blocks += 1
 
     def _drain(self) -> None:
@@ -128,6 +132,8 @@ class PBgzfWriter:
             self._fh.write(self._pending.popleft().result())
 
     def write(self, data: bytes) -> None:
+        # graftlint: disable=thread-unsafe-mutation -- writer objects are confined to
+        # their writing thread
         self._buf += data
         while len(self._buf) >= MAX_BLOCK_SIZE:
             self._submit(bytes(self._buf[:MAX_BLOCK_SIZE]))
@@ -156,6 +162,8 @@ class PBgzfWriter:
     def close(self) -> None:
         if self._closed:
             return
+        # graftlint: disable=thread-unsafe-mutation -- closed by the writing thread
+        # after the pool drained
         self._closed = True
         try:
             self.flush()

@@ -61,7 +61,9 @@ def merge_tallies(sites, ctx, meth, unmeth, engine: str = "auto"):
     the site, so any occurrence's value is THE value), meth/unmeth u32 [n].
     Returns the same four arrays, sites strictly increasing. engine:
     'auto' and 'native' take the C sweep (a library that does not build
-    raises), 'python' the numpy twin."""
+    raises), 'python' the numpy twin; BSSEQ_TPU_METHYL_MERGE overrides
+    (the JAX package's knob)."""
+    engine = os.environ.get("BSSEQ_TPU_METHYL_MERGE", engine)
     if engine not in MERGE_ENGINES:
         raise ValueError(f"unknown merge engine {engine!r} (auto | native | python)")
     sites = np.ascontiguousarray(sites, dtype=np.int64)
@@ -261,7 +263,10 @@ class MethylAccumulator:
         })
         self._save_manifest()
         for bi in take:
+            # graftlint: disable=thread-unsafe-mutation -- _spill_locked: every caller
+            # holds self._lock
             self._pending_sites -= self._pending.pop(bi)[0].size
+        # graftlint: disable=thread-unsafe-mutation -- same lock as above
         self._watermark = max(self._watermark, watermark)
         if self.metrics is not None:
             self.metrics.count("methyl_spill_runs")

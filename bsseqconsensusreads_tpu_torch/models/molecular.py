@@ -113,6 +113,8 @@ def vote_partials_segments(bases, quals, offsets, params: ConsensusParams):
     n_seg = offsets.numel() - 1
     _, p, w = bases.shape
     table = phred.log_table(params.error_rate_post_umi, dev)
+    # graftlint: disable=padded-batch-flops -- the packed route's per-segment output: S
+    # families x P strands x W columns, no template axis to pad
     ll = torch.zeros((n_seg, p, w, NUM_BASES), dtype=torch.float32, device=dev)
     cnt = torch.zeros_like(ll)
     offsets = offsets.long()

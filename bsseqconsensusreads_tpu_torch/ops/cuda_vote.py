@@ -101,7 +101,7 @@ _debug = False
 #: overlap workers launch from several threads
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
-_TAG = threading.local()
+_TAG_LOCAL = threading.local()
 
 
 class KernelError(RuntimeError):
@@ -119,7 +119,7 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the vote kernels build on a machine with the CUDA toolkit")
 
 
-def build(verbose: bool = False, debug: bool = False) -> Path:
+def build_library(verbose: bool = False, debug: bool = False) -> Path:
     """Compile csrc/vote.cu into LIBRARY (DEBUG_LIBRARY with DEBUG_FLAGS
     when `debug`) unless a build of the same source and flags is already
     there. Returns the library path. With BSSEQ_TPU_COMPILE_CACHE_DIR set
@@ -179,7 +179,7 @@ def _load():
         lib = _libs.get(_debug)
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(str(build(debug=_debug)))
+        lib = ctypes.CDLL(str(build_library(debug=_debug)))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsseq_seg_vote.argtypes = [
             vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp,
@@ -248,12 +248,18 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
     dev = bases.device
     table = phred.log_table(params.error_rate_post_umi, dev)
     out = {
+        # graftlint: disable=padded-batch-flops -- the packed kernel's per-segment
+        # output: S families x P strands x W columns, no template axis to pad
         "base": torch.empty((s, p, w), dtype=torch.int8, device=dev),
+        # graftlint: disable=padded-batch-flops -- same per-segment output plane
         "qual": torch.empty((s, p, w), dtype=torch.uint8, device=dev),
+        # graftlint: disable=padded-batch-flops -- same per-segment output plane
         "depth": torch.empty((s, p, w), dtype=torch.int16, device=dev),
+        # graftlint: disable=padded-batch-flops -- same per-segment output plane
         "errors": torch.empty((s, p, w), dtype=torch.int16, device=dev),
     }
     if with_ll:
+        # graftlint: disable=padded-batch-flops -- same per-segment output plane
         out["ll"] = torch.empty((s, p, w, 4), dtype=torch.float32, device=dev)
     if s * p * w == 0:
         return out
@@ -308,7 +314,7 @@ def seg_vote_partials(bases, quals, offsets, params: ConsensusParams):
 def _count(kernel: str, shape=None) -> None:
     """One launch of `kernel` (and of its shape for seg_vote), and one
     under the calling thread's launch tag when one is set."""
-    tag = getattr(_TAG, "name", None)
+    tag = getattr(_TAG_LOCAL, "name", None)
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
         if kernel == "seg_vote":
@@ -321,12 +327,12 @@ def _count(kernel: str, shape=None) -> None:
 def launch_tag(name: str):
     """Count this thread's launches inside the block also under `name` in
     TAGGED_LAUNCHES (the mesh's per-shard launches: parallel.sharding)."""
-    prev = getattr(_TAG, "name", None)
-    _TAG.name = name
+    prev = getattr(_TAG_LOCAL, "name", None)
+    _TAG_LOCAL.name = name
     try:
         yield
     finally:
-        _TAG.name = prev
+        _TAG_LOCAL.name = prev
 
 
 def seg_vote_plain(bases, quals, offsets, params: ConsensusParams,

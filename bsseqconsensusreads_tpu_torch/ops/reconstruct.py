@@ -49,6 +49,8 @@ def _build(params: ConsensusParams, device: torch.device):
         torch.from_numpy(bases).to(device), torch.from_numpy(quals).to(device),
         params,
     )
+    # graftlint: disable=host-sync -- one-time table build, cached in _CACHE per
+    # (params, device)
     qual = out["qual"][:, 0, :].cpu().numpy()  # [256, 512]
 
     # single observation: base A at qual q (observed when q >= min input)
@@ -59,8 +61,10 @@ def _build(params: ConsensusParams, device: torch.device):
     single_base, single_qual = cuda_vote.vote_finalize(
         ll, obs.to(torch.int32), params
     )
+    # graftlint: disable=host-sync -- same one-time table build
     single_base = single_base.cpu().numpy()
     return (
+        # graftlint: disable=host-sync -- same one-time table build
         np.ascontiguousarray(single_qual.cpu().numpy()),
         np.ascontiguousarray(qual[:, 0:256]),
         np.ascontiguousarray(qual[:, 256:512]),

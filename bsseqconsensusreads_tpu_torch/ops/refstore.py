@@ -145,6 +145,8 @@ class RefStore:
         with self._device_lock:
             codes = self._device.get(key)
             if codes is None:
+                # graftlint: disable=host-sync -- once per store and device, a
+                # pageable upload the duplex stage times as genome_load.upload
                 codes = self._device[key] = torch.from_numpy(self.codes).to(device)
         return codes
 

@@ -60,6 +60,8 @@ def host_workers() -> int:
     if env is not None:
         try:
             return max(0, int(env))
+        # graftlint: disable=swallowed-exception -- a malformed worker-count env var
+        # falls back to the cpu-count default by design; not a worker failure
         except ValueError:
             pass
     cores = os.cpu_count() or 1

@@ -79,18 +79,25 @@ class WorkerHeartbeat:
             except ValueError:
                 interval_s = 30.0
 
-        def run() -> None:
+        def heartbeat_loop() -> None:
             while not self._stop.wait(interval_s):
                 self.beat("alive")
 
-        self._thread = threading.Thread(target=run, name="bsseq-heartbeat", daemon=True)
+        # graftlint: disable=thread-unsafe-mutation -- armed pre-start on the caller's
+        # thread; the beat loop only reads self._stop (an Event)
+        self._thread = threading.Thread(target=heartbeat_loop, name="bsseq-heartbeat",
+                                        daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+            # graftlint: disable=thread-unsafe-mutation -- after join: the beat loop has
+            # exited
             self._thread = None
+        # graftlint: disable=thread-unsafe-mutation -- after join: the beat loop has
+        # exited
         self._stop = threading.Event()
 
 

@@ -517,6 +517,8 @@ class BucketRouter:
     def close(self) -> None:
         if self._tmpdir is not None:
             self._tmpdir.cleanup()
+            # graftlint: disable=thread-unsafe-mutation -- closed by the emitting thread
+            # that owns the router
             self._tmpdir = None
 
 

@@ -671,6 +671,8 @@ class _Staging:
 
     def reset(self) -> None:
         self._held.clear()
+        # graftlint: disable=thread-unsafe-mutation -- a _Staging is per worker (the
+        # worker's thread-local _WORKER.staging)
         self._off = 0
 
     def upload(self, arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -679,9 +681,12 @@ class _Staging:
             if self._buf is not None:
                 self._held.append(self._buf)
             size = max(1 << 20, 2 * (self._off + nbytes))
+            # graftlint: disable=thread-unsafe-mutation -- per-worker _Staging, as above
             self._buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            # graftlint: disable=thread-unsafe-mutation -- per-worker _Staging, as above
             self._off = 0
         region = self._buf[self._off:self._off + nbytes]
+        # graftlint: disable=thread-unsafe-mutation -- per-worker _Staging, as above
         self._off += -(-nbytes // self._ALIGN) * self._ALIGN
         region.numpy()[:] = arr.reshape(-1).view(np.uint8)
         host = region.view(torch.from_numpy(arr[:0].reshape(-1)).dtype).view(arr.shape)
@@ -724,20 +729,23 @@ class _OverlapPool:
             s.wait_event(self._ready[dev])
         return s
 
-    def _run(self, fn, args):
+    def _run_task(self, fn, args):
         if not self._ready:
             return fn(*args)
         if getattr(_WORKER, "pool", None) is not self:
             _WORKER.pool, _WORKER.streams, _WORKER.staging = self, {}, _Staging()
         stream = self.stream(self.device)
         for s in _WORKER.streams.values():  # a failed task may have left copies in flight
+            # graftlint: disable=host-sync -- idle after a task that finished (its
+            # fetch waited on the batch's event); it waits only on what a failed
+            # task left in flight, before the next task reuses the staging
             s.synchronize()
         _WORKER.staging.reset()
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             return fn(*args)
 
     def submit(self, fn, *args, batch=None):
-        return self._pool.submit(self._run, fn, args)
+        return self._pool.submit(self._run_task, fn, args)
 
     def shutdown(self) -> None:
         self._pool.shutdown(wait=True, cancel_futures=True)
@@ -1122,6 +1130,17 @@ def _emit_read(
     )
 
 
+def _resolve_kernel_layout(layout: str | None = None) -> str:
+    """The molecular stage's vote input layout: the argument, else
+    BSSEQ_TPU_KERNEL_LAYOUT, else 'packed' (the JAX package's rule).
+    'packed' = segment-packed rows, 'padded' = the [F, T, 2, W] envelope;
+    the same bytes either way."""
+    choice = layout or os.environ.get("BSSEQ_TPU_KERNEL_LAYOUT", "packed")
+    if choice not in ("packed", "padded"):
+        raise ValueError(f"unknown kernel layout {choice!r} (want 'packed'|'padded')")
+    return choice
+
+
 def _resolve_emit(emit: str) -> bool:
     """True for the native batch emit. 'auto' and 'native' take it (every
     mode can emit raw records, so nothing sends 'auto' to Python); the
@@ -1367,7 +1386,7 @@ def call_molecular_batches(
     grouping: str = "gather",
     stats: StageStats | None = None,
     batching: str = "bucketed",
-    layout: str = "packed",
+    layout: str | None = None,
     device=None,
     emit: str = "python",
     skip_batches: int = 0,
@@ -1396,8 +1415,10 @@ def call_molecular_batches(
     layout: 'packed' votes segment-packed rows (ops.encode
     .pack_molecular_rows — one seg_vote launch with ragged offsets),
     'padded' the [F, T, 2, W] envelope (offsets k * T); identical output.
+    None takes BSSEQ_TPU_KERNEL_LAYOUT, else 'packed' (_resolve_kernel_layout).
     T == 1 batches (the cfDNA majority) take the singleton host path
-    (models.molecular.singleton_consensus_host), timed as 'host_vote'.
+    (models.molecular.singleton_consensus_host), timed as 'host_vote',
+    unless BSSEQ_TPU_SINGLETON=0 sends them to the device too.
 
     base_counts: every record carries the cB raw base histogram tag — the
     duplex stage's input for exact raw-unit errors (disable to shave tag
@@ -1461,8 +1482,8 @@ def call_molecular_batches(
         slots = [mesh.device(*slot) for slot in mesh.local_slots()]
         deep_fn = deep_family_consensus(
             make_mesh(n_data=1, n_reads=len(slots), devices=slots), params)
-    if layout not in ("packed", "padded"):
-        raise ValueError(f"unknown kernel layout {layout!r} (want 'packed'|'padded')")
+    layout = _resolve_kernel_layout(layout)
+    singleton_on = os.environ.get("BSSEQ_TPU_SINGLETON", "1") != "0"
     native_emit = _resolve_emit(emit)
     emit_fn = partial(
         _emit_molecular_batch_raw if native_emit else _emit_molecular_batch,
@@ -1494,6 +1515,8 @@ def call_molecular_batches(
             pf = pk.num_families
         else:
             f, t = batch.bases.shape[:2]
+            # graftlint: disable=padded-envelope-dispatch -- the sanctioned
+            # layout='padded' wire: pk is None here
             win = pack_molecular_inputs(batch.bases, batch.quals, qual_mode="auto",
                                         native=native_emit)
             qmode = win.qual_mode
@@ -1517,6 +1540,8 @@ def call_molecular_batches(
                 sp.total_families
         else:
             f = batch.bases.shape[0]
+            # graftlint: disable=padded-envelope-dispatch -- the sanctioned
+            # layout='padded' sharded envelope fallback
             arrays, pf = pad_families((batch.bases, batch.quals), f, data_size)
             fn = outwire_fn
         metrics.count("h2d_bytes", sum(a.nbytes for a in arrays))
@@ -1558,8 +1583,9 @@ def call_molecular_batches(
 
     def host_voted(batch) -> bool:
         """T == 1 batches vote on the host, off a mesh (the JAX package's
-        rule: the mesh routes take them to the device)."""
-        return batch.bases.shape[1] == 1 and mesh is None
+        rule: the mesh routes take them to the device), unless
+        BSSEQ_TPU_SINGLETON=0."""
+        return batch.bases.shape[1] == 1 and mesh is None and singleton_on
 
     def dispatch_fetch(batch, bi=None, armed=True) -> dict:
         """The recovery unit: dispatch and the blocking fetch of one batch
@@ -1755,7 +1781,7 @@ def call_molecular_batches(
                                   batch=batch_index)
             yield "deferred", partial(retire, fut, batch, batch_index, deep_emitted)
 
-    _warm_device(params, device, singleton=True, mesh=mesh, stage=stage_label)
+    _warm_device(params, device, singleton=singleton_on, mesh=mesh, stage=stage_label)
     hpool = _hostpool.make_pool(metrics, stage_label)
     executor = _batch_executor(device, stats, hpool, sharded, wire_rr)
     try:
@@ -2328,7 +2354,7 @@ def call_duplex_batches(
     chemistry: str = "bisulfite",
     refstore: RefStore | str | None = None,
     methyl=None,
-    methyl_engine: str = "auto",
+    methyl_engine: str | None = None,
     passthrough: bool = False,
     guard=None,
     mesh="auto",
@@ -2397,7 +2423,8 @@ def call_duplex_batches(
     duplex_call_pipeline_packed_methyl unpacked, whose planes are appended
     to its output on the device so the fetch stays one copy); 'host' runs
     the numpy twin (methyl_epilogue_host) on the retired batch — an
-    explicit choice, never a fallback. On the sharded mesh route each data
+    explicit choice, never a fallback; None takes BSSEQ_TPU_METHYL_ENGINE
+    (the JAX package's knob), else 'auto'. On the sharded mesh route each data
     shard runs the epilogue on its own device
     (parallel.sharding.sharded_duplex_outwire_methyl); the JAX package's
     mesh route takes the host twin there, with the same bits.
@@ -2441,6 +2468,10 @@ def call_duplex_batches(
             "chemistry='none' is incompatible with pos0='shift' (the "
             "shift is a conversion-prepend behavior)"
         )
+    if methyl_engine is None:
+        # the JAX package's knob; read only when methyl is on, as there
+        methyl_engine = (os.environ.get("BSSEQ_TPU_METHYL_ENGINE", "auto")
+                         if methyl is not None else "auto")
     if methyl_engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown methyl engine {methyl_engine!r} (auto | device | host)")
     methyl_device = False

@@ -247,10 +247,14 @@ class BatchCheckpoint:
         for path in glob.glob(self.target + ".part*"):
             try:
                 os.remove(path)
+            # graftlint: disable=swallowed-exception -- a scratch shard already gone
+            # needs no removal
             except FileNotFoundError:
                 pass
         try:
             os.remove(self.manifest_path)
+        # graftlint: disable=swallowed-exception -- a scratch manifest already gone
+        # needs no removal
         except FileNotFoundError:
             pass
 

@@ -189,6 +189,8 @@ class _Spiller:
     def close(self) -> None:
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)
+            # graftlint: disable=thread-unsafe-mutation -- closed by the caller thread
+            # after the pool joined
             self._pool = None
 
 

@@ -343,14 +343,20 @@ def filter_consensus_raw(
     template: list[_RawView] = []
 
     def flush():
+        # graftlint: disable=thread-unsafe-mutation -- the filter stage runs on one
+        # thread; the worker edge is a basename match (flush)
         stats.records_in += len(template)
+        # graftlint: disable=thread-unsafe-mutation -- one-thread filter stats, as above
         stats.templates += 1
         verdicts = [_evaluate(view, params) for view in template]
         failed = [v for v in verdicts if not v[0]]
         if failed:
             stats.__dict__[_REASON_FIELD[failed[0][1]]] += 1
+            # graftlint: disable=thread-unsafe-mutation -- one-thread filter stats, as
+            # above
             stats.dropped_records += len(template)
             return []
+        # graftlint: disable=thread-unsafe-mutation -- one-thread filter stats, as above
         stats.kept_records += len(template)
         return [_mask_blob(view, mask, stats) for view, (_, _, mask) in zip(template, verdicts)]
 

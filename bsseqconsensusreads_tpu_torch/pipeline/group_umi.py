@@ -322,6 +322,8 @@ def _annotate_composites(
 
     def counted(src: Iterable[bytes]) -> Iterator[bytes]:
         for blob in src:
+            # graftlint: disable=thread-unsafe-mutation -- the grouping stage runs on
+            # one thread; the worker edge is a basename match
             stats.records_in += 1
             yield blob
 

@@ -87,6 +87,8 @@ class ColumnarRecordView:
         if self._cigar is None:
             off = int(self._b.cigar_off[self._i])
             ops = self._b.cigar[off : off + int(self._b.n_cigar[self._i])]
+            # graftlint: disable=thread-unsafe-mutation -- a lazy per-record cache on a
+            # columnar view, confined to the thread that decodes the batch
             self._cigar = [(int(v & 0xF), int(v >> 4)) for v in ops]
         return self._cigar
 
@@ -204,6 +206,8 @@ class FamilyRun:
     @property
     def records(self) -> list[ColumnarRecordView]:
         if self._records is None:
+            # graftlint: disable=thread-unsafe-mutation -- a lazy cache on a columnar
+            # batch, confined to the thread that decodes it
             self._records = [ColumnarRecordView(self.batch, i)
                              for i in range(self.start, self.start + self.n)]
         return self._records

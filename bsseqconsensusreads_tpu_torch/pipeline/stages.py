@@ -273,6 +273,9 @@ class PipelineBuilder:
     @property
     def device(self):
         if self._device is None:
+            # graftlint: disable=thread-unsafe-mutation -- the pipeline builder runs on
+            # the main thread before any stage; the worker edge is a basename match
+            # (out)
             self._device = resolve_device(check_backend(self.cfg.backend))
         return self._device
 

@@ -125,6 +125,8 @@ class ReplicaSet:
         )
         try:
             os.unlink(addr_file)
+        # graftlint: disable=swallowed-exception -- best-effort unlink of a stale
+        # address file; the replica writes a fresh one
         except OSError:
             pass
         env = dict(self.base_env)
@@ -189,6 +191,8 @@ class ReplicaSet:
                                 generation=replica.generation,
                             )
                         return
+                # graftlint: disable=swallowed-exception -- the replica is still
+                # booting; the deadline bounds the poll
                 except (OSError, ConnectionError):
                     pass  # still booting; the deadline bounds the poll
             self._poll.wait(0.05)
@@ -247,6 +251,8 @@ class ReplicaSet:
                      "sent_s": time.time()},
                     timeout=drain_timeout + 10.0,
                 )
+            # graftlint: disable=swallowed-exception -- a replica that cannot take the
+            # drain is down already; the wait below reaps it
             except (OSError, ConnectionError):
                 pass
         for replica in self.replicas:

@@ -327,6 +327,8 @@ class JobQueue:
             ) from None
         try:
             reader.close()
+        # graftlint: disable=swallowed-exception -- the admission error above is what
+        # the caller sees; closing a half-open reader adds nothing
         except Exception:
             pass
 

@@ -132,6 +132,10 @@ class Router:
         self.fleet.wait_ready(timeout=ready_timeout)
         # the single liveness monitor: it owns requeue/respawn and takes
         # self._lock for every shared mutation
+        # graftlint: owned-thread -- single liveness monitor: it owns
+        # requeue/respawn and takes self._lock for every shared mutation
+        # graftlint: disable=thread-unsafe-mutation -- set on the starting thread before
+        # the monitor runs; the monitor never rebinds it
         self._monitor_thread = threading.Thread(
             target=self._monitor, name="fleet-monitor", daemon=True
         )
@@ -359,6 +363,8 @@ class Router:
                 )
                 if resp.get("ok"):
                     self._absorb(job, resp["job"])
+            # graftlint: disable=swallowed-exception -- the monitor will requeue; this
+            # reports the router's view
             except (OSError, ConnectionError):
                 pass  # monitor will requeue; report the router's view
         with self._lock:

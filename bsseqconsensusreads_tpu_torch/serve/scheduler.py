@@ -148,6 +148,8 @@ class Scheduler:
         with self._lock:
             # the one resident engine thread: the batching state is
             # engine-thread-owned for its life
+            # graftlint: owned-thread -- the one resident engine thread;
+            # scheduler batching state is engine-thread-owned for its life
             self._thread = threading.Thread(
                 target=self._run, name="serve-engine", daemon=True
             )
@@ -199,6 +201,8 @@ class Scheduler:
         self._running.append(job)
         # per-job reader pump: it owns this job's guard, reader and queue
         # alone and hands off through the bounded queue
+        # graftlint: owned-thread -- per-job reader pump; it owns this
+        # job's guard/reader/queue alone and hands off via the bounded q
         t = threading.Thread(
             target=self._pump, args=(job,),
             name=f"serve-ingest-{job.id}", daemon=True,

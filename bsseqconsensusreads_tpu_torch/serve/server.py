@@ -316,6 +316,9 @@ class ProtocolServer:
                 # accept pump per listener: it only polls its own socket
                 # and hands each conn to a per-connection handler; shared
                 # state stays lock-guarded
+                # graftlint: owned-thread -- accept pump per listener:
+                # it only polls its own socket and hands each conn to a
+                # per-connection handler; shared state stays lock-guarded
                 threading.Thread(
                     target=self._accept_loop, args=(sock, kind),
                     name=f"serve-accept-{i}", daemon=True,
@@ -358,6 +361,9 @@ class ProtocolServer:
             peer = f"{addr[0]}:{addr[1]}" if isinstance(addr, tuple) else ""
             # one connection = one request; the handler owns conn and
             # only calls the lock-guarded engine API
+            # graftlint: owned-thread -- one connection = one
+            # request; the handler owns conn and only calls the
+            # lock-guarded engine API
             threading.Thread(
                 target=self._handle, args=(conn, kind, peer),
                 name="serve-conn", daemon=True,

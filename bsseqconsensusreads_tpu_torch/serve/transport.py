@@ -219,6 +219,8 @@ def _recv_exact(conn: socket.socket, n: int, what: str) -> bytes:
     while got < n:
         # the framed reader: the byte count was admitted against
         # MAX_FRAME first
+        # graftlint: disable=unframed-socket-read -- this IS the framed reader: the byte
+        # count was admitted against MAX_FRAME first
         chunk = conn.recv(min(n - got, 1 << 16))
         if not chunk:
             if not chunks:
@@ -274,6 +276,8 @@ def recv_message(
     buf = bytearray()
     while True:
         # the bounded line reader the rest of the package calls
+        # graftlint: disable=unframed-socket-read -- this IS the bounded line reader the
+        # rest of the package must call
         chunk = conn.recv(1 << 16)
         if not chunk:
             if not buf:
@@ -373,6 +377,8 @@ def request(address: str, payload: dict, timeout: float = 600.0) -> dict:
     finally:
         try:
             sock.close()
+        # graftlint: disable=swallowed-exception -- closing a socket after the reply was
+        # read; the reply stands
         except OSError:
             pass
         if trace_ctx is not None:
@@ -390,11 +396,15 @@ def request(address: str, payload: dict, timeout: float = 600.0) -> dict:
         try:
             send_message(sock2, kind2, payload)
             recv_message(sock2, kind2)
+        # graftlint: disable=swallowed-exception -- the duplicate best-efforts; the
+        # first reply stands
         except (TransportError, OSError):
             pass  # the duplicate best-efforts; the first reply stands
         finally:
             try:
                 sock2.close()
+            # graftlint: disable=swallowed-exception -- closing the duplicate's socket;
+            # the first reply stands
             except OSError:
                 pass
     return resp

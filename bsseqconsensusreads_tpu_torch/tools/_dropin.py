@@ -19,13 +19,14 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 DEVICE_COMMANDS = ("molecular", "duplex")
 
 
-def run(command: str, argv: list[str]) -> int:
+def run_dropin(command: str, argv: list[str]) -> int:
     """`python -m bsseqconsensusreads_tpu_torch <command> <argv>`, in this
     process; `--device` is kept for the consensus stages and checked and
     dropped for the host-only ones."""
     if _REPO not in sys.path:
         sys.path.insert(0, _REPO)
     from bsseqconsensusreads_tpu_torch.cli import main
+    from bsseqconsensusreads_tpu_torch.utils import observe
 
     argv = list(argv)
     if command not in DEVICE_COMMANDS:
@@ -34,8 +35,8 @@ def run(command: str, argv: list[str]) -> int:
                 value = arg.split("=", 1)[1] if "=" in arg else (
                     argv[i + 1] if i + 1 < len(argv) else "")
                 if value not in ("cuda", "cpu"):
-                    print(f"{command}: --device must be cuda or cpu, got {value!r}",
-                          file=sys.stderr)
+                    observe.stderr_line(
+                        f"{command}: --device must be cuda or cpu, got {value!r}")
                     return 2
                 del argv[i:i + (1 if "=" in arg else 2)]
                 break

@@ -21,7 +21,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from _dropin import run  # noqa: E402
+from _dropin import run_dropin  # noqa: E402
 
 if __name__ == "__main__":
-    raise SystemExit(run("molecular", sys.argv[1:]))
+    raise SystemExit(run_dropin("molecular", sys.argv[1:]))

@@ -130,6 +130,10 @@ EVENT_SCHEMA: dict[str, tuple[str, ...]] = {
     # and the crash-path flight-recorder dump
     "span": ("name", "trace", "span", "t0", "t1", "dur_s"),
     "flight_record": ("reason", "count", "events"),
+    # the port's own line (no JAX counterpart): an elastic slice's vote
+    # kernel launches on the card, per kernel, and the worker's peak of
+    # allocated device memory
+    "kernel_launches": ("slice", "worker", "backend"),
 }
 
 #: Default closure tolerance: relative share of the wall allowed to go

@@ -75,6 +75,25 @@ DEVICE_PHASES = frozenset({"kernel", "device_wait", "fetch"})
 STALL_PHASES = frozenset({"stall"})
 
 
+#: the calling thread's open `Metrics.timed` spans over every Metrics,
+#: outermost first (current_spans)
+_SPANS_LOCAL = threading.local()
+
+
+def _thread_spans() -> list:
+    spans = getattr(_SPANS_LOCAL, "stack", None)
+    if spans is None:
+        spans = _SPANS_LOCAL.stack = []
+    return spans
+
+
+def current_spans() -> tuple:
+    """The calling thread's open timed spans, outermost first, whichever
+    stage's Metrics opened them: what a sync seen at run time is booked
+    under (chip_smoke's host-sync audit)."""
+    return tuple(_thread_spans())
+
+
 @dataclass
 class Metrics:
     """Named counters + nested, thread-aware span timers for one stage.
@@ -127,12 +146,15 @@ class Metrics:
         path = "/".join(stack + [name])
         outermost = not stack
         stack.append(name)
+        spans = _thread_spans()
+        spans.append(name)
         t0 = self.clock()
         try:
             yield
         finally:
             dt = self.clock() - t0
             stack.pop()
+            spans.pop()
             self._accumulate(name, path, dt, outermost)
 
     def _accumulate(self, name: str, path: str, dt: float, outermost: bool) -> None:

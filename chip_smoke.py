@@ -286,11 +286,24 @@ Phases:
         ledger printed; `run` on 11b's input under BSSEQ_TPU_TRACE in a child
         process: both stages' torch.profiler Chrome traces name the
         seg_vote kernel, and the target is 11b's bytes.
+  12. static analysis on the card's machine: a. the port's `lint --json`
+        and `lint --contracts --json` in two child processes started with
+        this phase and read after 12b (no finding, no drift; counts
+        printed); b. the host-sync audit:
+        `molecular` and then `duplex` over the wire on the head's normal
+        families at 256 families per batch with both pools on, each once
+        plainly and once under torch.cuda.set_sync_debug_mode("warn") with
+        a warnings hook recording the innermost port frame and the thread's
+        open spans (utils.observe.current_spans): the (file:line, span,
+        count) table, a failure for a sync in a batch-loop- or
+        worker-reachable port function outside the accounted spans and
+        off every host-sync-suppressed line, and the audited BAMs SHA-equal
+        to the plain runs'.
 
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b, 10a and 11a together), the
+Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b, 10a, 11a and 12b together), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
-exits non-zero. `--phases` runs a subset of Phases 4-11 after Phase 3 (a
+exits non-zero. `--phases` runs a subset of Phases 4-12 after Phase 3 (a
 short check; the default runs them all).
 """
 
@@ -903,7 +916,7 @@ def device_busy_s(torch, prof) -> float:
 
 def run_stage(stage: str, inp: str, out: str, fasta: str, device: str, prof=None,
               engine: str = "native", *, transport: str, indel_policy: str = "drop",
-              mesh="auto"):
+              mesh="auto", batch_families: int = 2048):
     """One stage through the port's entry points, every host engine
     (ingest, emit, sort) named `engine` and the device transport named
     `transport` ('unpacked' or 'wire'; the duplex stage gets the FASTA as
@@ -914,11 +927,12 @@ def run_stage(stage: str, inp: str, out: str, fasta: str, device: str, prof=None
     import contextlib
 
     with prof if prof is not None else contextlib.nullcontext():
-        return _run_stage(stage, inp, out, fasta, device, engine, transport, indel_policy, mesh)
+        return _run_stage(stage, inp, out, fasta, device, engine, transport, indel_policy, mesh,
+                          batch_families)
 
 
 def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: str,
-               transport: str, indel_policy: str, mesh):
+               transport: str, indel_policy: str, mesh, batch_families: int = 2048):
     from bsseqconsensusreads_tpu_torch.io.bam import BamReader
     from bsseqconsensusreads_tpu_torch.io.fasta import FastaFile
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
@@ -937,7 +951,7 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                 stages.molecular_ingest_stream(inp, reader, stats, ingest_choice=engine,
                                                indel_policy=indel_policy),
                 ConsensusParams(min_reads=1), mode="self",
-                batch_families=2048, grouping="coordinate", stats=stats,
+                batch_families=batch_families, grouping="coordinate", stats=stats,
                 device=device, emit=engine, transport=transport,
                 indel_policy=indel_policy, mesh=mesh,
             )
@@ -949,7 +963,7 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                 batches = calling.call_duplex_batches(
                     stages.duplex_ingest_stream(inp, reader, stats, ingest_choice=engine),
                     fa.fetch, names, ConsensusParams(min_reads=0),
-                    mode="self", batch_families=2048, grouping="coordinate",
+                    mode="self", batch_families=batch_families, grouping="coordinate",
                     stats=stats, device=device, emit=engine, transport=transport,
                     refstore=fasta, mesh=mesh,
                 )
@@ -2094,9 +2108,11 @@ def phase6b(work: str, fasta: str, n_head: int) -> None:
     """The raw head through `run` (grouped, filtered) on the card and on
     the CPU: grouped intermediate, unfiltered and filtered targets
     SHA-equal; `metrics --compact` on both grouped heads the same JSON;
-    `group` and `sort --order coordinate|name|template-coordinate` through
-    cli.main: the same records as the runs' grouping, SHA-equal sorts of
-    the card's and the CPU's grouped heads."""
+    `group` through cli.main: the same records as the runs' grouping;
+    `sort --order coordinate|name|template-coordinate` of the card's, the
+    CPU's and `group`'s grouped heads, the nine sorts at once in child
+    processes of the CLI: SHA-equal sorts of the card's and the CPU's
+    heads, and `group`'s sorts the same records as the card's."""
     from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
     from bsseqconsensusreads_tpu_torch.pipeline.stages import run_pipeline
 
@@ -2139,17 +2155,35 @@ def phase6b(work: str, fasta: str, n_head: int) -> None:
         f"({nbytes} bytes), header lines apart from @PG that differ: "
         f"{json.dumps(header_difference(h_cli, h_run))}")
     check(same, "phase6b: `group` wrote other records than run's grouping rule")
+    t0 = time.monotonic()
+    procs, sorts = {}, {}
+    try:
+        for order in ("coordinate", "name", "template-coordinate"):
+            for src, path in (("cuda", outs["cuda"]["grouped"]), ("cpu", outs["cpu"]["grouped"]),
+                              ("group", grouped_cli)):
+                out = os.path.join(work, f"raw_head_sorted_{order}_{src}.bam")
+                argv = [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "sort", "-i",
+                        path, "-o", out, "--order", order]
+                procs[order, src] = (out, subprocess.Popen(
+                    argv, cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True))
+        for (order, src), (out, proc) in procs.items():
+            _o, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"phase6b: sort --order {order} of {src} exited "
+                                        f"{proc.returncode}: {err[-2000:]}")
+            sorts[order, src] = (out, err.strip().splitlines()[-1])
+    finally:  # a failed sort leaves no other behind
+        for _out, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"phase6b nine sorts in child processes: {time.monotonic() - t0:.1f} s")
     for order in ("coordinate", "name", "template-coordinate"):
-        sorted_outs = {}
-        for src, path in (("cuda", outs["cuda"]["grouped"]), ("cpu", outs["cpu"]["grouped"]),
-                          ("group", grouped_cli)):
-            out = os.path.join(work, f"raw_head_sorted_{order}_{src}.bam")
-            _o, err = cli_io(["sort", "-i", path, "-o", out, "--order", order])
-            sorted_outs[src] = out
-        a, b = sha256(sorted_outs["cuda"]), sha256(sorted_outs["cpu"])
-        same = same_records(sorted_outs["group"], sorted_outs["cuda"])[0]
-        log(f"phase6b sort --order {order}: {err.strip()}; card-run vs cpu-run grouped head "
-            f"byte-identical={a == b}, the `group` output's sort the same records={same}")
+        a, b = sha256(sorts[order, "cuda"][0]), sha256(sorts[order, "cpu"][0])
+        same = same_records(sorts[order, "group"][0], sorts[order, "cuda"][0])[0]
+        log(f"phase6b sort --order {order}: {sorts[order, 'cuda'][1]}; card-run vs "
+            f"cpu-run grouped head byte-identical={a == b}, the `group` output's sort the same "
+            f"records={same}")
         check(a == b and same, f"phase6b: sort --order {order} differs")
 
 
@@ -3507,7 +3541,7 @@ def phase11a(torch, work: str, big: str, genome: str, families: int) -> dict:
         t0 = time.monotonic()
         ref = stages.run_pipeline(cfg, inp, outdir=os.path.join(d, "single"))[0]
         ref_wall, ref_kind = time.monotonic() - t0, "a single-process run in this process"
-    lib = cuda_vote.build()
+    lib = cuda_vote.build_library()
     built = os.path.getmtime(lib)
     with ledgered(work, "11a") as ledger:
         doc, wall, lines = elastic_cli(
@@ -3777,9 +3811,9 @@ def build_all(log_ptxas: bool = True) -> None:
         path = fn()
         return name, time.monotonic() - t0, path
 
-    jobs = [("vote.cu (nvcc)", lambda: cuda_vote.build(verbose=log_ptxas)),
-            ("vote.cu bounds-checked (nvcc)", lambda: cuda_vote.build(debug=True))]
-    jobs += [(f"{name} (g++)", lambda name=name: _nativelib.build(name))
+    jobs = [("vote.cu (nvcc)", lambda: cuda_vote.build_library(verbose=log_ptxas)),
+            ("vote.cu bounds-checked (nvcc)", lambda: cuda_vote.build_library(debug=True))]
+    jobs += [(f"{name} (g++)", lambda name=name: _nativelib.build_library(name))
              for name in _nativelib.LIBRARIES]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -3790,6 +3824,230 @@ def build_all(log_ptxas: bool = True) -> None:
 
 
 # ---------------------------------------------------------------- main
+
+
+# ---------------------------------------------------------------- phase 12
+
+AUDIT_FAMILIES = 256  # families per batch in the host-sync audit
+
+
+def lint_procs() -> list:
+    """`lint --json` and `lint --contracts --json` over the port, started
+    together."""
+    procs = []
+    for extra in ([], ["--contracts"]):
+        argv = [sys.executable, "-m", "bsseqconsensusreads_tpu_torch", "lint", "--json",
+                *extra]
+        procs.append((" ".join(["lint", "--json", *extra]), time.monotonic(), subprocess.Popen(
+            argv, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def phase12a(procs: list) -> None:
+    """Both lint passes clean: exit 0, no finding, no drift."""
+    for name, t0, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        secs = time.monotonic() - t0
+        check(proc.returncode == 0,
+              f"{name}: exit {proc.returncode}: {out[-2000:]} {err[-2000:]}")
+        doc = json.loads(out.strip().splitlines()[-1])
+        if "count" in doc:
+            check(doc["count"] == 0 and not doc["findings"], f"{name}: {doc['findings'][:5]}")
+            log(f"phase12a {name}: {doc['count']} findings, {len(doc['rules'])} rules "
+                f"(read {secs:.1f} s after its start)")
+        else:
+            check(doc["ok"] and not doc["drift"], f"{name}: {doc['drift'][:5]}")
+            log(f"phase12a {name}: {len(doc['drift'])} drifts, {len(doc['waived'])} waived, "
+                f"checked {json.dumps(doc['checked'], sort_keys=True)} (read {secs:.1f} s after "
+                f"its start)")
+
+
+def audit_map():
+    """The port's analysis facts the audit reads: (package dir, the
+    accounted span names, {path: [(first, last, reachable)]} for every
+    function of the port, reachable meaning from a batch-loop root or a
+    worker root, and {path: (whole file, lines)} of its host-sync
+    suppressions)."""
+    from bsseqconsensusreads_tpu_torch.analysis.engine import (
+        ACCOUNTED_SPANS,
+        PackageIndex,
+        SourceFile,
+        _collect_py,
+        all_rules,
+    )
+
+    pkg = os.path.join(REPO, "bsseqconsensusreads_tpu_torch")
+    known = all_rules()
+    files = []
+    for ap, display in _collect_py([pkg]):
+        with open(ap, encoding="utf-8") as fh:
+            files.append(SourceFile(ap, display, fh.read(), known))
+    index = PackageIndex(files)
+    reach = index.hot_reachable | index.worker_reachable
+    funcs: dict = {}
+    for fis in index.functions.values():
+        for fi in fis:
+            funcs.setdefault(os.path.abspath(fi.sf.path), []).append(
+                (fi.node.lineno, fi.node.end_lineno or fi.node.lineno,
+                 fi.qualname in reach))
+    quiet = {os.path.abspath(sf.path): (
+        "host-sync" in sf.file_suppress,
+        {ln for ln, rules in sf.line_suppress.items() if "host-sync" in rules},
+    ) for sf in files}
+    return pkg, ACCOUNTED_SPANS, funcs, quiet
+
+
+def _short_path(path: str) -> str:
+    """A frame's file: relative to the repo, or from its installed
+    package's directory on."""
+    path = os.path.abspath(path)
+    if path.startswith(REPO + os.sep):
+        return os.path.relpath(path, REPO)
+    return path.split("site-packages" + os.sep, 1)[-1]
+
+
+class SyncAudit:
+    """torch.cuda.set_sync_debug_mode("warn") with a warnings hook: each
+    synchronizing call is recorded under (innermost port frame, the
+    calling thread's open spans: utils.observe.current_spans)."""
+
+    def __init__(self, torch, pkg: str):
+        import threading
+
+        self.torch, self.pkg = torch, pkg + os.sep
+        self.sites: dict = {}
+        #: syncs with no port frame, by their innermost two frames
+        self.other: dict = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        import warnings
+
+        from bsseqconsensusreads_tpu_torch.utils import observe
+
+        self._warnings = warnings
+        self._warnings_file = os.path.abspath(warnings.__file__)
+        self._prev = (warnings.showwarning, list(warnings.filters))
+        self._spans = observe.current_spans
+        warnings.simplefilter("always")
+        warnings.showwarning = self._hook
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._warnings.showwarning = self._prev[0]
+        self._warnings.filters[:] = self._prev[1]
+        return False
+
+    def _hook(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if "synchroniz" not in str(message):
+            return self._prev[0](message, category, filename, lineno, file, line)
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if os.path.abspath(f.filename) != self._warnings_file]
+        frame = next((f for f in reversed(stack)
+                      if os.path.abspath(f.filename).startswith(self.pkg)), None)
+        spans = "/".join(self._spans()) or "-"
+        with self._lock:
+            if frame is None:
+                where = " < ".join(f"{_short_path(f.filename)}:{f.lineno} {f.name}"
+                                   for f in reversed(stack[-3:]))
+                self.other[where, spans] = self.other.get((where, spans), 0) + 1
+                return None
+            key = (os.path.abspath(frame.filename), frame.lineno, frame.name, spans)
+            self.sites[key] = self.sites.get(key, 0) + 1
+        return None
+
+
+def phase12(np, torch, work: str, inputs, cpu_families: int) -> dict:
+    """Static analysis and the host-sync audit on the card's machine:
+    a. the port's `lint --json` and `lint --contracts --json` (two
+       processes started with the phase, beside 12b, whose walls are no
+       throughput cell; read after it): no finding, no drift;
+    b. `molecular` and then `duplex` over the wire on the head's normal
+       families at AUDIT_FAMILIES per batch with both pools on, each stage
+       once plainly and once under torch.cuda.set_sync_debug_mode("warn"):
+       the table of (file:line, function, span, count) of every
+       synchronizing call the mode reports, and a failure for any sync in
+       a port function reachable from a batch-loop or worker root that is
+       outside every accounted span (analysis.engine.ACCOUNTED_SPANS) and
+       on no host-sync-suppressed line; the audited BAMs SHA-equal to the
+       plain runs'. run_stage sets the kernel counts to 0 before each
+       stage and reads them after it. A sync in a port function that the
+       static pass calls unreachable, and a sync with no port frame, pass
+       but are printed as findings to look into.
+    Returns the audited stages' launches."""
+    procs = lint_procs()
+    try:
+        return _phase12(torch, work, inputs, cpu_families, procs)
+    finally:  # a failed audit leaves no lint process behind
+        for _name, _t0, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _phase12(torch, work: str, inputs, cpu_families: int, procs: list) -> dict:
+    fasta, big, small, genome = inputs
+    t0 = time.monotonic()
+    head = normal_head(work, small, cpu_families)
+    d = os.path.join(work, "audit")
+    os.makedirs(d, exist_ok=True)
+    pkg, accounted, funcs, quiet = audit_map()
+    launches: dict = {}
+    rows = []
+    bad = []
+    look = []
+    for stage, inp in (("molecular", head),
+                       ("duplex", os.path.join(d, "molecular_plain.bam"))):
+        plain = os.path.join(d, f"{stage}_plain.bam")
+        audited = os.path.join(d, f"{stage}_audit.bam")
+        stats, _l, wall = run_stage(stage, inp, plain, fasta, "cuda", transport="wire",
+                                    batch_families=AUDIT_FAMILIES)
+        pools = pool_fields(stats.metrics.counters)
+        check(pools["overlap_pool_workers"] > 0 and pools["host_pool_workers"] > 0,
+              f"phase12b {stage}: the pools are off ({pools})")
+        with SyncAudit(torch, pkg) as audit:
+            astats, alaunch, awall = run_stage(stage, inp, audited, fasta, "cuda",
+                                               transport="wire",
+                                               batch_families=AUDIT_FAMILIES)
+        for k, v in alaunch.items():
+            launches[k] = launches.get(k, 0) + v
+        check(sha256(audited) == sha256(plain),
+              f"phase12b {stage}: the audited BAM differs from the plain run's")
+        log(f"phase12b {stage}: {astats.batches} batches of {AUDIT_FAMILIES} families, "
+            f"pools {json.dumps(pools, sort_keys=True)}, plain {wall:.1f} s, audited "
+            f"{awall:.1f} s, {sum(audit.sites.values())} syncs at {len(audit.sites)} "
+            f"port sites ({sum(audit.other.values())} with no port frame), launches "
+            f"{json.dumps(alaunch, sort_keys=True)}, BAM SHA-equal to the plain run's")
+        for (path, line, func, spans), n in sorted(audit.sites.items()):
+            reach = any(lo <= line <= hi and r for lo, hi, r in funcs.get(path, ()))
+            whole, lines = quiet.get(path, (False, set()))
+            verdict = ("accounted" if set(spans.split("/")) & accounted else
+                       "suppressed" if whole or line in lines else
+                       "unreached" if not reach else "UNACCOUNTED")
+            rel = os.path.relpath(path, REPO)
+            rows.append((stage, f"{rel}:{line}", func, spans, n, verdict))
+            if verdict == "UNACCOUNTED":
+                bad.append(f"{stage} {rel}:{line} ({func}) span {spans} x{n}")
+            elif verdict == "unreached":
+                look.append(f"{stage} {rel}:{line} ({func}, unreached by the static pass) "
+                            f"span {spans} x{n}")
+        for (where, spans), n in sorted(audit.other.items()):
+            rows.append((stage, "(no port frame)", where, spans, n, "no-port-frame"))
+            look.append(f"{stage} no port frame: {where} span {spans} x{n}")
+    log("phase12b sync table (stage, file:line, function, span, count, verdict):")
+    for stage, site, func, spans, n, verdict in rows:
+        log(f"  {stage:9s} {site:58s} {func:28s} {spans:28s} {n:6d} {verdict}")
+    log(f"phase12b findings to look into ({len(look)}): " + ("; ".join(look) or "none"))
+    log(f"phase12b seconds: {time.monotonic() - t0:.1f}")
+    phase12a(procs)
+    log(f"phase12 seconds with both lint passes: {time.monotonic() - t0:.1f}")
+    check(not bad, "phase12b unaccounted syncs on the batch loop: " + "; ".join(bad))
+    log("phase12b: 0 unaccounted syncs")
+    return launches
 
 
 def main() -> int:
@@ -3813,7 +4071,7 @@ def main() -> int:
                     "indel inputs of --families and --cpu-families in WORKDIR")
     ap.add_argument("--mesh-child", metavar="RANK,PORT,HEAD,WORKDIR", default="",
                     help="(run by the full run) one of Phase 9c's two processes")
-    ap.add_argument("--phases", default="4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="4,5,6,7,8,9,10,11,12",
                     help="the phases after Phase 3 to run (a short check of one phase: "
                     "--phases 10); the default, all of them, is the full run")
     args = ap.parse_args()
@@ -3886,6 +4144,7 @@ def main() -> int:
                         ("10", lambda: phase10(np, torch, work, inputs, args.families // 16)),
                         ("11", lambda: phase11(np, torch, work, inputs, args.families // 8,
                                                args.cpu_families)),
+                        ("12", lambda: phase12(np, torch, work, inputs, args.cpu_families)),
                     ):
                         if tag not in phases:
                             continue

@@ -74,7 +74,7 @@ def no_library(monkeypatch, tmp_path):
 def test_a_failed_build_raises_on_every_entry_point(no_library, grouped_env):
     path = grouped_env["bam"]
     with pytest.raises(_nativelib.NativeLibraryError, match="not found"):
-        _nativelib.build("bamio")
+        _nativelib.build_library("bamio")
     with pytest.raises(_nativelib.NativeLibraryError):
         BamReader(path)
     with pytest.raises(_nativelib.NativeLibraryError):
@@ -103,19 +103,19 @@ def test_a_compile_error_carries_the_compilers_stderr(no_library, monkeypatch):
     monkeypatch.setattr(_nativelib, "SOURCE_DIR", src)
     monkeypatch.setattr(_nativelib, "COMPILER", "g++")
     with pytest.raises(_nativelib.NativeLibraryError) as err:
-        _nativelib.build("wirepack")
+        _nativelib.build_library("wirepack")
     assert "error" in err.value.stderr and "wirepack.cpp" in err.value.stderr
     assert not list((no_library / "build").glob("*.tmp"))
 
 
 def test_a_stale_stamp_rebuilds(no_library, monkeypatch):
     monkeypatch.setattr(_nativelib, "COMPILER", "g++")
-    lib = _nativelib.build("wirepack")
+    lib = _nativelib.build_library("wirepack")
     stamp = lib.with_name(lib.name + ".sha256")
     first = lib.stat().st_mtime_ns
-    assert _nativelib.build("wirepack") == lib and lib.stat().st_mtime_ns == first
+    assert _nativelib.build_library("wirepack") == lib and lib.stat().st_mtime_ns == first
     stamp.write_text("stale")
-    _nativelib.build("wirepack")
+    _nativelib.build_library("wirepack")
     assert lib.stat().st_mtime_ns != first and stamp.read_text() != "stale"
 
 

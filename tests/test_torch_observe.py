@@ -332,10 +332,10 @@ def test_compile_cache_counts_hits_and_misses(tmp_path, monkeypatch):
                                                  "published_hits": 0, "published_misses": 0})
     assert compilecache.maybe_enable() == str(cache) and compilecache.enabled()
     assert compilecache.build_dir(tmp_path / "default") == cache
-    path = _nativelib.build("wirepack")
+    path = _nativelib.build_library("wirepack")
     assert path.parent == cache
     assert compilecache.counts() == (0, 1)
-    _nativelib.build("wirepack")
+    _nativelib.build_library("wirepack")
     assert compilecache.counts() == (1, 1)
     stats = StageStats(stage="molecular")
     compilecache.publish(stats.metrics)

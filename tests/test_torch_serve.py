@@ -453,7 +453,7 @@ def test_warmup_books_the_warm_calls_cache_counts(monkeypatch, tmp_path):
     monkeypatch.setattr(compilecache, "_STATE", {"enabled": False, "hits": 0, "misses": 0,
                                                  "published_hits": 0, "published_misses": 0})
     monkeypatch.setattr(pcalling, "_warm_device",
-                        lambda *a, **k: _nativelib.build("wirepack"))
+                        lambda *a, **k: _nativelib.build_library("wirepack"))
     sink = str(tmp_path / "l.jsonl")
     monkeypatch.setenv("BSSEQ_TPU_STATS", sink)
     eng = ServeEngine(device="cpu")
