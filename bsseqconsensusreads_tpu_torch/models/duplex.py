@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from bsseqconsensusreads_tpu_torch.alphabet import NBASE
-from bsseqconsensusreads_tpu_torch.models.molecular import narrow_outputs
+from bsseqconsensusreads_tpu_torch.models.molecular import narrow_outputs, regular_offsets
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.ops import cuda_vote
 from bsseqconsensusreads_tpu_torch.ops.convert import convert_ag_to_ct
@@ -79,6 +79,7 @@ def duplex_consensus_packed(bases, quals,
     voted = cuda_vote.seg_vote(
         bases.contiguous().reshape(4 * f, 1, w),
         quals.contiguous().reshape(4 * f, 1, w), offsets, params,
+        host_offsets=regular_offsets(2 * f, 2),
     )
     out = {k: v.reshape(f, 2, w) for k, v in voted.items()}
     # per-strand presence/error planes, elementwise over the original rows

@@ -190,8 +190,23 @@ def segment_offsets(seg, num_families: int):
     return torch.searchsorted(seg.contiguous(), ids).to(torch.int32)
 
 
+def host_segment_offsets(seg, num_families: int) -> np.ndarray:
+    """segment_offsets on the host: int32 [num_families + 1] row offsets of
+    the ascending family ids `seg` (a numpy array) — what the device
+    offsets hold, for seg_vote's deep plan."""
+    ids = np.arange(num_families + 1, dtype=np.int64)
+    return np.asarray(np.searchsorted(np.asarray(seg), ids, side="left"), dtype=np.int32)
+
+
+def regular_offsets(segments: int, rows: int) -> np.ndarray:
+    """int32 [segments + 1] host offsets k * rows (padded and 2-row
+    segments), for seg_vote's deep plan."""
+    return np.arange(0, segments * rows + 1, rows, dtype=np.int32)
+
+
 def molecular_consensus_packed(bases, quals, seg, num_families: int,
-                               params: ConsensusParams = ConsensusParams()):
+                               params: ConsensusParams = ConsensusParams(),
+                               host_offsets=None):
     """Segment-packed molecular consensus.
 
     bases int8 [N, 2, W] — every family's template rows concatenated on
@@ -199,13 +214,15 @@ def molecular_consensus_packed(bases, quals, seg, num_families: int,
     [N, 2, W]; seg int32 [N] ascending family ids, pad rows the sentinel
     `num_families`. Returns {base, qual, depth int16, errors int16} of
     [num_families, 2, W] on the input's device: the overlap co-call, then
-    one seg_vote launch (ragged offsets, 2 planes)."""
+    one seg_vote call (ragged offsets, 2 planes). On the card it takes
+    host_offsets, host_segment_offsets of the host's seg."""
     quals = quals.to(torch.int16)
     if params.consensus_call_overlapping_bases:
         bases, quals = overlap_cocall(bases, quals)
     offsets = segment_offsets(seg, num_families)
     return cuda_vote.seg_vote(
-        bases.contiguous(), quals.contiguous(), offsets, params
+        bases.contiguous(), quals.contiguous(), offsets, params,
+        host_offsets=host_offsets,
     )
 
 
@@ -224,6 +241,7 @@ def molecular_consensus(bases, quals,
     return cuda_vote.seg_vote(
         bases.reshape(f * t, 2, w).contiguous(),
         quals.reshape(f * t, 2, w).contiguous(), offsets, params,
+        host_offsets=regular_offsets(f, t),
     )
 
 
@@ -287,17 +305,19 @@ def molecular_wire_kernel(words, f: int, t: int, w: int,
 
 def molecular_wire_packed_kernel(words, n_rows: int, num_families: int, w: int,
                                  params: ConsensusParams = ConsensusParams(),
-                                 qual_mode: str = "q8") -> torch.Tensor:
+                                 qual_mode: str = "q8", host_offsets=None) -> torch.Tensor:
     """The molecular stage on the packed-rows wire (v2,
     ops.wire.pack_molecular_rows_wire) as its bytes on the device: the
     dense rows and their segment ids unpacked there, voted by
-    molecular_consensus_packed (one seg_vote launch, ragged offsets) and
+    molecular_consensus_packed (one seg_vote call, ragged offsets; on the
+    card with host_offsets, the packed rows' host_segment_offsets) and
     returned as the same output wire as molecular_wire_kernel."""
     nib, qual, seg, _offsets = split_molecular_rows_wire(
         words, n_rows, num_families, w, qual_mode=qual_mode
     )
     bases, quals = unpack_rows_wire_inputs(nib, qual, n_rows, w, qual_mode=qual_mode)
-    out = molecular_consensus_packed(bases, quals, seg.view(torch.int32), num_families, params)
+    out = molecular_consensus_packed(bases, quals, seg.view(torch.int32), num_families, params,
+                                     host_offsets=host_offsets)
     return pack_molecular_outputs(out)
 
 

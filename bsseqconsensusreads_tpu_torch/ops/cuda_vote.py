@@ -19,10 +19,18 @@ the sources in this checkout alone, and bound with ctypes.
   in registers and writes base, qual, depth and errors once as
   8/8/16/16-byte vectors. Bound: device memory (3 B read per observation
   cell, 6 B written per output cell; the arithmetic is a few adds per
-  cell). Every layout of the slice is one launch: molecular packed (ragged
-  offsets, 2 planes), duplex packed (2-row segments, 1 plane) and padded
-  (offsets k * T). It takes W % 16 == 0 and 16-byte aligned tensors and
-  raises on anything else (the path's windows are multiples of 32).
+  cell). A unit holding a segment deeper than DEEP_ROWS rows (the deep
+  route's padded dispatches, the partials mode, a deep family in a packed
+  batch) is the deep tiles' instead (seg_vote_deep_kernel, a second launch
+  of the same call): its columns split over the card in tiles of 16 cells,
+  each tile's rows streamed by 2-D TMA and summed one lane per (cell,
+  channel), so the bound there is the chain of in-order adds. Which units
+  are deep the caller's host offsets say (deep_plan); the wrapper reads no
+  device value back. Every layout of the slice is one call: molecular
+  packed (ragged offsets, 2 planes), duplex packed (2-row segments, 1
+  plane) and padded (offsets k * T). It takes W % 16 == 0 and 16-byte
+  aligned tensors and raises on anything else (the path's windows are
+  multiples of 32).
 * seg_vote_partials — seg_vote's partials mode: the same launch writes
   the in-order sums, the per-base counts and the depth and skips the
   finalize (the deep route's template-axis split over a mesh,
@@ -37,7 +45,8 @@ the sources in this checkout alone, and bound with ctypes.
 
 Beside each kernel: its plain PyTorch version (seg_vote_plain,
 vote_finalize_plain) and a launch counter (LAUNCHES); SEG_VOTE_SHAPES
-counts seg_vote's launches by (N, P, W, S). A wrapper takes the
+counts seg_vote's launches by (N, P, W, S), SEG_VOTE_ROUTES both modes'
+calls by route (packed, deep, packed+deep). A wrapper takes the
 plain version only for tensors on the CPU; for a CUDA tensor it launches
 the kernel or raises — there is no fallback.
 
@@ -68,6 +77,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
@@ -94,6 +104,17 @@ SEG_VOTE_SHAPES: collections.Counter = collections.Counter()
 #: launches by (kernel, tag) for launches made under launch_tag — counted
 #: with LAUNCHES, reset with it
 TAGGED_LAUNCHES: collections.Counter = collections.Counter()
+#: seg_vote's and seg_vote_partials' calls by "<kernel>:<route>" — route
+#: "packed" (seg_vote_kernel alone), "deep" (the deep tiles alone: the
+#: deep route's padded dispatches) or "packed+deep" (both: a deep family in
+#: a packed batch); counted with LAUNCHES, reset with it
+SEG_VOTE_ROUTES: collections.Counter = collections.Counter()
+
+#: csrc/vote.cu's geometry, which deep_plan mirrors: consumer threads,
+#: cells per thread, the widest column tile, and the rows past which a
+#: segment is deep (kThreads, kCells, kTileMax, kDeepRows)
+_THREADS, _CELLS, _TILE_MAX = 256, 8, 2048
+DEEP_ROWS = 64
 
 _libs: dict = {}
 _debug = False
@@ -182,7 +203,8 @@ def _load():
         lib = ctypes.CDLL(str(build_library(debug=_debug)))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bsseq_seg_vote.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp,
+            vp, ci, ci, vp,
         ]
         lib.bsseq_seg_vote.restype = ci
         lib.bsseq_vote_finalize.argtypes = [vp, vp, ci, cf, cf, vp, vp, vp]
@@ -210,11 +232,45 @@ def _check_aligned(**tensors) -> None:
 
 
 def _raise_on(rc: int, name: str) -> None:
+    if rc == -2:
+        raise KernelError(f"{name}: the host's deep plan does not match the kernel's geometry")
+    if rc == -3:
+        raise KernelError(f"{name}: the driver cannot encode a TMA tensor map")
     if rc != 0:
         raise KernelError(f"{name} launch failed: cudaError {rc}")
 
 
-def _check_seg_vote(bases, quals, offsets) -> tuple[int, int, int, int]:
+def deep_plan(host_offsets, n: int, p: int, w: int) -> tuple[int, np.ndarray, str]:
+    """Which units of a seg_vote launch of [n, p, w] rows take the deep
+    tiles, from the offsets as a host array (the values the device offsets
+    hold; [S + 1]). Returns (segments per unit, the deep units' ids int32
+    ascending, the route "packed" / "deep" / "packed+deep"). Mirrors
+    csrc/vote.cu: rows of R = p * w <= 2,048 cells make units of 256 /
+    (R / 8) consecutive segments, or of one segment when the segments
+    average more than DEEP_ROWS rows; wider rows one segment per unit; a
+    unit holding a segment of more than DEEP_ROWS rows is deep. The kernel
+    refuses a plan whose units are not its own; offsets that descend or
+    leave the n rows are refused here."""
+    off = np.asarray(host_offsets, dtype=np.int64)
+    s = off.size - 1
+    lens = np.diff(off)
+    if s < 0 or off[0] < 0 or off[-1] > n or (lens < 0).any():
+        raise ValueError(f"host offsets must ascend within the {n} rows")
+    r = p * w
+    segs = 1
+    if r <= _TILE_MAX and n <= s * DEEP_ROWS:
+        segs = _THREADS // (r // _CELLS)
+    units = np.asarray(np.unique(np.flatnonzero(lens > DEEP_ROWS) // segs), dtype=np.int32)
+    if units.size == 0:
+        kind = "packed"
+    elif units.size == -(-s // segs):
+        kind = "deep"
+    else:
+        kind = "packed+deep"
+    return segs, units, kind
+
+
+def _check_seg_vote(bases, quals, offsets, host_offsets) -> tuple[int, int, int, int]:
     """seg_vote's refusals on CUDA tensors; returns (N, P, W, S)."""
     _check_cuda(bases, quals, offsets)
     if bases.dtype != torch.int8 or quals.dtype != torch.int16:
@@ -227,12 +283,39 @@ def _check_seg_vote(bases, quals, offsets) -> tuple[int, int, int, int]:
         raise ValueError(f"seg_vote takes W % 16 == 0, got W = {w}")
     if n * p * w >= 2**31 or s * p * w >= 2**31:
         raise ValueError(f"seg_vote takes < 2**31 cells, got [{n}, {p}, {w}] x {s}")
+    if host_offsets is None or len(host_offsets) != s + 1:
+        raise ValueError(
+            "seg_vote on the card takes host_offsets: the offsets' values as a host "
+            f"array of {s + 1} (which units run deep, without a read of the device)"
+        )
     _check_aligned(bases=bases, quals=quals)
     return n, p, w, s
 
 
+def _launch(bases, quals, offsets, host_offsets, params: ConsensusParams, outs) -> str:
+    """One bsseq_seg_vote call on the current stream with the output
+    pointers `outs` (base, qual, depth, errors, ll, cnt, depth32; None where
+    unused); returns the route taken."""
+    n, p, w = bases.shape
+    dev = bases.device
+    table = phred.log_table(params.error_rate_post_umi, dev)
+    _check_aligned(table=table)
+    segs, units, taken = deep_plan(host_offsets, n, p, w)
+    rc = _load().bsseq_seg_vote(
+        bases.data_ptr(), quals.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+        n, offsets.numel() - 1, p, w, int(params.min_input_base_quality),
+        float(params.min_consensus_base_quality),
+        phred.pre_umi_prob(params.error_rate_pre_umi),
+        *(t.data_ptr() if t is not None else None for t in outs),
+        units.ctypes.data if units.size else None, int(units.size), segs,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "bsseq_seg_vote")
+    return taken
+
+
 def seg_vote(bases, quals, offsets, params: ConsensusParams,
-             with_ll: bool = False) -> dict:
+             with_ll: bool = False, host_offsets=None) -> dict:
     """The segmented vote: rows offsets[s]:offsets[s+1] of every plane vote
     column by column.
 
@@ -241,12 +324,12 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
     ascending row offsets. Returns {base int8, qual uint8, depth int16,
     errors int16} of [S, P, W], plus ll float32 [S, P, W, 4] when
     with_ll. CPU tensors take seg_vote_plain; CUDA tensors launch
-    bsseq_seg_vote."""
+    bsseq_seg_vote, and then host_offsets (the offsets' values as a host
+    array) is required: it says which units take the deep tiles."""
     if bases.device.type == "cpu":
         return seg_vote_plain(bases, quals, offsets, params, with_ll)
-    n, p, w, s = _check_seg_vote(bases, quals, offsets)
+    n, p, w, s = _check_seg_vote(bases, quals, offsets, host_offsets)
     dev = bases.device
-    table = phred.log_table(params.error_rate_post_umi, dev)
     out = {
         # graftlint: disable=padded-batch-flops -- the packed kernel's per-segment
         # output: S families x P strands x W columns, no template axis to pad
@@ -263,62 +346,49 @@ def seg_vote(bases, quals, offsets, params: ConsensusParams,
         out["ll"] = torch.empty((s, p, w, 4), dtype=torch.float32, device=dev)
     if s * p * w == 0:
         return out
-    rc = _load().bsseq_seg_vote(
-        bases.data_ptr(), quals.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-        n, s, p, w, int(params.min_input_base_quality),
-        float(params.min_consensus_base_quality),
-        phred.pre_umi_prob(params.error_rate_pre_umi),
-        out["base"].data_ptr(), out["qual"].data_ptr(),
-        out["depth"].data_ptr(), out["errors"].data_ptr(),
-        out["ll"].data_ptr() if with_ll else None, None, None,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "bsseq_seg_vote")
-    _count("seg_vote", (n, p, w, s))
+    taken = _launch(bases, quals, offsets, host_offsets, params,
+                    (out["base"], out["qual"], out["depth"], out["errors"],
+                     out["ll"] if with_ll else None, None, None))
+    _count("seg_vote", (n, p, w, s), taken)
     return out
 
 
-def seg_vote_partials(bases, quals, offsets, params: ConsensusParams):
+def seg_vote_partials(bases, quals, offsets, params: ConsensusParams, host_offsets=None):
     """seg_vote's partials mode: the in-order segment sums without the
     finalize — (ll float32 [S, P, W, 4], cnt float32 [S, P, W, 4] per-base
     counts, depth int32 [S, P, W]), what a reads shard of the deep route's
-    template-axis split contributes (parallel.deep_family). Same inputs and
-    refusals as seg_vote. CPU tensors take the plain twin
+    template-axis split contributes (parallel.deep_family). Same inputs,
+    host_offsets and refusals as seg_vote. CPU tensors take the plain twin
     (models.molecular.vote_partials_segments); CUDA tensors launch
     bsseq_seg_vote with its partials outputs."""
     from bsseqconsensusreads_tpu_torch.models.molecular import vote_partials_segments
 
     if bases.device.type == "cpu":
         return vote_partials_segments(bases, quals, offsets, params)
-    n, p, w, s = _check_seg_vote(bases, quals, offsets)
+    n, p, w, s = _check_seg_vote(bases, quals, offsets, host_offsets)
     dev = bases.device
-    table = phred.log_table(params.error_rate_post_umi, dev)
     ll = torch.empty((s, p, w, 4), dtype=torch.float32, device=dev)
     cnt = torch.empty((s, p, w, 4), dtype=torch.float32, device=dev)
     depth = torch.empty((s, p, w), dtype=torch.int32, device=dev)
     if s * p * w == 0:
         return ll, cnt, depth
-    rc = _load().bsseq_seg_vote(
-        bases.data_ptr(), quals.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-        n, s, p, w, int(params.min_input_base_quality),
-        float(params.min_consensus_base_quality),
-        phred.pre_umi_prob(params.error_rate_pre_umi),
-        None, None, None, None, ll.data_ptr(), cnt.data_ptr(), depth.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "bsseq_seg_vote (partials)")
-    _count("seg_vote_partials", (n, p, w, s))
+    taken = _launch(bases, quals, offsets, host_offsets, params,
+                    (None, None, None, None, ll, cnt, depth))
+    _count("seg_vote_partials", (n, p, w, s), taken)
     return ll, cnt, depth
 
 
-def _count(kernel: str, shape=None) -> None:
-    """One launch of `kernel` (and of its shape for seg_vote), and one
-    under the calling thread's launch tag when one is set."""
+def _count(kernel: str, shape=None, taken=None) -> None:
+    """One launch of `kernel` (and of its shape for seg_vote, of its route
+    for both modes of seg_vote), and one under the calling thread's launch
+    tag when one is set."""
     tag = getattr(_TAG_LOCAL, "name", None)
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
         if kernel == "seg_vote":
             SEG_VOTE_SHAPES[shape] += 1
+        if taken is not None:
+            SEG_VOTE_ROUTES[f"{kernel}:{taken}"] += 1
         if tag is not None:
             TAGGED_LAUNCHES[(kernel, tag)] += 1
 

@@ -26,6 +26,7 @@ from bsseqconsensusreads_tpu_torch.models.molecular import (
     errors_from_counts,
     narrow_outputs,
     overlap_cocall,
+    regular_offsets,
 )
 from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.ops import cuda_vote
@@ -44,7 +45,7 @@ def _partials(bases, quals, params: ConsensusParams):
     offsets = torch.arange(0, f * t + 1, t, dtype=torch.int32, device=bases.device)
     return cuda_vote.seg_vote_partials(
         bases.reshape(f * t, 2, w).contiguous(), quals.reshape(f * t, 2, w).contiguous(),
-        offsets, params,
+        offsets, params, host_offsets=regular_offsets(f, t),
     )
 
 

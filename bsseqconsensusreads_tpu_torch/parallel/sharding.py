@@ -35,8 +35,27 @@ from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
 from bsseqconsensusreads_tpu_torch.parallel.mesh import Mesh
 
 
-def place(a, device: torch.device) -> torch.Tensor:
-    """A numpy array or tensor on `device` (on the current stream)."""
+class HostArray:
+    """A host array that ShardedFn slices by family like the others and
+    hands to the shard's function as it is, never uploaded (the host
+    offsets of seg_vote's deep plan)."""
+
+    def __init__(self, array: np.ndarray):
+        self.array = array
+
+    def __getitem__(self, index) -> "HostArray":
+        return HostArray(self.array[index])
+
+    @property
+    def shape(self) -> tuple:
+        return self.array.shape
+
+
+def place(a, device: torch.device):
+    """A numpy array or tensor on `device` (on the current stream); a
+    HostArray stays on the host, as its numpy array."""
+    if isinstance(a, HostArray):
+        return a.array
     if isinstance(a, torch.Tensor):
         return a.to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -176,9 +195,13 @@ def sharded_molecular_rows(mesh: Mesh, fams_per_shard: int,
     shard owns whole families, so each runs the single-device segment vote
     (one seg_vote launch) on its slice, bit-identical to the unsharded
     pack. Returns the 12-plane output wire [S * fams_per_shard * 12 * W]
-    family-major — what unpack_molecular_outputs reads."""
-    return ShardedFn(mesh, lambda b, q, s: pack_molecular_outputs(
-        molecular_consensus_packed(b[0], q[0], s[0], fams_per_shard, params)))
+    family-major — what unpack_molecular_outputs reads. On the card a
+    fourth array gives each shard's host offsets: a HostArray of [S,
+    fams_per_shard + 1] (models.molecular.host_segment_offsets of the
+    shard's seg)."""
+    return ShardedFn(mesh, lambda b, q, s, h=None: pack_molecular_outputs(
+        molecular_consensus_packed(b[0], q[0], s[0], fams_per_shard, params,
+                                   host_offsets=None if h is None else h[0])))
 
 
 def sharded_duplex_outwire(mesh: Mesh, params: ConsensusParams = ConsensusParams(min_reads=0)):

@@ -146,6 +146,7 @@ from bsseqconsensusreads_tpu_torch.models.molecular import (
     molecular_consensus_packed,
     molecular_wire_kernel,
     molecular_wire_packed_kernel,
+    host_segment_offsets,
     pack_molecular_outputs,
     singleton_consensus_host,
     sparsify_base_counts,
@@ -1511,6 +1512,7 @@ def call_molecular_batches(
             wire = molecular_wire_packed_kernel(
                 _wire_to_device(words, dev, metrics), pk.bases.shape[0],
                 pk.num_families, w, params, qual_mode=qmode,
+                host_offsets=host_segment_offsets(pk.seg, pk.num_families),
             )
             pf = pk.num_families
         else:
@@ -1545,6 +1547,9 @@ def call_molecular_batches(
             arrays, pf = pad_families((batch.bases, batch.quals), f, data_size)
             fn = outwire_fn
         metrics.count("h2d_bytes", sum(a.nbytes for a in arrays))
+        if sp is not None:  # each shard's host offsets, for seg_vote's deep plan
+            arrays += (_sharding.HostArray(np.stack(
+                [host_segment_offsets(seg, sp.fams_per_shard) for seg in sp.seg])),)
         return _Inflight(fn.launch(*arrays)), pf
 
     def dispatch(batch, wire):
@@ -1563,6 +1568,7 @@ def call_molecular_batches(
             out = molecular_consensus_packed(
                 _to_device(pk.bases, device, metrics), _to_device(pk.quals, device, metrics),
                 _to_device(pk.seg, device, metrics), pk.num_families, params,
+                host_offsets=host_segment_offsets(pk.seg, pk.num_families),
             )
             pf = pk.num_families
         else:

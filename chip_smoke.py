@@ -22,27 +22,38 @@ Phases:
      segment, W 160 / 224, min input qual 20 on one and two planes;
      vote_finalize at [4096, 192], n % 4 != 0 and the main path's [256])
      and at the deep-family route's (padded [1, 5120, 2, 192],
-     [3, 5120, 2, 192] and [1, 16384, 2, 192], one packed 4,097-row
-     segment): mismatch counts — log-likelihood sums bit-identical, base,
-     qual, depth and errors equal; seg_vote's partials mode (sums, counts,
-     depth, no finalize) at the deep mesh route's shapes (one reads slot's
-     half of the deep dispatches), bit-identical to its plain twin. Times: CUDA events around each launch,
+     [3, 5120, 2, 192], [1, 16384, 2, 192] and [1, 5120, 2, 224], one
+     packed 4,097-row segment): mismatch counts — log-likelihood sums
+     bit-identical, base, qual, depth and errors equal; seg_vote's partials
+     mode (sums, counts, depth, no finalize) at the deep mesh route's shapes
+     (one reads slot's half of the deep dispatches), bit-identical to its
+     plain twin. Each case names its route (packed, deep, packed+deep: which
+     of seg_vote_kernel and the deep tiles it launches; the profiler time
+     sums both). Times: CUDA events around each launch,
      every launch after an L2 flush, all enqueued behind a sleep kernel and
      read after one synchronize, so the host runs ahead (mean of the event
      pairs); each kernel timed twice in turns (spread printed) and once
      under torch.profiler (key_averages: the kernel's own device time).
-     The byte bound at 3.35 TB/s and its share of each time; the event
+     The bound and its share of each time: the largest of the byte bound
+     at 3.35 TB/s, the float32 operations at 67 TFLOP/s, and the row-order
+     bound — the real rows (any observed cell) of the deepest segment x the
+     float add's dependent latency (one warp's chain of adds in a jiterator
+     kernel, timed by events once) / the maximum SM clock (nvidia-smi
+     clocks.max.sm); the event
      timer's floor (a one-element add); one PyTorch library call over the
      same contributions (torch.segment_reduce) as a yardstick the port
      never calls. The plain version of a case deeper than 2,000 rows is
      timed by its one comparison call.
   2b. (after Phase 3's head) a child process under CUDA_LAUNCH_BLOCKING=1
-     runs every Phase 2 seg_vote case on the bounds-checked debug build of
+     runs every Phase 2 seg_vote case (the partials mode's too) on the
+     bounds-checked debug build of
      csrc/vote.cu (a trap on any row, offset, segment, stage, output cell
      or TMA address outside its tensor) against the release build, then
      the head's molecular and duplex stages on it (the release bytes).
-  3. end to end: a grouped BAM of --families families (default 100,000
-     since the elastic phase joined the run's time limit; 200,000 before:
+  3. end to end: a grouped BAM of --families families (default 50,000,
+     and Phases 5-11 at an eighth of it, both depth cuts for the run's
+     time limit: the input writers, three child processes, start beside
+     Phase 2;
      the JAX package's tools/scale_rehearsal.py mixture: read length 150,
      fragment 180, 2 Mb genome, 70% one template per strand and the rest
      two, RTA3-binned quals, ~1.3% substitutions), written by the port's
@@ -77,7 +88,10 @@ Phases:
      and the Python engines over both transports (all SHA-equal to native
      unpacked required), and on the CPU over both transports (SHA-equal to
      each other and to the card), stage by stage on identical input, every
-     molecular run with the deep counters checked; and the qual tables
+     molecular run with the deep counters checked and every card molecular
+     run with seg_vote calls that took the deep tiles alone (the deep
+     dispatches; calls by route logged and counted as the deep tiles'
+     launches); and the qual tables
      built on the card equal to the CPU-built ones.
   4. `run`, the system's entry point, in the same temporary directory:
      a. cli.main(["run", "--bam", <Phase 3's input>, "--reference", ...,
@@ -104,7 +118,7 @@ Phases:
         equal.
   5. methylation, fused into the duplex stage:
      a. cli.main(["duplex", ..., "--methyl", "both"]) on Phase 3's
-        molecular families below a quarter of --families (a depth cut for
+        molecular families below an eighth of --families (a depth cut for
         the run's time limit) and the human-scale genome, transport
         'auto' (the wire): its BAM equal to Phase 3w's; counts set to 0
         just before and read just after (a main path);
@@ -126,7 +140,7 @@ Phases:
   6. the raw-BAM entry: Phase 3's mixture, seed and genome one step
      earlier (raw.bam: per-family duplex UMIs in RX, B strands' halves
      swapped, no MI; and raw_head.bam, the head's families), written by a
-     child process while Phase 3 writes its inputs (awaited before any
+     child process beside Phase 3's input writer (awaited before any
      stage is measured):
      a. run_pipeline(FrameworkConfig(filter={"min_reads": [2, 1, 1]}))
         on raw.bam's families below an eighth of --families (a depth cut
@@ -204,7 +218,7 @@ Phases:
      c. the indel head (its deep families carry indel reads) with align
         through both stages on the card and the CPU: SHA-equal.
   9. the multi-device layer on one card (mesh='auto' is one device there):
-     a. Phase 3's families below a sixteenth of --families (a depth cut
+     a. Phase 3's families below an eighth of --families (a depth cut
         for the run's time limit) through both stages on make_mesh(n_data=2)
         over two slots of cuda:0 (two streams), sharded (unpacked) and
         round-robin (transport 'wire'): every BAM's records equal to Phase
@@ -225,9 +239,9 @@ Phases:
         to Phase 3's head duplex BAM, bedMethyl and CX to 5c's.
 
   10. the serving tier (serve/):
-     a. Phase 3's families below a sixteenth of --families (a depth cut
+     a. Phase 3's families below an eighth of --families (a depth cut
         for the run's time limit) split by family into 4 tenant BAMs (a
-        sixty-fourth of --families each), submitted at once to one in-process
+        thirty-second of --families each), submitted at once to one in-process
         ServeEngine(device='cuda', mode 'self', 512 families per batch,
         max_active 4) after its warmup() — the counts set to 0 just before
         the submits and read after the last job is done (a main path):
@@ -257,8 +271,9 @@ Phases:
 
   11. the elastic tier (elastic/):
      a. `python -m bsseqconsensusreads_tpu_torch elastic run --workers 2`
-        (default slices, default config: the wire and the human-scale
-        genome, loaded by every slice's duplex stage) as a child process on
+        (--slices 4, half the default 8: a depth cut for the run's time
+        limit, as every slice's duplex stage loads the human-scale genome;
+        default config: the wire and that genome) as a child process on
         Phase 7b's input (Phase 3's families below an eighth of
         --families), the workers spawned by it as processes of the port,
         each with its own CUDA context, under BSSEQ_TPU_STATS (a main
@@ -272,14 +287,14 @@ Phases:
         spawn-to-join, import and kernel-load spans, launches and device
         peaks;
      b. the lifecycle on the head's normal families (7c's drill head)
-        and the small genome: two `elastic run --workers 2`, on the shared
-        run directory (a killed worker's slice resumes from its
+        and the small genome: two `elastic run --workers 2` at once, on the
+        shared run directory (a killed worker's slice resumes from its
         checkpoints, the handoff from the rundir) and with `--ship`, each
         with w0 armed with elastic_slice=exit:9@hit=2 and w1 sent SIGTERM
         once it holds a lease, each sha256-equal to a single-process `run` of that
         input, with requeues >= 2, a lost worker, elastic_worker_spawn
         >= 4 (both respawned), one handoff_published and a preempt;
-     c. `observe check` on 4a's and 10a's ledgers (exit 0, every stage
+     c. (beside 11b's fleets) `observe check` on 4a's and 10a's ledgers (exit 0, every stage
         line carrying chip_busy: the per-stage coverage check is not
         vacuous) and, as the cross-process trace check, on 11a's;
         `observe summarize --worker w0` and `observe trace` on 11a's
@@ -301,7 +316,9 @@ Phases:
         to the plain runs'.
 
 Prints the kernel table as one JSON line (launches: the main paths of
-Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b, 10a, 11a and 12b together), the
+Phases 3, 3w, 4a, 5a, 5b, 6a, 7a, 8a, 9a, 9b, 10a, 11a and 12b together;
+seg_vote_deep's, the calls that took the deep tiles there and on the
+head's card molecular runs), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failed check
 exits non-zero. `--phases` runs a subset of Phases 4-12 after Phase 3 (a
 short check; the default runs them all).
@@ -311,6 +328,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import contextlib
 import json
 import os
 import subprocess
@@ -378,7 +396,9 @@ def time_ms(torch, fn, repeats: int, flush) -> float:
 
 
 def profiled_ms(torch, fn, repeats: int, flush, kernel: str):
-    """Mean device time of the kernel whose name contains `kernel` in a
+    """Device time per call of fn() of the kernels whose names contain
+    `kernel` (seg_vote: seg_vote_kernel and seg_vote_deep_kernel, both
+    launched by one call where a packed batch holds a deep family) in a
     torch.profiler trace of the same loop: key_averages(), else the trace's
     device events; None when the trace holds no such kernel."""
     fn()
@@ -389,15 +409,17 @@ def profiled_ms(torch, fn, repeats: int, flush, kernel: str):
             flush.sum()
             fn()
         torch.cuda.synchronize()
+    total, seen = 0.0, False
     for e in prof.key_averages():
         if kernel in e.key and e.count:
-            total = getattr(e, "device_time_total", None)
-            if total is None:
-                total = e.cuda_time_total
-            return total / e.count / 1e3
+            t = getattr(e, "device_time_total", None)
+            total += e.cuda_time_total if t is None else t
+            seen = True
+    if seen:
+        return total / repeats / 1e3
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    return sum(spans) / len(spans) / 1e3 if spans else None
+    return sum(spans) / repeats / 1e3 if spans else None
 
 
 def timed(torch, fn, repeats: int, flush, kernel: str) -> dict:
@@ -446,10 +468,10 @@ def random_rows(np, rng, n: int, planes: int, w: int, read_len: int):
 
 
 def kernel_cases(np, torch, dev):
-    """The seg_vote cases as (name, bases, quals, offsets, params) on the
-    card, quals already co-called where the path co-calls: the main path's
-    shapes, then the shapes a tiled kernel gets wrong first (empty
-    segments, one deep segment, W not a power of two, the input-qual
+    """The seg_vote cases as (name, bases, quals, offsets, params, host
+    offsets) on the card, quals already co-called where the path co-calls:
+    the main path's shapes, then the shapes a tiled kernel gets wrong first
+    (empty segments, one deep segment, W not a power of two, the input-qual
     filter on one and two planes)."""
     from bsseqconsensusreads_tpu_torch.models.molecular import overlap_cocall
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
@@ -466,7 +488,7 @@ def kernel_cases(np, torch, dev):
         b, q = random_rows(np, rng, int(offsets[-1]) + pad_rows, 2, w, 150)
         bt, qt = overlap_cocall(*on_card(b, q))
         return (name, bt.contiguous(), qt.contiguous(),
-                torch.from_numpy(offsets).to(dev), params)
+                torch.from_numpy(offsets).to(dev), params, offsets)
 
     def ragged(f, n):
         return 1 + rng.multinomial(n - f, np.full(f, 1.0 / f))
@@ -477,13 +499,15 @@ def kernel_cases(np, torch, dev):
         pad = (np.arange(k * t) % t) >= real
         b[pad], q[pad] = 4, 0
         bt, qt = overlap_cocall(*on_card(b, q))
-        return (name, bt.contiguous(), qt.contiguous(),
-                torch.arange(0, k * t + 1, t, dtype=torch.int32, device=dev), params)
+        offsets = np.arange(0, k * t + 1, t, dtype=np.int32)
+        return (name, bt.contiguous(), qt.contiguous(), torch.from_numpy(offsets).to(dev),
+                params, offsets)
 
     def segments(name, n, planes, w, t, params, read_len=150):
         b, q = random_rows(np, rng, n, planes, w, read_len)
         bt, qt = on_card(b, q)
-        return (name, bt, qt, torch.arange(0, n + 1, t, dtype=torch.int32, device=dev), params)
+        offsets = np.arange(0, n + 1, t, dtype=np.int32)
+        return (name, bt, qt, torch.from_numpy(offsets).to(dev), params, offsets)
 
     cases = [molecular(f"molecular_packed_w{w}", ragged(2048, 8192), w, default)
              for w in (192, 4096)]
@@ -507,6 +531,8 @@ def kernel_cases(np, torch, dev):
     # 4,097-row segment among packed ones
     for k, t, real in ((1, 5120, 4097), (3, 5120, 4097), (1, 16384, 16384)):
         cases.append(padded_deep(f"deep_padded_k{k}_t{t}_w192", k, t, real, 192, default))
+    # the deep tiles at W 224: 28 tiles of 16 cells, not a multiple of a wider tile
+    cases.append(padded_deep("deep_padded_k1_t5120_w224", 1, 5120, 4097, 224, default))
     cases.append(molecular("deep_4097_w192", np.insert(lens, 100, 4097), 192, default))
     for w in (160, 224):
         cases.append(molecular(f"molecular_packed_w{w}", ragged(2048, 8192), w, default))
@@ -519,7 +545,8 @@ def partials_cases(np, torch, dev):
     """seg_vote's partials mode at the deep mesh route's shapes: one reads
     slot's half of the template axis of the head's deep dispatches (two
     families of the 5,120 bucket, and one) and of a family at
-    DEEP_TEMPLATE_CAP, co-called, as (name, bases, quals, offsets)."""
+    DEEP_TEMPLATE_CAP, co-called, as (name, bases, quals, offsets, host
+    offsets)."""
     from bsseqconsensusreads_tpu_torch.models.molecular import overlap_cocall
 
     rng = np.random.default_rng(2025)
@@ -530,22 +557,82 @@ def partials_cases(np, torch, dev):
         b[pad], q[pad] = 4, 0
         bt, qt = overlap_cocall(torch.from_numpy(b).to(dev),
                                 torch.from_numpy(q).to(dev).to(torch.int16))
+        offsets = np.arange(0, k * t + 1, t, dtype=np.int32)
         cases.append((f"partials_k{k}_t{t}_w192", bt.contiguous(), qt.contiguous(),
-                      torch.arange(0, k * t + 1, t, dtype=torch.int32, device=dev)))
+                      torch.from_numpy(offsets).to(dev), offsets))
     return cases
 
 
-def seg_vote_bound_ms(bases, offsets) -> tuple[float, float]:
-    """(bytes-bound ms, operations-bound ms): each input read once (base
-    1 B + qual 2 B per cell, offsets, table), each output written once
-    (6 B per column); 4 float adds per observed cell plus ~25 float ops per
-    output column."""
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (`nvidia-smi --query-gpu=clocks.max.sm`)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def fadd_latency_cycles(torch, clock_hz: float) -> float | None:
+    """The float add's dependent latency in SM cycles, measured once: one
+    warp (32 elements) runs a chain of dependent adds in a jiterator kernel
+    at two lengths, each timed by events; the extra adds' time over their
+    count, at the maximum SM clock. None when the kernel cannot be built."""
+    try:
+        x = torch.zeros(32, device="cuda")
+        y = torch.full((32,), 1e-30, device="cuda")
+        times = []
+        for n in (1 << 20, 1 << 21):
+            chain = torch.cuda.jiterator._create_jit_fn(
+                f"template <typename T> T fadd_chain_{n}(T x, T y) {{"
+                f" for (int i = 0; i < {n}; ++i) x = x + y; return x; }}")
+            chain(x, y)  # the build, and a first run
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain(x, y)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+    except Exception as exc:  # the yardstick only: the bound falls back to 4 cycles
+        log(f"phase2 float add latency: not measured ({type(exc).__name__}: {exc})")
+        return None
+    return (times[1] - times[0]) / (1 << 20) * clock_hz
+
+
+#: the float add's dependent latency on Hopper, in SM cycles, where no
+#: measurement was made
+FADD_CYCLES = 4.0
+
+
+def real_rows_deepest(torch, np, bases, host_offsets) -> int:
+    """Rows with at least one observed cell in the segment that has the
+    most of them."""
+    real = (bases != 4).reshape(bases.shape[0], -1).any(dim=1)
+    csum = np.concatenate([[0], torch.cumsum(real.to(torch.int64), 0).cpu().numpy()])
+    return int(np.max(csum[host_offsets[1:]] - csum[host_offsets[:-1]]))
+
+
+def seg_vote_bound_ms(torch, np, bases, host_offsets, out_bytes: int,
+                      add_s: float) -> tuple[float, float, float]:
+    """(bytes-bound ms, operations-bound ms, row-order-bound ms): each input
+    read once (base 1 B + qual 2 B per cell, offsets, table), each output
+    written once (`out_bytes` per column); 4 float adds per observed cell
+    plus ~25 float ops per output column; and the chain of in-order adds of
+    one cell: the real rows of the deepest segment x the float add's
+    dependent latency (`add_s` seconds)."""
     n, p, w = bases.shape
-    s = offsets.numel() - 1
-    nbytes = n * p * w * 3 + (s + 1) * 4 + 512 * 2 * 4 + s * p * w * 6
+    s = len(host_offsets) - 1
+    nbytes = n * p * w * 3 + (s + 1) * 4 + 512 * 2 * 4 + s * p * w * out_bytes
     observed = int((bases != 4).sum())
     ops = 4 * observed + 25 * s * p * w
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    rows = real_rows_deepest(torch, np, bases, host_offsets)
+    return (nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3, rows * add_s * 1e3)
+
+
+def bound_of(bytes_ms: float, ops_ms: float, row_ms: float) -> tuple[float, str]:
+    """The largest of the three bounds, and which it is."""
+    return max((bytes_ms, "bytes"), (ops_ms, "operations"), (row_ms, "row_order"))
 
 
 def compare_vote(np, torch, got: dict, want: dict) -> dict:
@@ -605,11 +692,18 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[d
     time_ms(torch, lambda: tiny.add_(1), repeats, flush)  # first use of each op
     floor_ms = time_ms(torch, lambda: tiny.add_(1), repeats, flush)
     log(f"phase2 launch floor: {floor_ms:.6f} ms (events around a one-element add)")
+    clock_hz = sm_clock_hz()
+    cycles = fadd_latency_cycles(torch, clock_hz)
+    log(f"phase2 float add dependent latency: {cycles if cycles is not None else 'not measured'} "
+        f"cycles at the max SM clock {clock_hz / 1e6:.0f} MHz (one warp, a chain of 2**20 adds "
+        f"against 2**21, events); the row-order bound takes "
+        f"{cycles if cycles is not None else FADD_CYCLES} cycles")
+    add_s = (cycles if cycles is not None else FADD_CYCLES) / clock_hz
     seg_rows = []
-    for name, b, q, off, params in kernel_cases(np, torch, dev):
-        got = cuda_vote.seg_vote(b, q, off, params, with_ll=True)
+    for name, b, q, off, params, host_off in kernel_cases(np, torch, dev):
+        got = cuda_vote.seg_vote(b, q, off, params, with_ll=True, host_offsets=host_off)
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
-        deepest = int((off[1:] - off[:-1]).max())
+        deepest = int(np.diff(host_off).max())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         want = cuda_vote.seg_vote_plain(b, q, off, params, with_ll=True)
@@ -617,8 +711,8 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[d
         torch.cuda.synchronize()
         res = compare_vote(np, torch, got, want)
         del got, want
-        t = timed(torch, lambda: cuda_vote.seg_vote(b, q, off, params), repeats, flush,
-                  "seg_vote_kernel")
+        t = timed(torch, lambda: cuda_vote.seg_vote(b, q, off, params, host_offsets=host_off),
+                  repeats, flush, "seg_vote")
         if deepest > 2000:
             # the plain version walks the deepest segment one row per step
             # (~0.6 ms each): its one comparison call is its time
@@ -640,14 +734,15 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[d
             except RuntimeError as exc:  # the yardstick only; the port never calls it
                 log(f"phase2 {name}: torch.segment_reduce refused the input ({exc})")
             del contrib
-        bytes_ms, ops_ms = seg_vote_bound_ms(b, off)
-        bound = max(bytes_ms, ops_ms)
+        bytes_ms, ops_ms, row_ms = seg_vote_bound_ms(torch, np, b, host_off, 6, add_s)
+        bound, bound_by = bound_of(bytes_ms, ops_ms, row_ms)
         row = {
             "case": name, "shape": list(b.shape), "segments": off.numel() - 1,
             "deepest_segment_rows": deepest,
+            "route": cuda_vote.deep_plan(host_off, *b.shape)[2],
             "min_input_base_quality": params.min_input_base_quality,
             **t, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": bound_by, "byte_bound_ms": bytes_ms, "row_order_bound_ms": row_ms,
             **shares(bound, t, floor_ms), **res,
         }
         log(f"phase2 seg_vote {json.dumps(row)}")
@@ -689,8 +784,8 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[d
 
     # seg_vote's partials mode against its plain twin (vote_partials_segments)
     part_rows = []
-    for name, b, q, off in partials_cases(np, torch, dev):
-        got = cuda_vote.seg_vote_partials(b, q, off, params)
+    for name, b, q, off, host_off in partials_cases(np, torch, dev):
+        got = cuda_vote.seg_vote_partials(b, q, off, params, host_offsets=host_off)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -701,8 +796,9 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[d
                   for k, g, w in zip(("ll_bits", "cnt_bits", "depth"), got, want)}
         ll_max_abs = float((got[0] - want[0]).abs().max())
         del got, want
-        t = timed(torch, lambda: cuda_vote.seg_vote_partials(b, q, off, params), repeats, flush,
-                  "seg_vote_kernel")
+        t = timed(torch, lambda: cuda_vote.seg_vote_partials(b, q, off, params,
+                                                             host_offsets=host_off),
+                  repeats, flush, "seg_vote")
         contrib = vote_contrib(b, q, phred.log_table(params.error_rate_post_umi, dev),
                                params.min_input_base_quality)[0].reshape(b.shape[0], -1)
         lengths = (off[1:] - off[:-1]).to(torch.int64)
@@ -713,19 +809,18 @@ def phase2(np, torch, dev, repeats: int) -> tuple[list[dict], list[dict], list[d
         except RuntimeError as exc:  # the yardstick only; the port never calls it
             log(f"phase2 {name}: torch.segment_reduce refused the input ({exc})")
         del contrib
-        n, p_, w = b.shape
-        s_ = off.numel() - 1
-        nbytes = n * p_ * w * 3 + (s_ + 1) * 4 + 512 * 2 * 4 + s_ * p_ * w * (16 + 16 + 4)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the partials mode writes 36 B per column and no finalize
+        bytes_ms, _ops, row_ms = seg_vote_bound_ms(torch, np, b, host_off, 16 + 16 + 4, add_s)
         ops_ms = 4 * int((b != 4).sum()) / FP32_OPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
+        bound, bound_by = bound_of(bytes_ms, ops_ms, row_ms)
         row = {
-            "case": name, "shape": list(b.shape), "segments": s_, **t,
+            "case": name, "shape": list(b.shape), "segments": off.numel() - 1,
+            "route": cuda_vote.deep_plan(host_off, *b.shape)[2], **t,
             # the plain twin walks the deep segments one row per step: its
             # one comparison call is its time
             "plain_ms": start.elapsed_time(end),
-            "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+            "byte_bound_ms": bytes_ms, "row_order_bound_ms": row_ms,
             **shares(bound, t, floor_ms), **{f"{k}_differ": v for k, v in differ.items()},
             "max_abs_err": ll_max_abs,
         }
@@ -943,6 +1038,7 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
     for k in cuda_vote.LAUNCHES:
         cuda_vote.LAUNCHES[k] = 0
     cuda_vote.SEG_VOTE_SHAPES.clear()
+    cuda_vote.SEG_VOTE_ROUTES.clear()
     stats = calling.StageStats(stage=stage)
     t0 = time.monotonic()
     with BamReader(inp) as reader:
@@ -971,7 +1067,8 @@ def _run_stage(stage: str, inp: str, out: str, fasta: str, device: str, engine: 
                                    sort_engine=engine, metrics=stats.metrics)
     wall = time.monotonic() - t0
     check_unarmed(stats.metrics.counters, f"{stage} on {device}")
-    return stats, dict(cuda_vote.LAUNCHES), wall
+    # the kernels' launches, and seg_vote's calls by route ("seg_vote:deep", ...)
+    return stats, {**cuda_vote.LAUNCHES, **cuda_vote.SEG_VOTE_ROUTES}, wall
 
 
 HOST_PHASES = ("ingest", "encode", "host_vote", "rawize", "emit", "sort_write")
@@ -1130,48 +1227,79 @@ def log_shapes(tag: str, shapes, case_shapes) -> None:
             f"{tuple(top[0][0]) in case_shapes}")
 
 
-def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
+WRITERS = ("grouped", "raw", "indel")
+
+
+def start_writers(work: str, families: int, cpu_families: int) -> tuple[float, dict]:
+    """Phase 3's inputs, written by child processes started before Phase 2,
+    so that the writing overlaps the kernel checks (the writers run on the
+    host's cores; Phase 2 times the card): the grouped BAMs, the data
+    genome and the human-scale genome (--write-grouped), Phase 6's raw
+    inputs and Phase 8's indel inputs. Returns (their start, the children
+    by kind)."""
+    return time.monotonic(), {kind: subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), f"--write-{kind}", work,
+         "--families", str(families), "--cpu-families", str(cpu_families)],
+        env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    ) for kind in WRITERS}
+
+
+def stop_writers(writers) -> None:
+    """Kill any writer still running (a phase before Phase 3 failed)."""
+    for child in writers[1].values():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def await_writers(writers) -> None:
+    """Wait for the writers, relay their logs, and fail on any that failed."""
+    t0, children = writers
+    waited = time.monotonic()
+    try:
+        outs = {kind: child.communicate(timeout=900) for kind, child in children.items()}
+    finally:
+        stop_writers(writers)
+    log(f"phase3 inputs: the writers' processes done {time.monotonic() - t0:.1f} s after their "
+        f"start beside Phase 2; Phase 3 waited {time.monotonic() - waited:.1f} s for them")
+    for kind, (out, err) in outs.items():
+        for line in out.decode().splitlines():
+            log(line)
+        check(children[kind].returncode == 0,
+              f"writing the {kind} inputs failed: {err.decode()[-2000:]}")
+
+
+def write_grouped(np, work: str, families: int, cpu_families: int) -> None:
+    """(--write-grouped) The grouped BAM, its head and the data genome, and
+    the human-scale genome: its filler contigs written while the inputs
+    are, the data contig appended after."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(1) as pool:
+        fillers = pool.submit(write_genome_fillers, np, work)
+        fasta, _big, _small = write_inputs(np, work, families, cpu_families)
+        log(f"phase3 input: {families} families written in {time.monotonic() - t0:.1f} s")
+        genome = write_human_genome(np, fasta, *fillers.result())
+    log(f"phase3 human-scale genome: {os.path.getsize(genome)} bytes, "
+        f"{len(GRCH38_LENGTHS) + 1} contigs, written in {time.monotonic() - t0:.1f} s "
+        "(beside the inputs)")
+
+
+def phase3(np, torch, work: str, writers, case_shapes):
     """Phase 3 (the unpacked main path), Phase 3w (the wire main path), the
-    identity head and the qual tables. Returns (launches on both main
-    paths, Phase 3's per-stage summaries, the inputs (data genome FASTA,
-    grouped BAM, head BAM, human-scale genome FASTA))."""
+    identity head and the qual tables, once the writers (start_writers)
+    are done. Returns (launches on both main paths, Phase 3's per-stage
+    summaries, the inputs (data genome FASTA, grouped BAM, head BAM,
+    human-scale genome FASTA))."""
     import collections
 
     from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote, reconstruct
 
-    from concurrent.futures import ThreadPoolExecutor
-
-    # the human-scale genome's filler contigs are written while the inputs
-    # are, and Phase 6's raw inputs by a child process meanwhile (awaited
-    # before any stage is measured); the data contig, the data genome, is
-    # appended after
-    t0 = time.monotonic()
-    children = {kind: subprocess.Popen(
-        [sys.executable, os.path.join(REPO, "chip_smoke.py"), f"--write-{kind}", work,
-         "--families", str(families), "--cpu-families", str(cpu_families)],
-        env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-    ) for kind in ("raw", "indel")}
-    try:
-        with ThreadPoolExecutor(1) as pool:
-            fillers = pool.submit(write_genome_fillers, np, work)
-            fasta, big, small = write_inputs(np, work, families, cpu_families)
-            log(f"phase3 input: {families} families written in {time.monotonic() - t0:.1f} s")
-            genome = write_human_genome(np, fasta, *fillers.result())
-        log(f"phase3 human-scale genome: {os.path.getsize(genome)} bytes, "
-            f"{len(GRCH38_LENGTHS) + 1} contigs, written in {time.monotonic() - t0:.1f} s "
-            "(beside the inputs)")
-        errs = {kind: child.communicate(timeout=900)[1] for kind, child in children.items()}
-    finally:
-        for child in children.values():
-            if child.poll() is None:
-                child.kill()
-                child.wait()
-    for kind, phase in (("raw", 6), ("indel", 8)):
-        log(f"phase{phase} {kind} input: {families} families (and the {kind} head) written by "
-            f"a child process in {time.monotonic() - t0:.1f} s, rc {children[kind].returncode}")
-        check(children[kind].returncode == 0,
-              f"writing the {kind} inputs failed: {errs[kind].decode()[-2000:]}")
+    await_writers(writers)
+    fasta, big, small, genome = (os.path.join(work, name) for name in (
+        "genome.fa", "grouped.bam", "grouped_head.bam", "genome_human_scale.fa"))
 
     def io(suffix):
         mol = os.path.join(work, f"molecular{suffix}.bam")
@@ -1230,13 +1358,21 @@ def phase3(np, torch, work: str, families: int, cpu_families: int, case_shapes):
         outs = {}
         for dev, engine, transport in runs:
             out = os.path.join(work, f"{stage[:3]}_head_{dev}_{engine}_{transport}.bam")
-            stats, _counts, wall = run_stage(stage, inp, out, fasta, dev, engine=engine,
-                                             transport=transport)
+            stats, counts, wall = run_stage(stage, inp, out, fasta, dev, engine=engine,
+                                            transport=transport)
             outs[dev, engine, transport] = out
+            routes = {k: v for k, v in counts.items() if ":" in k}
             log(f"phase3 head {stage} {dev} {engine} {transport}: {wall:.2f} s, "
-                f"sha256 {sha256(out)}")
+                f"sha256 {sha256(out)}, seg_vote calls by route {json.dumps(routes)}")
             if stage == "molecular":
                 check_deep_head(stats, f"{dev} {engine} {transport}")
+                if dev == "cuda":
+                    # the deep route's padded dispatches take the deep tiles alone
+                    check(routes.get("seg_vote:deep", 0) > 0,
+                          f"head molecular {engine} {transport}: no deep dispatch took "
+                          "the deep tiles")
+                    for k, v in routes.items():
+                        launches[f"head {k}"] = launches.get(f"head {k}", 0) + v
                 if (dev, engine, transport) == runs[0]:
                     log_shapes("phase3 head molecular", cuda_vote.SEG_VOTE_SHAPES, case_shapes)
         ref = sha256(outs["cuda", "native", "unpacked"])
@@ -1649,7 +1785,7 @@ def methyl_argv(inp: str, out: str, fasta: str, device: str, transport: str,
 def phase5(np, torch, work: str, inputs, phase3_summaries, cut: int) -> dict:
     """Methylation, fused into the duplex stage: 5a/5b over the wire and
     unpacked (the main paths) on Phase 3's molecular families below `cut`
-    (a quarter of --families: the run's time limit), 5c the head on
+    (an eighth of --families: the run's time limit), 5c the head on
     the card and the CPU with both methyl engines and one batch's planes
     against the numpy twin, 5d a SIGKILLed checkpointed `run` with methyl
     resumed. Returns the kernels' launches on 5a and 5b."""
@@ -3514,14 +3650,21 @@ def phase11(np, torch, work: str, inputs, families: int, cpu_families: int) -> d
     fasta, big, small, genome = inputs
     launches = phase11a(torch, work, big, genome, families)
     head = normal_head(work, small, cpu_families)
-    phase11b(work, fasta, head)
-    phase11c(work, fasta, head)
+    # 11c (child processes: observe, a traced run) beside 11b's fleets,
+    # for the run's time limit: neither measures a throughput
+    phase11b(work, fasta, head, beside=lambda: phase11c(work, fasta, head))
     return launches
 
 
+#: 11a's slices: half the default 8 (workers x 4), a depth cut for the
+#: run's time limit, as every slice's duplex stage loads the human-scale
+#: genome (~8 s on the card's host)
+ELASTIC_SLICES = 4
+
+
 def phase11a(torch, work: str, big: str, genome: str, families: int) -> dict:
-    """`elastic run --workers 2` (default slices, default config, the
-    human-scale genome) as a child process: the target SHA-equal to a
+    """`elastic run --workers 2 --slices ELASTIC_SLICES` (default config,
+    the human-scale genome) as a child process: the target SHA-equal to a
     single-process `run` of the same input (7b's when Phase 7 ran),
     report.ok, every worker's seg_vote on the card; families/s beside the
     single-process run, per-slice wall and genome_load, the workers'
@@ -3546,7 +3689,8 @@ def phase11a(torch, work: str, big: str, genome: str, families: int) -> dict:
     with ledgered(work, "11a") as ledger:
         doc, wall, lines = elastic_cli(
             ["--bam", inp, "--reference", genome, "--outdir", os.path.join(d, "out"),
-             "--workers", "2"], ledger, BSSEQ_TPU_STATS_WORKERS=os.path.join(d, "workers"))
+             "--workers", "2", "--slices", str(ELASTIC_SLICES)], ledger,
+            BSSEQ_TPU_STATS_WORKERS=os.path.join(d, "workers"))
     report = doc["report"]
     same = sha256(doc["target"]) == sha256(ref)
     launches, backends, peak = worker_launches(lines)
@@ -3578,16 +3722,18 @@ def phase11a(torch, work: str, big: str, genome: str, families: int) -> dict:
                             and m["backend"] == "cuda" for m in manifests),
           "phase11a: a worker's run_manifest does not name the port on the card")
     check(os.path.getmtime(lib) == built, "phase11a: a worker rebuilt the kernel library")
-    check(len(slices) == 8, f"phase11a: {len(slices)} slices processed, not the default 8")
+    check(len(slices) == ELASTIC_SLICES,
+          f"phase11a: {len(slices)} slices processed, not {ELASTIC_SLICES}")
     return launches
 
 
-def phase11b(work: str, fasta: str, small: str) -> None:
+def phase11b(work: str, fasta: str, small: str, beside=None) -> None:
     """The lifecycle on the head's normal families (`small`) and the small
-    genome: two `elastic run --workers 2`, on the shared run directory and
-    with `--ship`, each with w0 killed at its second slice (requeue and
-    respawn) and w1 sent SIGTERM as it holds its first slice (a handoff),
-    SHA-equal to a single-process run."""
+    genome: two `elastic run --workers 2` at once, on the shared run
+    directory and with `--ship`, each with w0 killed at its second slice
+    (requeue and respawn) and w1 sent SIGTERM as it holds its first slice
+    (a handoff), SHA-equal to a single-process run. `beside` runs in this
+    thread while the fleets run, after the single-process run."""
     from bsseqconsensusreads_tpu_torch.config import FrameworkConfig
     from bsseqconsensusreads_tpu_torch.pipeline import stages
 
@@ -3601,9 +3747,17 @@ def phase11b(work: str, fasta: str, small: str) -> None:
         f"{time.monotonic() - t0:.2f} s")
     # the shared rundir: a killed worker's slice resumes from its
     # checkpoints, the handoff from the rundir; --ship: both from the
-    # chunks the workers pushed
-    for mode in ("shared", "ship"):
-        lifecycle_run(d, fasta, small, ref, mode)
+    # chunks the workers pushed. The two fleets run at once (their own
+    # outdirs and ledgers; each run's faults follow its own ledger)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(lifecycle_run, d, fasta, small, ref, mode)
+                for mode in ("shared", "ship")]
+        if beside is not None:
+            beside()
+        for run in runs:
+            run.result()
 
 
 def lifecycle_run(d: str, fasta: str, small: str, ref: str, mode: str) -> None:
@@ -3727,16 +3881,27 @@ def bounds_child(np, torch, work: str) -> None:
     the debug build (the release build's bytes)."""
     from bsseqconsensusreads_tpu_torch.ops import cuda_vote
 
+    from bsseqconsensusreads_tpu_torch.models.params import ConsensusParams
+
     dev = torch.device("cuda")
-    for name, b, q, off, params in kernel_cases(np, torch, dev):
+    cases = [(name, b, q, off, host_off,
+              lambda b, q, off, params=params, host_off=host_off: cuda_vote.seg_vote(
+                  b, q, off, params, with_ll=True, host_offsets=host_off))
+             for name, b, q, off, params, host_off in kernel_cases(np, torch, dev)]
+    cases += [(name, b, q, off, host_off,
+               lambda b, q, off, host_off=host_off: dict(zip(
+                   ("ll", "cnt", "depth"), cuda_vote.seg_vote_partials(
+                       b, q, off, ConsensusParams(), host_offsets=host_off))))
+              for name, b, q, off, host_off in partials_cases(np, torch, dev)]
+    for name, b, q, off, host_off, vote in cases:
         outs = []
         for debug in (False, True):
             cuda_vote.use_bounds_checked_build(debug)
-            outs.append(cuda_vote.seg_vote(b, q, off, params, with_ll=True))
+            outs.append(vote(b, q, off))
             torch.cuda.synchronize()
         same = all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
-        log(f"bounds case {name} {list(b.shape)} x {off.numel() - 1}: no trap, "
-            f"debug == release: {same}")
+        log(f"bounds case {name} {list(b.shape)} x {off.numel() - 1} "
+            f"({cuda_vote.deep_plan(host_off, *b.shape)[2]}): no trap, debug == release: {same}")
         check(same, f"bounds {name}: the debug build's outputs differ")
     cuda_vote.use_bounds_checked_build(True)
     fasta = os.path.join(work, "genome.fa")
@@ -4052,7 +4217,7 @@ def _phase12(torch, work: str, inputs, cpu_families: int, procs: list) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--families", type=int, default=200_000)
+    ap.add_argument("--families", type=int, default=50_000)
     ap.add_argument("--cpu-families", type=int, default=2_000)
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--kernels-only", action="store_true",
@@ -4063,11 +4228,15 @@ def main() -> int:
     ap.add_argument("--bounds-check", metavar="WORKDIR", default="",
                     help="(run by the full run, under CUDA_LAUNCH_BLOCKING=1) the Phase 2 "
                     "cases and the head stages in WORKDIR on the bounds-checked build")
+    ap.add_argument("--write-grouped", metavar="WORKDIR", default="",
+                    help="(run by the full run, beside Phase 2) Phase 3's grouped inputs of "
+                    "--families and --cpu-families, the data genome and the human-scale "
+                    "genome in WORKDIR")
     ap.add_argument("--write-raw", metavar="WORKDIR", default="",
-                    help="(run by the full run, beside Phase 3's input writing) Phase 6's "
+                    help="(run by the full run, beside Phase 2) Phase 6's "
                     "raw inputs of --families and --cpu-families in WORKDIR")
     ap.add_argument("--write-indel", metavar="WORKDIR", default="",
-                    help="(run by the full run, beside Phase 3's input writing) Phase 8's "
+                    help="(run by the full run, beside Phase 2) Phase 8's "
                     "indel inputs of --families and --cpu-families in WORKDIR")
     ap.add_argument("--mesh-child", metavar="RANK,PORT,HEAD,WORKDIR", default="",
                     help="(run by the full run) one of Phase 9c's two processes")
@@ -4092,12 +4261,16 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not next to this script ({exc})", file=sys.stderr)
         return 2
-    if args.write_raw:
-        write_inputs(np, args.write_raw, args.families, args.cpu_families, raw=True)
+    if args.write_grouped:
+        write_grouped(np, args.write_grouped, args.families, args.cpu_families)
         return 0
-    if args.write_indel:
-        write_inputs(np, args.write_indel, args.families, args.cpu_families, indel=True)
-        return 0
+    for kind, phase, workdir in (("raw", 6, args.write_raw), ("indel", 8, args.write_indel)):
+        if workdir:
+            t0 = time.monotonic()
+            write_inputs(np, workdir, args.families, args.cpu_families, **{kind: True})
+            log(f"phase{phase} {kind} input: {args.families} families (and the {kind} head) "
+                f"written by a child process in {time.monotonic() - t0:.1f} s")
+            return 0
     if args.mesh_child:
         try:
             return mesh_child(args.mesh_child)
@@ -4117,13 +4290,18 @@ def main() -> int:
         elif args.engine_ab:
             engine_ab(np, torch, args.families)
         else:
-            seg_rows, fin_rows, part_rows = phase2(np, torch, dev, args.repeats)
-            if not args.kernels_only:
-                case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
-                with tempfile.TemporaryDirectory(prefix="bsseq_smoke_") as work:
+            with contextlib.ExitStack() as stack:
+                if not args.kernels_only:
+                    # Phase 3's inputs are written beside Phase 2; the
+                    # writers are stopped before the directory goes
+                    work = stack.enter_context(tempfile.TemporaryDirectory(prefix="bsseq_smoke_"))
+                    writers = start_writers(work, args.families, args.cpu_families)
+                    stack.callback(stop_writers, writers)
+                seg_rows, fin_rows, part_rows = phase2(np, torch, dev, args.repeats)
+                if not args.kernels_only:
+                    case_shapes = {(*r["shape"], r["segments"]) for r in seg_rows}
                     marks = [("start", time.monotonic())]
-                    launches, summaries, inputs = phase3(
-                        np, torch, work, args.families, args.cpu_families, case_shapes)
+                    launches, summaries, inputs = phase3(np, torch, work, writers, case_shapes)
                     marks.append(("3", time.monotonic()))
                     log(f"phase 3 seconds: {marks[1][1] - marks[0][1]:.1f} (phases 0-2 before it: "
                         f"{marks[0][1] - T_START:.1f})")
@@ -4132,7 +4310,7 @@ def main() -> int:
                     for tag, more in (
                         ("4", lambda: phase4(np, torch, work, inputs, summaries[0], case_shapes)),
                         ("5", lambda: phase5(np, torch, work, inputs, summaries,
-                                             args.families // 4)),
+                                             args.families // 8)),
                         ("6", lambda: phase6(np, torch, work, inputs, summaries[0],
                                              args.families // 8, args.cpu_families)),
                         ("7", lambda: phase7(np, torch, work, inputs, args.cpu_families,
@@ -4140,8 +4318,8 @@ def main() -> int:
                         ("8", lambda: phase8(np, torch, work, inputs, args.families // 8,
                                              args.cpu_families)),
                         ("9", lambda: phase9(np, torch, work, inputs, summaries,
-                                             args.cpu_families, args.families // 16)),
-                        ("10", lambda: phase10(np, torch, work, inputs, args.families // 16)),
+                                             args.cpu_families, args.families // 8)),
+                        ("10", lambda: phase10(np, torch, work, inputs, args.families // 8)),
                         ("11", lambda: phase11(np, torch, work, inputs, args.families // 8,
                                                args.cpu_families)),
                         ("12", lambda: phase12(np, torch, work, inputs, args.cpu_families)),
@@ -4167,21 +4345,28 @@ def main() -> int:
 
     def summary(rows):
         return [{k: r[k] for k in ("case", "ms", "spread", "profiler_ms", "bound_ms",
-                                   "bound_share", "profiler_bound_share", "plain_ms",
-                                   "library_ms")} for r in rows]
+                                   "bound_by", "bound_share", "profiler_bound_share",
+                                   "plain_ms", "library_ms") + (("route",) if "route" in r else ())}
+                for r in rows]
 
     kernels = []
-    for name, line, rows, head in (
-        ("seg_vote", 277, seg_rows, "molecular_packed_w192"),
-        ("seg_vote_partials", 277, part_rows, "partials_k2_t2560_w192"),
-        ("vote_finalize", 217, fin_rows, "vote_finalize_4096x192"),
+    # seg_vote_deep_kernel: the calls that took the deep tiles, on the main
+    # paths and the head (seg_vote's and the partials mode's routes)
+    deep_launches = sum(v for k, v in launches.items() if k.endswith(("deep", "+deep")))
+    deep_rows = [r for r in seg_rows + part_rows if r["route"] != "packed"]
+    for name, line, rows, head, count in (
+        ("seg_vote", 277, seg_rows, "molecular_packed_w192", launches.get("seg_vote", 0)),
+        ("seg_vote_deep", 277, deep_rows, "deep_padded_k1_t16384_w192", deep_launches),
+        ("seg_vote_partials", 277, part_rows, "partials_k2_t2560_w192",
+         launches.get("seg_vote_partials", 0)),
+        ("vote_finalize", 217, fin_rows, "vote_finalize_4096x192", launches.get("vote_finalize", 0)),
     ):
         top = next(r for r in rows if r["case"] == head)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "bsseqconsensusreads_tpu_torch/csrc/vote.cu",
             "replaces": f"bsseqconsensusreads_tpu/ops/pallas_vote.py:{line}",
-            "launches": launches.get(name, 0),
+            "launches": count,
             "max_abs_err": max(r.get("qual_max_abs", r.get("max_abs_err")) for r in rows),
             "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],

@@ -234,9 +234,12 @@ def _contract(lines):
 
 
 def _compile_spans(lines):
-    """The first-dispatch 'compile' spans: (stage, batch shape) each."""
-    return [(d["stage"], d["shape"]) for d in lines
-            if d["event"] == "span" and d["name"] == "compile"]
+    """The first-dispatch 'compile' spans: (stage, batch shape) each, sorted.
+    With host workers two batches dispatch at once and each span is written
+    when its dispatch ends, so the ledger's order of them is the threads'
+    (in both packages); every span is still compared."""
+    return sorted(((d["stage"], d["shape"]) for d in lines
+                   if d["event"] == "span" and d["name"] == "compile"), key=repr)
 
 
 def _compare_ledgers(port, jax):

@@ -212,6 +212,112 @@ def test_deep_padded_vote_is_bit_equal_to_the_jax_xla_leg():
     assert got["depth"].dtype == torch.int16
 
 
+def _deep_rows(rng, k, t, real, w, pad_with_n=True):
+    """[k * t, 2, w] rows of k families of `real` templates padded to t rows
+    with N (the deep route's padded dispatch), reads over every column."""
+    bases = np.full((k, t, 2, w), 4, np.int8)
+    quals = np.zeros((k, t, 2, w), np.uint8)
+    for f in range(k):
+        truth = rng.integers(0, 4, w).astype(np.int8)
+        obs = np.broadcast_to(truth, (real, 2, w)).copy()
+        flip = rng.random(obs.shape) < 0.1
+        obs[flip] = rng.integers(0, 4, int(flip.sum()))
+        obs[rng.random(obs.shape) < 0.02] = 4
+        bases[f, :real] = obs
+        quals[f, :real] = rng.choice(RTA3, (real, 2, w))
+    return bases, quals
+
+
+@pytest.mark.parametrize("w", [32, 48])
+def test_deep_padded_dispatch_of_three_families_is_bit_equal_to_the_jax_xla_leg(w):
+    # _bucket_deep's fullest dispatch: K = 3 families of 4,097 templates in
+    # the 5,120 bucket; W 48 is 3 deep tiles of 16 cells, not a multiple of 32
+    bases, quals = _deep_rows(np.random.default_rng(w), 3, 5120, 4097, w)
+    jp, tp = _both()
+    want = jm.molecular_consensus(bases, quals, jp)
+    got = tm.molecular_consensus(torch.from_numpy(bases), torch.from_numpy(quals), tp)
+    _assert_equal(got, want)
+    assert (got["depth"].numpy() > 255).all()  # past an 8-bit count everywhere
+
+
+def test_packed_batch_with_a_4097_row_segment_is_bit_equal_to_the_jax_xla_leg():
+    # a family of 4,097 templates among 511 short ones in one packed launch:
+    # its unit takes the deep tiles, the others the packed kernel
+    rng = np.random.default_rng(4097)
+    lens = np.insert(1 + rng.multinomial(1489, np.full(511, 1 / 511)), 100, 4097)
+    bases, quals, seg = _segment_rows(4097, lens, 32)
+    nf = len(lens)
+    jp, tp = _both()
+    want = jm.molecular_consensus_packed(bases, quals, seg, nf, jp, "xla")
+    host = tm.host_segment_offsets(seg, nf)
+    np.testing.assert_array_equal(host, tm.segment_offsets(torch.from_numpy(seg), nf).numpy())
+    got = tm.molecular_consensus_packed(
+        torch.from_numpy(bases), torch.from_numpy(quals), torch.from_numpy(seg), nf, tp,
+        host_offsets=host,
+    )
+    _assert_equal(got, want)
+    assert got["depth"].numpy()[100].max() > 2000  # the deep family, past 8-bit counts
+
+
+def test_deep_partials_are_bit_equal_to_the_jax_package():
+    # the deep split's partials mode at one reads slot's [2 x 2,560] rows
+    bases, quals = _deep_rows(np.random.default_rng(2560), 2, 2560, 2048, 32)
+    bases, quals = bases.reshape(5120, 2, 32), quals.reshape(5120, 2, 32)
+    jp, tp = _both()
+    jb, jq = jm.overlap_cocall(bases, quals.astype(np.float32))
+    seg = np.repeat(np.arange(2, dtype=np.int32), 2560)
+    partials = jax.jit(
+        jm.vote_partials_segments, static_argnames=("num_segments", "params")
+    )
+    want = partials(jb, jq, seg, num_segments=2, params=jp)
+    tb, tq = tm.overlap_cocall(torch.from_numpy(bases), torch.from_numpy(quals).to(torch.int16))
+    host = tm.regular_offsets(2, 2560)
+    got = cuda_vote.seg_vote_partials(tb, tq, torch.from_numpy(host), tp, host_offsets=host)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  np.asarray(want[0]).view(np.uint32))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def _lens_offsets(lens):
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+#: (offsets, [N, P, W]) -> (segments per unit, deep units, route) that
+#: csrc/vote.cu's geometry gives: units of 256 / (R / 8) segments (one when
+#: the segments average more than 64 rows, or R > 2,048), deep when a
+#: segment has more than 64 rows
+DEEP_PLANS = {
+    "padded_k3_t5120_w32": (tm.regular_offsets(3, 5120), (15360, 2, 32), (1, [0, 1, 2], "deep")),
+    "padded_k3_t5120_w48": (tm.regular_offsets(3, 5120), (15360, 2, 48), (1, [0, 1, 2], "deep")),
+    "padded_k1_t16384_w192": (tm.regular_offsets(1, 16384), (16384, 2, 192), (1, [0], "deep")),
+    "partials_k2_t2560_w192": (tm.regular_offsets(2, 2560), (5120, 2, 192), (1, [0, 1], "deep")),
+    "packed_4097_at_100_w32": (_lens_offsets([3] * 100 + [4097] + [3] * 411), (5630, 2, 32),
+                               (32, [3], "packed+deep")),
+    "packed_4097_at_100_w192": (_lens_offsets([3] * 100 + [4097] + [3] * 411), (5630, 2, 192),
+                                (5, [20], "packed+deep")),
+    "packed_w4096_one_deep": (_lens_offsets([2] * 7 + [65]), (79, 2, 4096), (1, [7], "packed+deep")),
+    "segment_of_64_rows": (_lens_offsets([64] + [1] * 9), (73, 2, 192), (5, [], "packed")),
+    "segment_of_65_rows": (_lens_offsets([1] * 9 + [65]), (74, 2, 192), (5, [1], "packed+deep")),
+    "padded_t16_w192": (tm.regular_offsets(4096, 16), (65536, 2, 192), (5, [], "packed")),
+    "duplex_2row_w192": (tm.regular_offsets(4096, 2), (8192, 1, 192), (10, [], "packed")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEEP_PLANS))
+def test_deep_plan_names_the_units_the_deep_tiles_take(name):
+    offsets, shape, (segs, units, route) = DEEP_PLANS[name]
+    got_segs, got_units, got_route = cuda_vote.deep_plan(offsets, *shape)
+    assert (got_segs, got_units.tolist(), got_route) == (segs, units, route)
+    assert got_units.dtype == np.int32
+
+
+@pytest.mark.parametrize("offsets", [[0, 5, 3, 9], [-1, 4, 9], [0, 4, 10]])
+def test_deep_plan_refuses_offsets_that_descend_or_leave_the_rows(offsets):
+    with pytest.raises(ValueError, match="ascend"):
+        cuda_vote.deep_plan(np.array(offsets), 9, 2, 32)
+
+
 def test_exact_ties_call_the_lowest_base_like_the_jax_leg():
     # two observations per column, different bases, equal quals: an exact
     # log-likelihood tie in every column
