@@ -1,0 +1,8 @@
+"""ingest_us_per_read: the program's 'ingest' span (worker-busy seconds,
+summed over threads and both stages) per input read of the window, in
+microseconds."""
+
+
+def read(w):
+    s = w.phase_s.get("ingest", 0.0)
+    return 1e6 * s / w.reads if s > 0 else None
