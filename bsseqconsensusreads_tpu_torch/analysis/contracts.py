@@ -719,7 +719,8 @@ ENV_VARS: tuple[EnvVar, ...] = (
     EnvVar("BSSEQ_TPU_STATS_WORKERS", "flag", "0", "utils.observe",
            "mirror per-worker ledger lines into sub-sinks"),
     EnvVar("BSSEQ_TPU_TRACE", "flag", "0", "utils.observe",
-           "distributed trace contexts + span events on the ledger"),
+           "per-stage torch.profiler Chrome trace with the program's spans beside the "
+           "device's; per-batch span lines on the ledger"),
     EnvVar("BSSEQ_TPU_FLIGHT_RING", "int", "256", "utils.observe",
            "flight-recorder ring capacity (crash-path event dump)"),
     EnvVar("BSSEQ_TPU_COMPILE_CACHE_DIR", "path", "unset",

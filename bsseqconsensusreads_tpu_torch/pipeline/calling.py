@@ -244,6 +244,10 @@ class StageStats:
     # singleton host vote absorbed issues no device work); `used` counts
     # real observation cells, the denominator is the rows actually issued
 
+    def __post_init__(self):
+        if not self.metrics.stage:
+            self.metrics.stage = self.stage
+
     @property
     def pad_waste(self) -> float:
         total = self.pad_cells + self.used_cells
@@ -472,18 +476,6 @@ def stream_mi_groups(
             rid, end = group_end.get(mi, (ref_id, -1))
             group_end[mi] = (ref_id, max(end, rec.reference_end))
     yield from open_groups.items()
-
-
-def _timed_groups(groups, metrics: Metrics):
-    """Accumulate the time spent pulling groups (record decode + MI
-    grouping) under 'ingest'."""
-    while True:
-        with metrics.timed("ingest"):
-            try:
-                item = next(groups)
-            except StopIteration:
-                return
-        yield item
 
 
 def _group_batches(groups, size: int):
@@ -901,12 +893,13 @@ def _hp_prefetch(items, pool, task_fn, barrier=None, metrics=None):
     package's prefetch pulls past it, and its serve engine does not drain
     with host workers on (ROADMAP queue 3).
 
-    With `metrics`, the caller's waits on a task are timed as 'stall':
-    the dispatch thread blocked on a pool's future."""
+    With `metrics`, the caller's waits on a task are timed as 'stall',
+    its part 'stall.encode': the dispatch thread blocked on the
+    encode-ahead."""
     def join(fut):
         if metrics is None:
             return fut.result()
-        with metrics.timed("stall"):
+        with metrics.timed("stall"), metrics.timed("stall.encode"):
             return fut.result()
 
     pending = None
@@ -989,15 +982,17 @@ class _Inflight:
 
 
 def _to_device(arr: np.ndarray, device: torch.device, metrics: Metrics) -> torch.Tensor:
-    """One H2D copy, its bytes counted as 'h2d_bytes'. On an overlap
+    """One H2D copy, timed as 'kernel.h2d' (a part of the dispatch's
+    'kernel'), its bytes counted as 'h2d_bytes'. On an overlap
     worker the copy leaves the worker's pinned staging non_blocking on
     its stream (_Staging); elsewhere it is a plain pageable copy."""
     arr = np.ascontiguousarray(arr)
     metrics.count("h2d_bytes", arr.nbytes)
     staging = getattr(_WORKER, "staging", None)
-    if staging is not None and device.type == "cuda" and arr.nbytes:
-        return staging.upload(arr, device)
-    return torch.from_numpy(arr).to(device)
+    with metrics.timed("kernel.h2d"):
+        if staging is not None and device.type == "cuda" and arr.nbytes:
+            return staging.upload(arr, device)
+        return torch.from_numpy(arr).to(device)
 
 
 def _wire_to_device(words: np.ndarray, device: torch.device, metrics: Metrics) -> torch.Tensor:
@@ -1505,10 +1500,11 @@ def call_molecular_batches(
         pk = batch.packed
         w = batch.bases.shape[-1]
         if pk is not None:
-            words, qmode = pack_molecular_rows_wire(
-                pk.bases, pk.quals, pk.seg, pk.num_families, pk.n_real_rows,
-                qual_mode="auto", native=native_emit,
-            )
+            with metrics.timed("kernel.pack"):
+                words, qmode = pack_molecular_rows_wire(
+                    pk.bases, pk.quals, pk.seg, pk.num_families, pk.n_real_rows,
+                    qual_mode="auto", native=native_emit,
+                )
             wire = molecular_wire_packed_kernel(
                 _wire_to_device(words, dev, metrics), pk.bases.shape[0],
                 pk.num_families, w, params, qual_mode=qmode,
@@ -1517,13 +1513,15 @@ def call_molecular_batches(
             pf = pk.num_families
         else:
             f, t = batch.bases.shape[:2]
-            # graftlint: disable=padded-envelope-dispatch -- the sanctioned
-            # layout='padded' wire: pk is None here
-            win = pack_molecular_inputs(batch.bases, batch.quals, qual_mode="auto",
-                                        native=native_emit)
+            with metrics.timed("kernel.pack"):
+                # graftlint: disable=padded-envelope-dispatch -- the sanctioned
+                # layout='padded' wire: pk is None here
+                win = pack_molecular_inputs(batch.bases, batch.quals, qual_mode="auto",
+                                            native=native_emit)
+                words = win.to_words()
             qmode = win.qual_mode
             wire = molecular_wire_kernel(
-                _wire_to_device(win.to_words(), dev, metrics), f, t, w, params,
+                _wire_to_device(words, dev, metrics), f, t, w, params,
                 qual_mode=qmode,
             )
             pf = f
@@ -1658,27 +1656,30 @@ def call_molecular_batches(
     def batch_task(batch, bi, deep_emitted):
         """One batch on the stage's executor: the guarded unit, then the
         record emit against a shadow stats."""
-        shadow = _hp_stats_shadow(stats)
-        out = dispatch_fetch_guarded(batch, bi)
-        return emit_out(out, batch, deep_emitted, shadow), shadow
+        with observe.bind_batch(bi, stage_label):
+            shadow = _hp_stats_shadow(stats)
+            out = dispatch_fetch_guarded(batch, bi)
+            return emit_out(out, batch, deep_emitted, shadow), shadow
 
     def retire(fut, batch, bi, deep_emitted):
         """The ordered retire of one batch task on the dispatch thread:
-        'stall' is the seconds it blocked on the task; the watchdog
-        abandons a wedged task and re-runs the batch inline; a task that
-        failed re-runs its unit under the retrier; the shadow counts
-        merge here, in batch order."""
-        try:
-            _failpoints.fire("retire_future", stage=stage_label, batch=bi)
-            with metrics.timed("stall"):
-                emitted, shadow = _join_with_watchdog(
-                    fut, batch, bi, lambda b, i: batch_task(b, i, deep_emitted), stats,
-                    stage_label,
-                )
-        except _faultretry.RETRYABLE as exc:
-            shadow = _hp_stats_shadow(stats)
-            emitted = emit_out(recover_fetch(batch, bi, exc), batch, deep_emitted, shadow)
-        _hp_stats_merge(stats, shadow)
+        'stall' is the seconds it blocked on the task (its part
+        'stall.batch'); the watchdog abandons a wedged task and re-runs
+        the batch inline; a task that failed re-runs its unit under the
+        retrier; the shadow counts merge here, in batch order."""
+        with observe.bind_batch(bi, stage_label):
+            try:
+                _failpoints.fire("retire_future", stage=stage_label, batch=bi)
+                with metrics.timed("stall"), metrics.timed("stall.batch"):
+                    emitted, shadow = _join_with_watchdog(
+                        fut, batch, bi, lambda b, i: batch_task(b, i, deep_emitted), stats,
+                        stage_label,
+                    )
+            except _faultretry.RETRYABLE as exc:
+                shadow = _hp_stats_shadow(stats)
+                emitted = emit_out(recover_fetch(batch, bi, exc), batch, deep_emitted, shadow)
+            _hp_stats_merge(stats, shadow)
+        observe.batch_close(bi, stage_label)
         return emitted
 
     def deep_records(deep) -> list:
@@ -1717,11 +1718,13 @@ def call_molecular_batches(
             emitted.extend(emit_out(out, dbatch, ()))
         return emitted
 
-    groups = _timed_groups(
+    # the time spent pulling groups (record decode + MI grouping) is
+    # 'ingest', booked once per chunk (numbered_chunks), not per family
+    groups = metrics.pulls(
         _guard_mod.guard_groups(
             stream_mi_groups(records, grouping=grouping, stats=stats), guard
         ),
-        metrics,
+        "ingest",
     )
     if batching == "bucketed":
         chunks = _group_batches_bucketed(groups, batch_families, indel_policy)
@@ -1739,7 +1742,7 @@ def call_molecular_batches(
         stat counts apply on the dispatch thread, in batch order."""
         bi, chunk = item
         normal, deep = _split_deep(chunk, deep_threshold, indel_policy)
-        with metrics.timed("encode"):
+        with observe.bind_batch(bi, stage_label), metrics.timed("encode"):
             # the cap tracks the routing threshold: a family the splitter
             # called normal must never hit encode's cap
             batch, skipped = encode_molecular_families(
@@ -1754,11 +1757,16 @@ def call_molecular_batches(
         return bi, batch, skipped, deep
 
     def numbered_chunks():
-        for batch_index, chunk in enumerate(chunks, start=1):
-            if batch_index <= skip_batches:
-                # resume replay: skipped batches never encode at all
-                continue
-            yield batch_index, chunk
+        try:
+            for batch_index, chunk in enumerate(chunks, start=1):
+                groups.book()
+                if batch_index <= skip_batches:
+                    # resume replay: skipped batches never encode at all
+                    continue
+                observe.batch_open(batch_index, stage_label)
+                yield batch_index, chunk
+        finally:
+            groups.book()
 
     def events():
         encoded = (
@@ -1770,8 +1778,12 @@ def call_molecular_batches(
             stats.skipped_families += len(skipped)
             stats.indel_aligned += batch.indel_aligned
             stats.indel_dropped += batch.indel_dropped
-            deep_emitted = deep_records(deep) if deep else []
+            deep_emitted = []
+            if deep:
+                with observe.bind_batch(batch_index, stage_label):
+                    deep_emitted = deep_records(deep)
             if not batch.meta:
+                observe.batch_close(batch_index, stage_label)
                 yield "now", deep_emitted
                 continue
             stats.batches += 1
@@ -2595,13 +2607,14 @@ def call_duplex_batches(
         genome = genomes[_norm_device(dev)]
         f, w = batch.bases.shape[0], batch.bases.shape[-1]
         windows = wire_window_offsets(batch)
-        win = pack_duplex_inputs(
-            batch.bases, batch.quals.astype(np.uint8), batch.cover,
-            batch.convert_mask, batch.extend_eligible, *windows,
-            qual_mode="auto", native=native_emit,
-        )
+        with metrics.timed("kernel.pack"):
+            win = pack_duplex_inputs(
+                batch.bases, batch.quals.astype(np.uint8), batch.cover,
+                batch.convert_mask, batch.extend_eligible, *windows,
+                qual_mode="auto", native=native_emit,
+            )
+            words = win.to_words()
         metrics.count(f"wire_qual_{win.qual_mode}")
-        words = win.to_words()
         if methyl_dev:
             # the methyl input appendix: each family's contig origin
             # (the extension gather's lower bound) after the base wire
@@ -2699,37 +2712,40 @@ def call_duplex_batches(
     def batch_task(batch, sidecar, bi, passed):
         """One batch on the stage's executor: the guarded unit, then the
         record emit against a shadow stats."""
-        shadow = _hp_stats_shadow(stats)
-        done = dispatch_fetch_guarded(batch, sidecar, bi)
-        return emit_out(done, batch, passed, shadow), shadow
+        with observe.bind_batch(bi, stage_label):
+            shadow = _hp_stats_shadow(stats)
+            done = dispatch_fetch_guarded(batch, sidecar, bi)
+            return emit_out(done, batch, passed, shadow), shadow
 
     def retire(fut, batch, sidecar, bi, passed):
         """The ordered retire of one batch task (see the molecular
         stage's), then the batch's methyl tallies, in batch order, and
         its records."""
-        try:
-            _failpoints.fire("retire_future", stage=stage_label, batch=bi)
-            with metrics.timed("stall"):
-                (recs, planes), shadow = _join_with_watchdog(
-                    fut, batch, bi, lambda b, i: batch_task(b, sidecar, i, passed),
-                    stats, stage_label,
-                )
-        except _faultretry.RETRYABLE as exc:
-            shadow = _hp_stats_shadow(stats)
-            recs, planes = emit_out(recover_fetch(batch, sidecar, bi, exc), batch, passed,
-                                    shadow)
-        _hp_stats_merge(stats, shadow)
-        if methyl is not None:
-            with metrics.timed("methyl"):
-                methyl.add_planes(bi, planes, batch.meta)
+        with observe.bind_batch(bi, stage_label):
+            try:
+                _failpoints.fire("retire_future", stage=stage_label, batch=bi)
+                with metrics.timed("stall"), metrics.timed("stall.batch"):
+                    (recs, planes), shadow = _join_with_watchdog(
+                        fut, batch, bi, lambda b, i: batch_task(b, sidecar, i, passed),
+                        stats, stage_label,
+                    )
+            except _faultretry.RETRYABLE as exc:
+                shadow = _hp_stats_shadow(stats)
+                recs, planes = emit_out(recover_fetch(batch, sidecar, bi, exc), batch, passed,
+                                        shadow)
+            _hp_stats_merge(stats, shadow)
+            if methyl is not None:
+                with metrics.timed("methyl"):
+                    methyl.add_planes(bi, planes, batch.meta)
+        observe.batch_close(bi, stage_label)
         return recs
 
-    groups = _timed_groups(
+    groups = metrics.pulls(  # 'ingest', booked once per chunk
         _guard_mod.guard_groups(
             stream_mi_groups(records, strip_suffix=True, grouping=grouping, stats=stats),
             guard,
         ),
-        metrics,
+        "ingest",
     )
 
     def encode_chunk(item):
@@ -2739,7 +2755,7 @@ def call_duplex_batches(
         called from one thread at a time. Stat counts apply on the
         dispatch thread, in batch order."""
         bi, chunk = item
-        with metrics.timed("encode"):
+        with observe.bind_batch(bi, stage_label), metrics.timed("encode"):
             # on the wire the device gathers the reference windows, so
             # the per-family host fetch is skipped (batch.ref stays N)
             batch, leftovers, skipped = encode_duplex_families(
@@ -2756,11 +2772,17 @@ def call_duplex_batches(
         return bi, batch, leftovers, skipped, passed, sidecar
 
     def numbered_chunks():
-        for batch_index, chunk in enumerate(_group_batches(groups, batch_families), start=1):
-            if batch_index <= skip_batches:
-                # resume replay: skipped batches never encode at all
-                continue
-            yield batch_index, chunk
+        try:
+            for batch_index, chunk in enumerate(_group_batches(groups, batch_families),
+                                                start=1):
+                groups.book()
+                if batch_index <= skip_batches:
+                    # resume replay: skipped batches never encode at all
+                    continue
+                observe.batch_open(batch_index, stage_label)
+                yield batch_index, chunk
+        finally:
+            groups.book()
 
     def events():
         encoded = (
@@ -2771,6 +2793,7 @@ def call_duplex_batches(
             stats.skipped_families += len(skipped)
             stats.leftover_records += len(leftovers)
             if not batch.meta:
+                observe.batch_close(batch_index, stage_label)
                 yield "now", passed
                 continue
             stats.batches += 1

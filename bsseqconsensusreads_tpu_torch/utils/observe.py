@@ -4,8 +4,11 @@ The port's counterpart of the JAX package's utils/observe.py.
 
 * **Metrics** — named counters and nested, thread-aware phase timers for
   one stage, with the JAX package's `phase_summary` (host_s / device_s /
-  stall_s / chip_busy / unattributed_s). Phases the stages time: ingest, encode, kernel
-  (host-side dispatch: H2D copies and launches), device_wait (CUDA event
+  stall_s / chip_busy / unattributed_s). Phases the stages time: ingest
+  (the group stream's pulls, booked once per chunk: `Metrics.pulls`),
+  encode, kernel (host-side dispatch: its parts kernel.pack, the wire's
+  C pack, and kernel.h2d, the H2D copies; the rest is the launches),
+  device_wait (CUDA event
   sync — the device still owned the batch), fetch (D2H copy + unpack),
   host_vote (singleton host path), rawize (duplex raw units + strand
   calls), emit, sort_write (the output writer's sort, spill, merge and
@@ -13,7 +16,9 @@ The port's counterpart of the JAX package's utils/observe.py.
   or the methyl accumulator's read, once per stage), methyl (the
   methylation planes peeled or computed on the host, and their tallies
   added), methyl_finalize (the tally merge and the bedMethyl / CX
-  writes), stall (the dispatch thread blocked on a pool's future), idle
+  writes), stall (the dispatch thread blocked on a pool's future: its
+  parts stall.encode, the encode-ahead, and stall.batch, a batch task at
+  the ordered retire), idle
   (the serve engine waiting for its tenants' families),
   degrade (a batch's unit run once more, failpoints bypassed, after its
   retries ran out) and spill_write (a sort run's write, on the background
@@ -38,6 +43,14 @@ The port's counterpart of the JAX package's utils/observe.py.
   thread-locally so every `emit` in its extent carries the ids; `span`
   times a child span and emits one completed 'span' line. Contexts cross
   processes as the reserved `_trace` key of a serve request.
+* **the span timeline** — off by default; armed (`timeline()`: by
+  `maybe_trace`, or by a caller such as a benchmark's traced window),
+  every span the timers close is also kept with its interval on
+  time.time_ns() (torch.profiler's clock), thread, batch (`bind_batch`),
+  parent and thread CPU time, and each batch gets one 'batch' record from
+  its encode's submit to its retire's end. `maybe_trace` writes them into
+  its Chrome trace, one lane per thread, and as 'span' lines under the
+  process trace when a ledger is open. Off, a timer pays one check.
 * **the flight recorder** — a bounded ring of the most recent records
   per process (BSSEQ_TPU_FLIGHT_RING, default 256), dumped as one
   'flight_record' line on SIGUSR1, on a failpoint `exit` and on an input
@@ -49,7 +62,9 @@ Activation is environment-driven, as in the JAX package:
   BSSEQ_TPU_STATS=/path.jsonl  appended to a file
   BSSEQ_TPU_TRACE=/path/dir    wrap the molecular, duplex and fused
                                stages in a torch.profiler trace
-                               (Chrome trace JSON; `maybe_trace`)
+                               (Chrome trace JSON; `maybe_trace`) with
+                               the span timeline armed: the program's
+                               spans beside the device's
 
 `event` is the port's never-silent form of `emit`: the ledger line, and
 one `<name> {json}` line on stderr.
@@ -67,6 +82,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 #: phases whose seconds are device occupancy or the transfer around it;
 #: every other undotted phase is host work, except 'stall' (the dispatch
@@ -122,6 +138,8 @@ class Metrics:
     _owner: int = field(default_factory=threading.get_ident, repr=False, compare=False)
     _tls: threading.local = field(default_factory=threading.local, repr=False,
                                   compare=False)
+    #: the stage these timers belong to, stamped on their timeline spans
+    stage: str = field(default="", repr=False, compare=False)
 
     def _stack(self) -> list:
         stack = getattr(self._tls, "stack", None)
@@ -148,6 +166,9 @@ class Metrics:
         stack.append(name)
         spans = _thread_spans()
         spans.append(name)
+        tl = _TIMELINE
+        if tl is not None:
+            mark = _open_span()
         t0 = self.clock()
         try:
             yield
@@ -155,18 +176,21 @@ class Metrics:
             dt = self.clock() - t0
             stack.pop()
             spans.pop()
+            if tl is not None:
+                _close_span(tl, mark, name, path, self.stage)
             self._accumulate(name, path, dt, outermost)
 
-    def _accumulate(self, name: str, path: str, dt: float, outermost: bool) -> None:
+    def _accumulate(self, name: str, path: str, dt: float, outermost: bool,
+                    calls: int = 1) -> None:
         """The one locked read-modify-write behind every timer entry point."""
         with self._lock:
             self.seconds[name] = self.seconds.get(name, 0.0) + dt
             rec = self.spans.get(path)
             if rec is None:
-                self.spans[path] = [dt, 1]
+                self.spans[path] = [dt, calls]
             else:
                 rec[0] += dt
-                rec[1] += 1
+                rec[1] += calls
             if outermost and threading.get_ident() == self._owner:
                 self.owner_seconds[name] = self.owner_seconds.get(name, 0.0) + dt
 
@@ -174,6 +198,9 @@ class Metrics:
         """Seconds measured elsewhere (a C call's own clock, a writer's
         post-stream share); a dotted name is booked as a sub-phase."""
         outermost = not self._stack() and "." not in name
+        tl = _TIMELINE
+        if tl is not None:
+            _booked_span(tl, name, dt, self.stage)
         self._accumulate(name, name, dt, outermost)
 
     def add_sub_seconds(self, name: str, dt: float) -> None:
@@ -181,7 +208,15 @@ class Metrics:
         must be dotted (parent.child)."""
         if "." not in name:
             raise ValueError(f"sub-phase name must be dotted (parent.child), got {name!r}")
+        tl = _TIMELINE
+        if tl is not None:
+            _booked_span(tl, name, dt, self.stage)
         self._accumulate(name, name, dt, outermost=False)
+
+    def pulls(self, items, name: str) -> "Pulls":
+        """`items` with each pull timed under `name` by bare clock reads
+        and booked once per `Pulls.book()` (see Pulls)."""
+        return Pulls(self, items, name)
 
     def rate(self, counter: str, timer: str) -> float:
         dt = self.seconds.get(timer, 0.0)
@@ -231,6 +266,282 @@ class Metrics:
             out = dict(self.counters)
             out.update({f"{k}_seconds": round(v, 3) for k, v in self.seconds.items()})
         return out
+
+
+class Pulls:
+    """An iterator's pulls timed as one phase at a fraction of `timed`'s
+    cost: a bare clock read on each side of every `next()` (no context
+    manager, no lock), the phase open on the thread's span stacks for the
+    pull — a span timed inside it is a part of it, as under `timed` — and
+    the seconds booked (one locked update, the pulls as its calls) at
+    each `book()`: the stage's group stream, booked once per chunk. Armed,
+    the timeline gets one span per book, from its first pull's start to
+    its last pull's end (placed by one wall-clock read at the first pull;
+    no CPU time: a thread CPU clock read a pull would cost more than the
+    pull). A pull made inside another span of the same Metrics takes the
+    full `timed` path."""
+
+    def __init__(self, metrics: "Metrics", items, name: str):
+        self._metrics = metrics
+        self._items = iter(items)
+        self._name = name
+        self._s = 0.0
+        self._calls = 0
+        self._mark = None  # the booked span's (id, parent, first start ns, first start)
+        self._t1 = 0.0  # the last pull's end, on the Metrics' clock
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        m = self._metrics
+        stack = m._stack()
+        if stack:
+            with m.timed(self._name):
+                return next(self._items)
+        stack.append(self._name)
+        spans = _thread_spans()
+        spans.append(self._name)
+        ids = None
+        t0 = m.clock()
+        if _TIMELINE is not None:
+            ids = _thread_ids()
+            if self._mark is None:
+                self._mark = (_next_span_id(), _enclosing_span(ids), time.time_ns(), t0)
+            ids.append(self._mark[0])
+        try:
+            return next(self._items)
+        finally:
+            self._t1 = m.clock()
+            self._s += self._t1 - t0
+            self._calls += 1
+            stack.pop()
+            spans.pop()
+            if ids is not None:
+                ids.pop()
+
+    def book(self) -> None:
+        """Book the pulls since the last book (none: nothing)."""
+        if not self._calls:
+            return
+        dt, calls, mark = self._s, self._calls, self._mark
+        self._s, self._calls, self._mark = 0.0, 0, None
+        m = self._metrics
+        tl = _TIMELINE
+        if tl is not None and mark is not None:
+            sid, parent, t0_ns, t0 = mark
+            tl.add(TimelineSpan(self._name, self._name, m.stage, threading.current_thread().name,
+                                getattr(_TL_LOCAL, "batch", None), sid, parent, t0_ns,
+                                t0_ns + int((self._t1 - t0) * 1e9), int(dt * 1e9), None))
+        m._accumulate(self._name, self._name, dt, outermost=True, calls=calls)
+
+
+# ---------------------------------------------------------------------------
+# The span timeline. While `timeline()` is armed, every span `Metrics.timed`
+# closes, every span booked after the fact (`add_seconds`,
+# `add_sub_seconds`: recorded as ending when booked) and every `Pulls.book`
+# is also kept as a TimelineSpan, stamped on time.time_ns() — the clock
+# torch.profiler stamps its events with (kineto's trace_start_ns() plus an
+# event's time_range), so the host's spans lie beside the device's. Off, a
+# timer pays one check of `_TIMELINE`: no clock read, no allocation.
+
+
+class TimelineSpan(NamedTuple):
+    name: str
+    path: str  # slash-joined, as Metrics.spans keys it
+    stage: str
+    thread: str
+    batch: int | None  # the batch index bound on the thread (bind_batch)
+    span: str  # the id, in _next_span_id's shape
+    parent: str | None  # the enclosing span on the thread, else the batch's record
+    t0_ns: int
+    t1_ns: int
+    wall_ns: int  # the seconds booked: t1 - t0, except a Pulls span (its pulls only)
+    cpu_ns: int | None  # the thread's CPU time over the span; None when booked after, or pulls
+
+
+class Timeline:
+    """The armed timeline's records, at most TIMELINE_CAP (later spans
+    are counted in `dropped`, not kept)."""
+
+    def __init__(self):
+        self.records: list = []
+        self.dropped = 0
+        #: the open 'batch' records by (stage, batch index) (batch_open)
+        self.open_batches: dict = {}
+        self._lock = threading.Lock()
+
+    def add(self, rec: TimelineSpan) -> None:
+        if len(self.records) < TIMELINE_CAP:
+            self.records.append(rec)  # list.append: atomic across threads
+            return
+        with self._lock:
+            self.dropped += 1
+
+
+#: the armed Timeline, or None (off)
+_TIMELINE: Timeline | None = None
+#: records a timeline keeps at most (~0.4 KB each; a dup4 pass makes ~480)
+TIMELINE_CAP = 1 << 18
+#: per thread: `ids`, the open timeline spans' ids; `batch` and
+#: `batch_span`, the bound batch index and its record's id (bind_batch)
+_TL_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def timeline():
+    """Arm the span timeline for the block (process-wide, every thread);
+    yields the Timeline, whose `records` fill as spans close. Restores
+    the previous timeline (or none) on exit."""
+    global _TIMELINE
+    prev = _TIMELINE
+    tl = _TIMELINE = Timeline()
+    try:
+        yield tl
+    finally:
+        _TIMELINE = prev
+
+
+def _thread_ids() -> list:
+    ids = getattr(_TL_LOCAL, "ids", None)
+    if ids is None:
+        ids = _TL_LOCAL.ids = []
+    return ids
+
+
+def _enclosing_span(ids: list) -> str | None:
+    return ids[-1] if ids else getattr(_TL_LOCAL, "batch_span", None)
+
+
+def _open_span() -> tuple:
+    ids = _thread_ids()
+    sid = _next_span_id()
+    mark = (sid, _enclosing_span(ids), time.thread_time_ns(), time.time_ns())
+    ids.append(sid)
+    return mark
+
+
+def _close_span(tl: Timeline, mark: tuple, name: str, path: str, stage: str) -> None:
+    t1 = time.time_ns()
+    c1 = time.thread_time_ns()
+    sid, parent, c0, t0 = mark
+    ids = _thread_ids()
+    if ids and ids[-1] == sid:
+        ids.pop()
+    elif sid in ids:
+        ids.remove(sid)
+    tl.add(TimelineSpan(name, path, stage, threading.current_thread().name,
+                        getattr(_TL_LOCAL, "batch", None), sid, parent, t0, t1, t1 - t0,
+                        c1 - c0))
+
+
+def _booked_span(tl: Timeline, name: str, dt: float, stage: str) -> None:
+    t1 = time.time_ns()
+    wall = int(dt * 1e9)
+    tl.add(TimelineSpan(name, name, stage, threading.current_thread().name,
+                        getattr(_TL_LOCAL, "batch", None), _next_span_id(),
+                        _enclosing_span(_thread_ids()), t1 - wall, t1, wall, None))
+
+
+class BatchMark:
+    """One batch's timeline-only 'batch' record while it is open."""
+
+    __slots__ = ("batch", "span", "stage", "t0_ns")
+
+    def __init__(self, batch: int, stage: str):
+        self.batch = batch
+        self.span = _next_span_id()
+        self.stage = stage
+        self.t0_ns = time.time_ns()
+
+
+def batch_open(batch: int, stage: str) -> None:
+    """Open the record of `stage`'s batch `batch` (the submit of its
+    encode) in the armed timeline; off, nothing."""
+    tl = _TIMELINE
+    if tl is not None:
+        tl.open_batches[(stage, batch)] = BatchMark(batch, stage)
+
+
+def batch_close(batch: int, stage: str) -> None:
+    """Close the record of `stage`'s batch `batch` (the end of its
+    retire): one 'batch' span on the calling thread, never booked in a
+    Metrics. Off, or never opened in this timeline: nothing."""
+    tl = _TIMELINE
+    mark = tl.open_batches.pop((stage, batch), None) if tl is not None else None
+    if mark is None:
+        return
+    t1 = time.time_ns()
+    tl.add(TimelineSpan("batch", "batch", stage, threading.current_thread().name,
+                        batch, mark.span, None, mark.t0_ns, t1, t1 - mark.t0_ns, None))
+
+
+@contextlib.contextmanager
+def bind_batch(batch: int, stage: str):
+    """Bind `stage`'s batch `batch` on the calling thread for the block:
+    its timeline spans carry the index, and an outermost one takes the
+    batch's open record as its parent. A no-op when off."""
+    tl = _TIMELINE
+    if tl is None:
+        yield
+        return
+    mark = tl.open_batches.get((stage, batch))
+    prev = (getattr(_TL_LOCAL, "batch", None), getattr(_TL_LOCAL, "batch_span", None))
+    _TL_LOCAL.batch, _TL_LOCAL.batch_span = batch, (mark.span if mark else None)
+    try:
+        yield
+    finally:
+        _TL_LOCAL.batch, _TL_LOCAL.batch_span = prev
+
+
+def _emit_timeline(records) -> None:
+    """The records as 'span' lines under the process trace (proc_trace),
+    with path, stage, batch, thread and cpu_s as fields (t0/t1 in
+    seconds on time.time, like every span line); a parent not among them
+    becomes the trace's root. No ledger sink: nothing."""
+    if not records or stats_sink() is None:
+        return
+    root = proc_trace()
+    ids = {r.span for r in records}
+    for r in records:
+        emit("span", {
+            "name": r.name, "trace": root["trace"], "span": r.span,
+            "parent": r.parent if r.parent in ids else root["span"],
+            "t0": round(r.t0_ns / 1e9, 6), "t1": round(r.t1_ns / 1e9, 6),
+            "dur_s": round((r.t1_ns - r.t0_ns) / 1e9, 6), "path": r.path, "stage": r.stage,
+            "batch": r.batch, "thread": r.thread,
+            "cpu_s": None if r.cpu_ns is None else round(r.cpu_ns / 1e9, 6),
+        })
+
+
+def _chrome_events(records, base_ns: int) -> list:
+    """The records as Chrome trace complete events ('X', microseconds
+    from `base_ns`), one lane (tid) per thread, named 'spans <thread>'."""
+    pid = os.getpid()
+    lanes: dict = {}
+    out: list = []
+    for r in records:
+        tid = lanes.get(r.thread)
+        if tid is None:
+            tid = lanes[r.thread] = 1_000_000 + len(lanes)
+            out.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                        "args": {"name": f"spans {r.thread}"}})
+        out.append({"ph": "X", "name": r.name, "cat": "bsseq_span", "pid": pid, "tid": tid,
+                    "ts": (r.t0_ns - base_ns) / 1e3, "dur": (r.t1_ns - r.t0_ns) / 1e3,
+                    "args": {"path": r.path, "stage": r.stage, "batch": r.batch,
+                             "span": r.span, "parent": r.parent,
+                             "cpu_ms": None if r.cpu_ns is None else r.cpu_ns / 1e6}})
+    return out
+
+
+def _add_to_chrome_trace(path: str, records) -> None:
+    """Append the records' events to an exported Chrome trace (its
+    `baseTimeNanoseconds` is the origin of its microsecond `ts`)."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    doc["traceEvents"].extend(_chrome_events(records, int(doc.get("baseTimeNanoseconds", 0))))
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
 
 
 def stderr_line(msg: str) -> None:
@@ -721,9 +1032,12 @@ def maybe_trace(label: str, directory: str | None = None):
         _TRACE_SEQ[0] += 1
         n = _TRACE_SEQ[0]
     prof = profile(activities=activities)
-    with prof:
+    with timeline() as tl, prof:
         yield
-    prof.export_chrome_trace(os.path.join(path, f"trace_{os.getpid()}_{n}.json"))
+    out = os.path.join(path, f"trace_{os.getpid()}_{n}.json")
+    prof.export_chrome_trace(out)
+    _add_to_chrome_trace(out, tl.records)
+    _emit_timeline(tl.records)
 
 
 _TRACE_SEQ_LOCK = threading.Lock()

@@ -11,8 +11,10 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -264,31 +266,51 @@ REFERENCE_NATIVES = {
 }
 
 
+def _stale(so_path: str, source: str) -> bool:
+    """make's rule for one library: missing, or older than its source."""
+    try:
+        return os.path.getmtime(so_path) < os.path.getmtime(source)
+    except FileNotFoundError:
+        return True
+
+
 def ensure_reference_natives(repo: str, timeout: float = 180.0) -> None:
     """Make the JAX package's native/ libraries loadable before a test's
     reference leg takes them (tests only: this imports nothing of that
-    package). Its loader runs `make -C native <so>`, which writes the
-    library in place, so under pytest-xdist one worker may load a file
-    another worker's linker is still writing ("file too short") and that
-    worker caches the failure for its whole life. Here the build runs
-    under a file lock, each library is loaded until it loads (another
-    process's build may still be writing it; bounded by `timeout`), and
-    a failed load that a reference module cached is cleared, so its next
+    package). A library that is missing or older than its source is built
+    by native/Makefile's own rule, under a file lock, into a directory of
+    its own, then renamed over native/<so> (os.replace): a process that
+    loads native/<so> meanwhile sees the old file or the whole new one,
+    never a file this build is still writing ("file too short"). The JAX
+    package's loader still builds a missing library in place, so each
+    library is then loaded until it loads (bounded by `timeout`), and a
+    failed load that a reference module cached is cleared, so its next
     use loads again. Raises RuntimeError when a library never loads."""
     native = os.path.join(repo, "native")
     lock_dir = os.path.join(repo, "build", "torch_kernels")
     os.makedirs(lock_dir, exist_ok=True)
     with open(os.path.join(lock_dir, "reference_natives.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        subprocess.run(["make", "-C", native, *REFERENCE_NATIVES],
-                       capture_output=True, timeout=timeout)
+        for so in REFERENCE_NATIVES:
+            path = os.path.join(native, so)
+            if not _stale(path, os.path.join(native, so[3:-3] + ".cpp")):
+                continue
+            out = tempfile.mkdtemp(prefix="native-", dir=lock_dir)
+            try:
+                subprocess.run(["make", "-C", out, "-f", os.path.join(native, "Makefile"),
+                                f"--eval=vpath %.cpp {native}", so],
+                               capture_output=True, timeout=timeout)
+                if os.path.exists(os.path.join(out, so)):
+                    os.replace(os.path.join(out, so), path)
+            finally:
+                shutil.rmtree(out, ignore_errors=True)
     deadline = time.monotonic() + timeout
     for so in REFERENCE_NATIVES:
         path = os.path.join(native, so)
         while True:
             try:
                 # graftlint: disable=kernel-rebuild -- test helper: loads each reference
-                # library once, a bounded wait for another worker's build
+                # library once, a bounded wait for another process's build
                 ctypes.CDLL(path)
                 break
             except OSError as exc:
