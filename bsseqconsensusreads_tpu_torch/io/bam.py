@@ -870,7 +870,7 @@ class RawRecords:
     append the blob verbatim (write_items). count keeps record accounting
     without decoding."""
 
-    __slots__ = ("blob", "count")
+    __slots__ = ("blob", "count", "__weakref__")  # weakref: the host memory account
 
     def __init__(self, blob: bytes, count: int):
         self.blob = blob

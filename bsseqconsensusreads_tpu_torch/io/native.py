@@ -30,6 +30,7 @@ from bsseqconsensusreads_tpu_torch.faults.guard import (
     classify_stream_error,
 )
 from bsseqconsensusreads_tpu_torch.io import _nativelib
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 REQUIRED_SYMBOLS = (
     "bamio_open", "bamio_read", "bamio_error", "bamio_close",
@@ -377,7 +378,31 @@ def _alloc_batch(n: int, var_bytes: int, qname_width: int, tag_width: int):
     return bufs, args
 
 
+#: aux_len flag bit: the record's aux span carries the 4n cB histogram
+#: after cd/ce (csrc/host/bamio.cpp kAuxHasCb)
+_AUX_HAS_CB = 1 << 30
+
+
+def _track_batch(bufs, got: int, qname_width: int, tag_width: int) -> None:
+    """Count a parsed batch's buffers in the host memory account until
+    the last view of each is gone (families hold views): reserved, and
+    written (the parser's ends: var_off + l_seq for seq and qual,
+    cigar_off + n_cigar for cigar, aux_off + the aux span for aux; the
+    first `got` rows elsewhere)."""
+    var_end = int((bufs["var_off"][:got] + bufs["l_seq"][:got]).max())
+    cigar_end = int((bufs["cigar_off"][:got] + bufs["n_cigar"][:got]).max())
+    aux_len = bufs["aux_len"][:got].astype(np.int64)
+    n_aux = aux_len & ~_AUX_HAS_CB
+    aux_end = int((bufs["aux_off"][:got] + np.where(aux_len & _AUX_HAS_CB, 6, 2) * n_aux).max())
+    ends = {"seq": var_end, "qual": var_end, "cigar": 4 * cigar_end, "aux": 2 * aux_end,
+            "qname": got * qname_width, "mi": got * tag_width, "rx": got * tag_width}
+    for name, a in bufs.items():
+        observe.mem_track(a, ingest_reserved=a.nbytes,
+                          ingest_written=min(ends.get(name, got * a.itemsize), a.nbytes))
+
+
 def _batch_from(bufs, got: int, qname_width: int, tag_width: int) -> ColumnarBatch:
+    _track_batch(bufs, got, qname_width, tag_width)
     fixed = ("ref_id", "pos", "flag", "mapq", "l_seq", "next_ref",
              "next_pos", "tlen", "n_cigar", "var_off", "cigar_off",
              "ref_span", "left_clip", "right_clip", "cigar_flags",

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from bsseqconsensusreads_tpu_torch.alphabet import BASE_CODE, NBASE
+from bsseqconsensusreads_tpu_torch.utils import observe
 
 #: starts value meaning "no reference for this family" (all-N window).
 #: uint32 so a human-scale (~3.1 Gbp > 2**31) concatenated genome indexes
@@ -90,8 +91,13 @@ class RefStore:
     """Concatenated genome codes + per-contig offsets; uploaded to each
     device once (device_codes)."""
 
-    def __init__(self, names, seqs=None, codes=None, lengths=None):
+    def __init__(self, names, seqs=None, codes=None, lengths=None, owned: bool = False):
+        """`codes` are the caller's, shared without a copy where they are
+        contiguous int8 already, unless `owned` (the caller hands them
+        over, as from_fasta does); the host memory account counts them
+        once per buffer, under 'genome' and, shared, 'genome_shared'."""
         self.names = list(names)
+        shared = codes is not None and not owned
         if codes is None:
             parts = [
                 BASE_CODE[np.frombuffer(s.encode("ascii"), dtype=np.uint8)]
@@ -103,6 +109,9 @@ class RefStore:
         self.offsets = np.concatenate([[0], np.cumsum(self.lengths)])[:-1]
         self._index = {n: i for i, n in enumerate(self.names)}
         self.codes = np.ascontiguousarray(codes, dtype=np.int8)
+        shared = shared and np.may_share_memory(self.codes, codes)
+        owner = observe.array_owner(self.codes)
+        observe.mem_track(owner, genome=owner.nbytes, genome_shared=owner.nbytes if shared else 0)
         if self.codes.size > MAX_GENOME:
             raise ValueError(
                 f"genome of {self.codes.size} bases exceeds the uint32 "
@@ -136,7 +145,7 @@ class RefStore:
                     raise FastaError(f"{path}: sequence {name!r} disagrees with its .fai index")
                 codes[o:o + length] = np.frombuffer(coded, np.int8)
                 o += length
-        return cls(names, codes=codes, lengths=lengths)
+        return cls(names, codes=codes, lengths=lengths, owned=True)
 
     def device_codes(self, device) -> torch.Tensor:
         """The genome as int8 [G] on `device`: uploaded at first use, once

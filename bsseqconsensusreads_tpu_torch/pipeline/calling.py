@@ -676,6 +676,7 @@ class _Staging:
             size = max(1 << 20, 2 * (self._off + nbytes))
             # graftlint: disable=thread-unsafe-mutation -- per-worker _Staging, as above
             self._buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            observe.mem_track(self._buf, pinned_staging=size)
             # graftlint: disable=thread-unsafe-mutation -- per-worker _Staging, as above
             self._off = 0
         region = self._buf[self._off:self._off + nbytes]
@@ -976,9 +977,19 @@ class _Inflight:
                 self.event.synchronize()
         with metrics.timed("fetch"):
             host = self.wire.host() if sharded else self.wire.cpu().numpy()
-        metrics.count("d2h_bytes", sum(a.nbytes for a in host) if isinstance(host, tuple)
-                      else host.nbytes)
+        parts = host if isinstance(host, tuple) else (host,)
+        metrics.count("d2h_bytes", sum(a.nbytes for a in parts))
+        observe.mem_track_arrays("inflight", *parts)
         return host
+
+
+def _track_emitted(recs) -> None:
+    """Count a batch's emitted record blocks in the host memory account
+    ('inflight') until they are collected: past the retire, once the sort
+    has copied them into its buffer."""
+    for rec in recs:
+        if isinstance(rec, RawRecords):
+            observe.mem_track(rec, inflight=len(rec.blob))
 
 
 def _to_device(arr: np.ndarray, device: torch.device, metrics: Metrics) -> torch.Tensor:
@@ -1490,6 +1501,7 @@ def call_molecular_batches(
     t0 = time.monotonic()
     metrics = stats.metrics
     stage_label = stats.stage or "molecular"
+    observe.mem_sample(metrics, "start")
     #: batch shapes already dispatched once — _compile_probe bookkeeping
     compile_shapes: set = set()
 
@@ -1651,6 +1663,7 @@ def call_molecular_batches(
         with metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, st)
         recs = [recs] if isinstance(recs, RawRecords) else recs
+        _track_emitted(recs)
         return recs + list(deep_emitted)
 
     def batch_task(batch, bi, deep_emitted):
@@ -1679,6 +1692,7 @@ def call_molecular_batches(
                 shadow = _hp_stats_shadow(stats)
                 emitted = emit_out(recover_fetch(batch, bi, exc), batch, deep_emitted, shadow)
             _hp_stats_merge(stats, shadow)
+            observe.mem_sample(metrics, "retire")
         observe.batch_close(bi, stage_label)
         return emitted
 
@@ -1775,6 +1789,7 @@ def call_molecular_batches(
             if hpool is not None else map(encode_chunk, numbered_chunks())
         )
         for batch_index, batch, skipped, deep in encoded:
+            observe.mem_track_arrays("inflight", batch)
             stats.skipped_families += len(skipped)
             stats.indel_aligned += batch.indel_aligned
             stats.indel_dropped += batch.indel_dropped
@@ -2526,6 +2541,7 @@ def call_duplex_batches(
         rid_map = refstore.contig_indices(ref_names)
     metrics = stats.metrics
     stage_label = stats.stage or "duplex"
+    observe.mem_sample(metrics, "start")
     #: batch shapes already dispatched once — _compile_probe bookkeeping
     compile_shapes: set = set()
 
@@ -2707,7 +2723,9 @@ def call_duplex_batches(
         out, planes = done
         with metrics.timed("emit"):
             recs = emit_fn(batch, out, params, mode, st)
-        return ([recs] if isinstance(recs, RawRecords) else recs) + passed, planes
+        recs = [recs] if isinstance(recs, RawRecords) else recs
+        _track_emitted(recs)
+        return recs + passed, planes
 
     def batch_task(batch, sidecar, bi, passed):
         """One batch on the stage's executor: the guarded unit, then the
@@ -2737,6 +2755,7 @@ def call_duplex_batches(
             if methyl is not None:
                 with metrics.timed("methyl"):
                     methyl.add_planes(bi, planes, batch.meta)
+            observe.mem_sample(metrics, "retire")
         observe.batch_close(bi, stage_label)
         return recs
 
@@ -2790,6 +2809,7 @@ def call_duplex_batches(
             if hpool is not None else map(encode_chunk, numbered_chunks())
         )
         for batch_index, batch, leftovers, skipped, passed, sidecar in encoded:
+            observe.mem_track_arrays("inflight", batch)
             stats.skipped_families += len(skipped)
             stats.leftover_records += len(leftovers)
             if not batch.meta:

@@ -431,7 +431,10 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
     per run, sort each in C and spill it, pre-merge in MERGE_FANIN groups,
     then one C merge into `writer`. The seconds land under 'sort_write',
     with its parts as 'sort_write.key_extract', 'sort_write.order',
-    'sort_write.merge' and 'sort_write.merge_bgzf'."""
+    'sort_write.merge' and 'sort_write.merge_bgzf'. The run buffer, and
+    a sorted run until it is written, are the host memory account's
+    'sort_buffer'; with `metrics`, a memory sample is taken when the
+    stream ends ('sort') and after the final write ('sort_end')."""
     from bsseqconsensusreads_tpu_torch.io import wirepack
     from bsseqconsensusreads_tpu_torch.io.native import (
         NativeBgzfReader,
@@ -488,6 +491,11 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
     buf_n = 0
     run_paths: list[str] = []
     tmpdir: tempfile.TemporaryDirectory | None = None
+    held = observe.MemGauge("sort_buffer")
+
+    def sample(where: str) -> None:
+        if metrics is not None:
+            observe.mem_sample(metrics, where)
 
     def spill() -> None:
         nonlocal tmpdir, buf, buf_n
@@ -495,6 +503,7 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
         with _timer(metrics):
             data, n = sort_buf(buf)
             buf, buf_n = bytearray(), 0
+            held.set(len(data))
             if tmpdir is None:
                 tmpdir = tempfile.TemporaryDirectory(prefix="bsseq_extsort_", dir=workdir)
             run_index = len(run_paths)
@@ -506,18 +515,23 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
         try:
             for item in items:
                 buf_n += _append_item(buf, item)
+                held.set(len(buf))
                 if buf_n >= buffer_records:
                     spill()
             if run_paths and buf_n:
                 spill()
             spiller.drain()  # every run durable + CRC'd before a merge opens it
+            held.set(len(buf))
         finally:
             spiller.close()
+        sample("sort")
         with _timer(metrics):
             if not run_paths:  # fits one buffer: straight to the writer
                 data, total = sort_buf(buf)
+                held.set(len(buf) + len(data))
                 if data:
                     writer.write_raw(data)
+                sample("sort_end")
                 return total
             pass_index = 0
             while len(run_paths) > MERGE_FANIN:
@@ -538,8 +552,11 @@ def _native_sort_to_writer(items: Iterable, writer: BamWriter, header: BamHeader
                 run_paths = merged_paths
                 pass_index += 1
             _failpoints.fire("extsort_merge", runs=len(run_paths))
-            return merge_checked(run_paths, writer._bgzf)
+            merged = merge_checked(run_paths, writer._bgzf)
+            sample("sort_end")
+            return merged
     finally:
+        held.close()
         if tmpdir is not None:
             tmpdir.cleanup()
 

@@ -51,6 +51,14 @@ The port's counterpart of the JAX package's utils/observe.py.
   its encode's submit to its retire's end. `maybe_trace` writes them into
   its Chrome trace, one lane per thread, and as 'span' lines under the
   process trace when a ledger is open. Off, a timer pays one check.
+* **the host memory account** — always on: the layers that hold host
+  memory register it by part (ingest buffers, batches in flight, pinned
+  staging, the sort's buffer, the genome), and `mem_sample` reads the
+  resident set and glibc's heap beside them at a stage's start, at each
+  ordered retire and around its final sort. A stage keeps its
+  highest-rss sample whole as `mem.<stage>.peak.<part>_bytes` counters
+  (out of its ledger line); armed, the timeline keeps every sample, and
+  `maybe_trace` writes them as counter tracks.
 * **the flight recorder** — a bounded ring of the most recent records
   per process (BSSEQ_TPU_FLIGHT_RING, default 256), dumped as one
   'flight_record' line on SIGUSR1, on a failpoint `exit` and on an input
@@ -81,6 +89,7 @@ import os
 import sys
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -262,10 +271,37 @@ class Metrics:
         }
 
     def as_dict(self) -> dict:
+        """Counters and phase seconds for the stage's ledger line; the
+        memory account's `mem.` counters stay out of it (read them from
+        `counters`)."""
         with self._lock:
-            out = dict(self.counters)
+            out = {k: v for k, v in self.counters.items() if not k.startswith(MEM_PREFIX)}
             out.update({f"{k}_seconds": round(v, 3) for k, v in self.seconds.items()})
         return out
+
+    def mem_peak(self, sample: dict) -> bool:
+        """Book one memory sample (mem_sample): count it, and where its
+        rss is the stage's highest yet keep the whole sample as the
+        stage's `mem.<stage>.peak.<part>_bytes` counters (a part that read
+        None has none). Returns whether it became the peak; a sample
+        whose rss alone shows it is not may carry nothing else."""
+        prefix = f"{MEM_PREFIX}{self.stage or 'stage'}."
+        with self._lock:
+            key = prefix + "samples"
+            self.counters[key] = self.counters.get(key, 0) + 1
+            if sample["rss"] <= self.mem_peak_rss():
+                return False
+            for part in MEM_PARTS:
+                v = sample.get(part)
+                if v is None:
+                    self.counters.pop(f"{prefix}peak.{part}_bytes", None)
+                else:
+                    self.counters[f"{prefix}peak.{part}_bytes"] = int(v)
+            return True
+
+    def mem_peak_rss(self) -> int:
+        """The stage's highest sampled rss so far, or -1."""
+        return self.counters.get(f"{MEM_PREFIX}{self.stage or 'stage'}.peak.rss_bytes", -1)
 
 
 class Pulls:
@@ -367,6 +403,8 @@ class Timeline:
     def __init__(self):
         self.records: list = []
         self.dropped = 0
+        #: the memory account's samples (MemRecord), in time order
+        self.mem: list = []
         #: the open 'batch' records by (stage, batch index) (batch_open)
         self.open_batches: dict = {}
         self._lock = threading.Lock()
@@ -494,6 +532,328 @@ def bind_batch(batch: int, stage: str):
         _TL_LOCAL.batch, _TL_LOCAL.batch_span = prev
 
 
+# ---------------------------------------------------------------------------
+# The host memory account. The layers that hold host memory register it
+# here: a buffer is counted under its part from registration until the
+# object that owns it is collected (mem_track: the ingest batches' arrays,
+# a batch's encoded arrays, fetched wire and emitted records, the pinned
+# staging, the genome), or as a gauge the holder sets (MemGauge: the
+# sort's run buffer). mem_sample reads the process's resident set and
+# glibc's heap beside those parts, on the calling thread, and books the
+# sample on a stage's Metrics (Metrics.mem_peak): the stages take one at
+# their start, at each ordered retire, and around the final sort and
+# write. Armed, the timeline also keeps every sample (MemRecord).
+
+#: the counters' prefix (Metrics.as_dict leaves them out of the ledger)
+MEM_PREFIX = "mem."
+#: a sample's parts, in bytes (None: not readable on this host)
+MEM_PARTS = (
+    "rss",  # resident set (/proc/self/statm)
+    "rss_anon", "rss_file", "rss_shmem",  # its split (/proc/self/status; see _MemProbe)
+    "malloc_in_use", "malloc_free",  # glibc mallinfo2: uordblks + hblkhd, fordblks
+    "pinned",  # pinned host memory: the CUDA host allocator's, else the staging's
+    "pinned_staging",  # the overlap workers' staging buffers (a part of `pinned`)
+    "ingest_reserved", "ingest_written",  # live ColumnarBatch buffers: reserved, written
+    "inflight",  # batches between encode and retire: encoded arrays, wires, records
+    "sort_buffer",  # records the external sort holds in RAM
+    "genome", "genome_shared",  # RefStore codes; the part handed in by the caller
+)
+#: the parts the program holds on purpose: host_live
+MEM_LIVE_PARTS = ("ingest_written", "inflight", "pinned", "sort_buffer", "genome")
+#: the parts the program registers (the rest are read from the process)
+_MEM_HELD = ("pinned_staging", "ingest_reserved", "ingest_written", "inflight", "sort_buffer",
+             "genome", "genome_shared")
+
+
+class MemRecord(NamedTuple):
+    """One memory sample in the armed timeline."""
+
+    stage: str
+    where: str  # 'start', 'retire', 'sort', 'sort_end'
+    thread: str
+    batch: int | None
+    t_ns: int  # time.time_ns(), the spans' clock
+    parts: dict  # MEM_PARTS -> bytes or None
+
+
+class _MemLive:
+    """Bytes the program holds, by part: each registered owner counts
+    until it is collected (a weakref callback, on whichever thread drops
+    it last); a gauge (MemGauge) moves its own under the same lock.
+    Locked reentrantly: a collection inside a locked block may run a
+    callback on the same thread."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self.bytes = dict.fromkeys(_MEM_HELD, 0)
+        self._refs: dict = {}  # id(owner) -> (weakref, {part: bytes})
+
+    def track(self, owner, parts: dict) -> bool:
+        key = id(owner)
+        with self._lock:
+            if key in self._refs:
+                return False
+            self._refs[key] = (weakref.ref(owner, lambda _r, k=key: self._release(k)), parts)
+            for part, n in parts.items():
+                self.bytes[part] += n
+        return True
+
+    def _release(self, key: int) -> None:
+        with self._lock:
+            entry = self._refs.pop(key, None)
+            if entry is not None:
+                for part, n in entry[1].items():
+                    self.bytes[part] -= n
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.bytes)
+
+
+class _MemProbe:
+    """The process-side readings, opened once per process: /proc/self
+    statm and status by pread on kept descriptors, glibc's mallinfo2 by
+    ctypes, torch's pinned host allocator where CUDA is up. A host whose
+    status has no Rss* lines (a sandboxed kernel) gives rss_anon and
+    rss_shmem None, and rss_file the size of the file-backed mappings of
+    /proc/self/maps (~2.6 ms to read on the card's host), read again
+    only when the dynamic loader's load or unload count has moved: such
+    a host was seen to count a mapped file whole once it is touched, and
+    the program maps no file but its libraries."""
+
+    def __init__(self):
+        self.pid = os.getpid()
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self._statm = os.open("/proc/self/statm", os.O_RDONLY)
+        self._status = os.open("/proc/self/status", os.O_RDONLY)
+        self.split = b"RssFile:" in os.pread(self._status, 8192, 0)
+        self.mapped_file = None
+        self._mapped_at = None  # the loader's counts when mapped_file was read
+        self._mallinfo2 = _mallinfo2()
+        self._loads = _loader_counts()
+
+    def close(self) -> None:
+        os.close(self._statm)
+        os.close(self._status)
+
+    def rss(self) -> int:
+        return int(os.pread(self._statm, 256, 0).split()[1]) * self.page
+
+    def read(self, rss: int) -> dict:
+        """The process-side parts, beside `rss` read just before."""
+        out = {"rss": rss, "rss_anon": None, "rss_file": None, "rss_shmem": None}
+        if self.split:
+            for line in os.pread(self._status, 8192, 0).splitlines():
+                if line.startswith(b"Rss"):
+                    name, value = line.split(b":")
+                    part = {b"RssAnon": "rss_anon", b"RssFile": "rss_file",
+                            b"RssShmem": "rss_shmem"}.get(name)
+                    if part is not None:
+                        out[part] = int(value.split()[0]) * 1024
+        else:
+            loads = self._loads() if self._loads is not None else None
+            if self.mapped_file is None or loads != self._mapped_at:
+                self.mapped_file, self._mapped_at = _mapped_file_bytes(), loads
+            out["rss_file"] = self.mapped_file
+        out["malloc_in_use"] = out["malloc_free"] = None
+        if self._mallinfo2 is not None:
+            mi = self._mallinfo2()
+            out["malloc_in_use"] = mi.uordblks + mi.hblkhd
+            out["malloc_free"] = mi.fordblks
+        return out
+
+
+_LIBC = None
+
+
+def _libc():
+    """The process's C library (ctypes), loaded once."""
+    global _LIBC
+    if _LIBC is None:
+        import ctypes
+
+        _LIBC = ctypes.CDLL(None)
+    return _LIBC
+
+
+def _mallinfo2():
+    """glibc's mallinfo2 (2.33+) with its struct, or None elsewhere."""
+    import ctypes
+
+    class Mallinfo2(ctypes.Structure):
+        _fields_ = [(name, ctypes.c_size_t) for name in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks",
+            "uordblks", "fordblks", "keepcost")]
+
+    try:
+        fn = _libc().mallinfo2
+    except (OSError, AttributeError):
+        return None
+    fn.restype = Mallinfo2
+    fn.argtypes = []
+    return fn
+
+
+def _loader_counts():
+    """A function returning glibc's (objects loaded, unloaded) counts —
+    dl_iterate_phdr's dlpi_adds / dlpi_subs, read from its first object —
+    or None where the loader has no such counts."""
+    import ctypes
+
+    class DlPhdrInfo(ctypes.Structure):
+        _fields_ = [("addr", ctypes.c_void_p), ("name", ctypes.c_char_p),
+                    ("phdr", ctypes.c_void_p), ("phnum", ctypes.c_uint16),
+                    ("adds", ctypes.c_ulonglong), ("subs", ctypes.c_ulonglong)]
+
+    callback_t = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.POINTER(DlPhdrInfo), ctypes.c_size_t,
+                                  ctypes.c_void_p)
+    seen: list = []
+
+    def first(info, size, _data):
+        if size >= ctypes.sizeof(DlPhdrInfo):
+            seen.append((info.contents.adds, info.contents.subs))
+        return 1  # stop after the first object
+
+    try:
+        iterate = _libc().dl_iterate_phdr
+    except (OSError, AttributeError):
+        return None
+    iterate.restype = ctypes.c_int
+    iterate.argtypes = [callback_t, ctypes.c_void_p]
+    cb = callback_t(first)
+
+    def counts():
+        seen.clear()
+        iterate(cb, None)
+        return seen[0] if seen else None
+
+    return counts if counts() is not None else None
+
+
+def _mapped_file_bytes() -> int:
+    """Bytes mapped from files (a path, not a device) in /proc/self/maps."""
+    total = 0
+    with open("/proc/self/maps", "rb") as fh:
+        for line in fh:
+            fields = line.split(maxsplit=5)
+            path = fields[5] if len(fields) == 6 else b""
+            if path.startswith(b"/") and not path.startswith(b"/dev/"):
+                lo, hi = fields[0].split(b"-")
+                total += int(hi, 16) - int(lo, 16)
+    return total
+
+
+def _pinned_bytes() -> int | None:
+    """Bytes the CUDA caching host allocator holds (cached blocks stay
+    pinned), or None where CUDA is not up in this process."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return int(torch.cuda.host_memory_stats().get("allocated_bytes.current", 0))
+
+
+_MEM_LIVE = _MemLive()
+_MEM_PROBE: list = []  # [the process's _MemProbe], or [None] where /proc cannot be read
+_MEM_PROBE_LOCK = threading.Lock()
+
+
+def _mem_probe() -> _MemProbe | None:
+    with _MEM_PROBE_LOCK:
+        probe = _MEM_PROBE[0] if _MEM_PROBE else None
+        if _MEM_PROBE and (probe is None or probe.pid == os.getpid()):
+            return probe
+        if probe is not None:  # a forked child: its own /proc/self
+            probe.close()
+        try:
+            probe = _MemProbe()
+        except OSError:
+            probe = None
+        _MEM_PROBE[:] = [probe]
+        return probe
+
+
+def array_owner(a):
+    """The ndarray that owns `a`'s buffer (or wraps a foreign one)."""
+    import numpy as np
+
+    while isinstance(a.base, np.ndarray):
+        a = a.base
+    return a
+
+
+def mem_track(owner, **parts: int) -> bool:
+    """Count `owner`'s bytes under `parts` until it is collected; an
+    owner already counted is not counted again (returns False)."""
+    return _MEM_LIVE.track(owner, parts)
+
+
+def mem_track_arrays(part: str, *objs) -> None:
+    """Count the numpy arrays among `objs` and among their attributes
+    (one level of dataclasses below, e.g. a batch's packed rows) under
+    `part`, each by the array that owns its buffer, until collected; a
+    buffer already counted (an ingest batch's, under its own part) is
+    not counted again."""
+    import numpy as np
+
+    def arrays(obj, depth):
+        if isinstance(obj, np.ndarray):
+            yield obj
+        elif depth and hasattr(obj, "__dataclass_fields__"):
+            for v in vars(obj).values():
+                yield from arrays(v, depth - 1)
+
+    for obj in objs:
+        for a in arrays(obj, 2):
+            owner = array_owner(a)
+            _MEM_LIVE.track(owner, {part: owner.nbytes})
+
+
+class MemGauge:
+    """A part held as a running byte count its holder sets (the sort's
+    run buffer); close() takes it back to 0."""
+
+    __slots__ = ("part", "n")
+
+    def __init__(self, part: str):
+        self.part = part
+        self.n = 0
+
+    def set(self, n: int) -> None:
+        with _MEM_LIVE._lock:
+            _MEM_LIVE.bytes[self.part] += n - self.n
+            self.n = n
+
+    def close(self) -> None:
+        self.set(0)
+
+
+def mem_sample(metrics: "Metrics", where: str) -> dict | None:
+    """One sample of the host memory account, booked on `metrics`
+    (Metrics.mem_peak) and, armed, kept in the timeline; returns it
+    (None where /proc/self cannot be read). Its rss comes first: a
+    sample that cannot be the stage's peak, with the timeline off, reads
+    nothing more (the heap walk and the allocator's stats are the
+    costly parts) and returns {'rss': ...} alone."""
+    probe = _mem_probe()
+    if probe is None:
+        return None
+    rss = probe.rss()
+    tl = _TIMELINE
+    if tl is None and rss <= metrics.mem_peak_rss():
+        sample = {"rss": rss}
+        metrics.mem_peak(sample)
+        return sample
+    sample = probe.read(rss)
+    sample.update(_MEM_LIVE.snapshot())
+    pinned = _pinned_bytes()
+    sample["pinned"] = sample["pinned_staging"] if pinned is None else pinned
+    metrics.mem_peak(sample)
+    if tl is not None and len(tl.mem) < TIMELINE_CAP:
+        tl.mem.append(MemRecord(metrics.stage, where, threading.current_thread().name,
+                                getattr(_TL_LOCAL, "batch", None), time.time_ns(), sample))
+    return sample
+
+
 def _emit_timeline(records) -> None:
     """The records as 'span' lines under the process trace (proc_trace),
     with path, stage, batch, thread and cpu_s as fields (t0/t1 in
@@ -534,12 +894,24 @@ def _chrome_events(records, base_ns: int) -> list:
     return out
 
 
-def _add_to_chrome_trace(path: str, records) -> None:
-    """Append the records' events to an exported Chrome trace (its
-    `baseTimeNanoseconds` is the origin of its microsecond `ts`)."""
+def _chrome_mem_events(samples, base_ns: int) -> list:
+    """The memory samples as Chrome trace counter events ('C'), one
+    counter per stage, its parts in MiB."""
+    pid = os.getpid()
+    return [{"ph": "C", "name": f"host memory {m.stage}", "pid": pid,
+             "ts": (m.t_ns - base_ns) / 1e3,
+             "args": {p: v / 2**20 for p, v in m.parts.items() if v is not None}}
+            for m in samples]
+
+
+def _add_to_chrome_trace(path: str, records, mem=()) -> None:
+    """Append the records' events, and the memory samples' counters, to an
+    exported Chrome trace (its `baseTimeNanoseconds` is the origin of its
+    microsecond `ts`)."""
     with open(path) as fh:
         doc = json.load(fh)
-    doc["traceEvents"].extend(_chrome_events(records, int(doc.get("baseTimeNanoseconds", 0))))
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    doc["traceEvents"].extend(_chrome_events(records, base) + _chrome_mem_events(mem, base))
     with open(path, "w") as fh:
         json.dump(doc, fh)
 
@@ -1036,7 +1408,7 @@ def maybe_trace(label: str, directory: str | None = None):
         yield
     out = os.path.join(path, f"trace_{os.getpid()}_{n}.json")
     prof.export_chrome_trace(out)
-    _add_to_chrome_trace(out, tl.records)
+    _add_to_chrome_trace(out, tl.records, tl.mem)
     _emit_timeline(tl.records)
 
 
