@@ -270,6 +270,28 @@ def deep_plan(host_offsets, n: int, p: int, w: int) -> tuple[int, np.ndarray, st
     return segs, units, kind
 
 
+def plan_counts(host_offsets, n: int, p: int, w: int) -> dict:
+    """The work of one seg_vote launch of [n, p, w] rows by kernel, from
+    deep_plan on the host offsets (no device value read): the rows the deep
+    tiles and the packed kernel vote ('vote.deep_rows', 'vote.packed_rows';
+    together every row inside a segment), the observation cells the deep
+    tiles read (3 B each: base and int16 qual) and the output cells they
+    write (6 B each: base, qual, depth, errors), and the rows of the deepest
+    segment in a deep unit, the length of the launch's longest chain of
+    in-order adds ('vote.deep_chain_rows'; 0 without a deep unit)."""
+    segs, units, _kind = deep_plan(host_offsets, n, p, w)
+    lens = np.diff(np.asarray(host_offsets, dtype=np.int64))
+    deep = np.isin(np.arange(lens.size) // segs, units)
+    deep_rows = int(lens[deep].sum())
+    return {
+        "vote.deep_rows": deep_rows,
+        "vote.packed_rows": int(lens[~deep].sum()),
+        "vote.deep_cells_in": deep_rows * p * w,
+        "vote.deep_cells_out": int(deep.sum()) * p * w,
+        "vote.deep_chain_rows": int(lens[deep].max()) if units.size else 0,
+    }
+
+
 def _check_seg_vote(bases, quals, offsets, host_offsets) -> tuple[int, int, int, int]:
     """seg_vote's refusals on CUDA tensors; returns (N, P, W, S)."""
     _check_cuda(bases, quals, offsets)

@@ -148,6 +148,7 @@ from bsseqconsensusreads_tpu_torch.models.molecular import (
     molecular_wire_packed_kernel,
     host_segment_offsets,
     pack_molecular_outputs,
+    regular_offsets,
     singleton_consensus_host,
     sparsify_base_counts,
     unpack_molecular_outputs,
@@ -859,6 +860,31 @@ def _join_with_watchdog(fut, batch, bi, redispatch, stats: "StageStats", stage: 
 #: locked, so it is not shadowed)
 _HP_MERGE_FIELDS = ("families", "consensus_out", "skipped_families", "leftover_records",
                     "pad_cells", "used_cells")
+
+
+def _count_vote_plans(metrics: Metrics, batch, data_size: int = 1,
+                      reads_split: int = 1) -> None:
+    """Count the deep tiles' work in the seg_vote launches of one
+    device-voted molecular batch (the 'vote.' counters of
+    cuda_vote.plan_counts, summed over the launches) from the host offsets
+    they take: the packed rows, or each mesh shard's; else the padded envelope
+    (offsets k * T), its families split over `data_size` data shards or
+    its templates over `reads_split` slots (the deep route on a mesh).
+    Host arithmetic on the dispatch thread, once per batch; the same on
+    the card and on the CPU."""
+    w = batch.bases.shape[-1]
+    sp, pk = batch.packed_shards, batch.packed
+    if sp is not None:
+        plans = [(host_segment_offsets(seg, sp.fams_per_shard), seg.shape[0]) for seg in sp.seg]
+    elif pk is not None:
+        plans = [(host_segment_offsets(pk.seg, pk.num_families), pk.bases.shape[0])]
+    else:
+        f = -(-batch.bases.shape[0] // data_size)
+        t = -(-batch.bases.shape[1] // reads_split)
+        plans = [(regular_offsets(f, t), f * t)] * (data_size * reads_split)
+    for offsets, n in plans:
+        for k, v in cuda_vote.plan_counts(offsets, n, 2, w).items():
+            metrics.count(k, v)
 
 
 def _hp_stats_shadow(stats: "StageStats") -> "StageStats":
@@ -1719,6 +1745,8 @@ def call_molecular_batches(
             used = int((dbatch.bases != NBASE).sum())
             stats.pad_cells += dbatch.bases.size - used
             stats.used_cells += used
+            _count_vote_plans(metrics, dbatch,
+                              reads_split=1 if deep_fn is None else deep_fn.mesh.shape["reads"])
             with metrics.timed("kernel"):
                 if deep_fn is None:
                     inflight, _pf = dispatch(dbatch, False)
@@ -1807,6 +1835,7 @@ def call_molecular_batches(
                 used = int((issued != NBASE).sum())
                 stats.pad_cells += issued.size - used
                 stats.used_cells += used
+                _count_vote_plans(metrics, batch, data_size if sharded else 1)
                 metrics.count(f"route_batches_{route}")
                 if wire_rr is not None:
                     batch.slot = wire_rr.next_slot()

@@ -272,10 +272,10 @@ class Metrics:
 
     def as_dict(self) -> dict:
         """Counters and phase seconds for the stage's ledger line; the
-        memory account's `mem.` counters stay out of it (read them from
-        `counters`)."""
+        memory account's `mem.` and the vote plans' `vote.` counters stay
+        out of it (read them from `counters`)."""
         with self._lock:
-            out = {k: v for k, v in self.counters.items() if not k.startswith(MEM_PREFIX)}
+            out = {k: v for k, v in self.counters.items() if not k.startswith(UNLEDGERED)}
             out.update({f"{k}_seconds": round(v, 3) for k, v in self.seconds.items()})
         return out
 
@@ -546,6 +546,10 @@ def bind_batch(batch: int, stage: str):
 
 #: the counters' prefix (Metrics.as_dict leaves them out of the ledger)
 MEM_PREFIX = "mem."
+#: the molecular vote plans' counters (pipeline.calling, ops.cuda_vote.plan_counts)
+VOTE_PREFIX = "vote."
+#: the prefixes of the counters kept out of the ledger line
+UNLEDGERED = (MEM_PREFIX, VOTE_PREFIX)
 #: a sample's parts, in bytes (None: not readable on this host)
 MEM_PARTS = (
     "rss",  # resident set (/proc/self/statm)
